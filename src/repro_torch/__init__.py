@@ -1,0 +1,34 @@
+"""PyTorch + CUDA port of :mod:`repro` (single-device Graph500 BFS path).
+
+The layout mirrors ``src/repro/`` module for module, so each port module's
+counterpart is easy to find.  The package imports ``torch`` and numpy only:
+no JAX and no ``repro`` module, not even the numpy-only ones — it keeps its
+own copies (``graphgen``, ``core.validate``).
+
+Entry points take ``device=None``, which means the first CUDA card; they
+raise when no card is present instead of carrying on on the CPU.  Tests
+pass ``device="cpu"`` explicitly, which routes every kernel wrapper to its
+plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device is checked for availability.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and no card is present: the port never falls back to the CPU
+    on its own.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: no CUDA device is available; pass device='cpu' to "
+            "run the plain PyTorch versions of the kernels"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    return dev

@@ -1,0 +1,226 @@
+"""Local-expansion backends: the block storage one BFS level expands over.
+
+The port's counterpart of ``repro/core/expand.py`` (id payloads only).
+Three backends, resolved by name:
+
+* ``coo``    — the flat min over the sentinel-padded edge arrays, a
+  ``scatter_reduce_(..., "amin")`` into an INF-filled ``(n+1)`` row per
+  plane with the sentinel row sliced off.  Plain PyTorch, as the reference
+  leaves it to XLA's ``segment_min`` outside any Pallas kernel.
+* ``ell``    — a dense ``(rows, k)`` neighbor slab driven through the
+  :mod:`repro_torch.kernels.spmv` push/pull kernels (``k`` covers the
+  heaviest row).
+* ``hybrid`` — rows with degree <= ``k`` on an ELL slab, the hub residue
+  COO (``k`` from :func:`repro_torch.graphgen.builder.select_split_k`);
+  also reachable as ``auto``.
+
+Every backend gives bit-identical ``(B, n_rows)`` min-candidate planes:
+each row's edge set lives in exactly one structure, and min commutes with
+the split.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.algebra import INF
+from repro_torch.graphgen import builder
+from repro_torch.kernels.bitpack import ops as bp_ops
+from repro_torch.kernels.bitpack.ref import chunk_pad
+from repro_torch.kernels.spmv import ops as spmv_ops
+from repro_torch.kernels.spmv import ref as spmv_ref
+
+ALIASES = {"auto": "hybrid"}
+
+
+def _pack_planes(bits: torch.Tensor) -> torch.Tensor:
+    """(B, m) bool membership planes -> (B, chunk_pad(m)/32) packed words
+    (the vertical width-1 layout every bitmap probe uses).  The pack kernel
+    reads the bool planes in place and masks the ragged last chunk."""
+    return bp_ops.pack_planes(bits, 1)
+
+
+def _put(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host array or tensor -> contiguous ``dtype`` tensor on ``device``."""
+    return torch.as_tensor(a, device=device).to(dtype).contiguous()
+
+
+class LocalBlock(NamedTuple):
+    """Expansion-ready storage of one graph block.
+
+    ``src``/``dst`` hold COO edges — the whole graph for ``coo``, the hub
+    residue for ``hybrid``, none for ``ell``; ``dst`` is int64, the index
+    type of ``scatter_reduce_``.  ``nbr`` is the ELL slab or ``None``.
+    Sentinels: ``n_cols`` on the source side, ``n_rows`` on the
+    destination side.
+    """
+
+    src: torch.Tensor  # (e,) int32 sources
+    dst: torch.Tensor  # (e,) int64 destinations
+    nbr: torch.Tensor | None  # (n_rows, k) int32 ELL slab, sentinel n_cols
+    n_rows: int
+    n_cols: int
+
+
+def _coo_push(src, dst, n_rows: int, n_cols: int, f: torch.Tensor) -> torch.Tensor:
+    """(B, n_cols) frontier planes -> (B, n_rows) min frontier source per
+    destination.  One plane at a time, so the (e,) temporaries stay one
+    plane wide."""
+    out = torch.full((f.shape[0], n_rows + 1), INF, dtype=torch.int32, device=f.device)
+    valid = src < n_cols
+    s_cl = torch.clamp(src, 0, n_cols - 1)
+    for p in range(f.shape[0]):
+        cand = torch.where(f[p][s_cl] & valid, src, INF)
+        out[p].scatter_reduce_(0, dst, cand, "amin")
+    return out[:, :n_rows]
+
+
+def _coo_pull(src, dst, n_rows: int, n_cols: int, f, unreached) -> torch.Tensor:
+    """Pull over COO edges: the frontier is probed through its *packed*
+    bitmap, and only unreached destinations accumulate candidates."""
+    n_cp = chunk_pad(n_cols)
+    words = _pack_planes(f)
+    out = torch.full((f.shape[0], n_rows + 1), INF, dtype=torch.int32, device=f.device)
+    valid = (src < n_cols) & (dst < n_rows)
+    d_cl = torch.clamp(dst, 0, n_rows - 1)
+    for p in range(f.shape[0]):
+        hit = spmv_ref.frontier_bit(words[p], src, n_cp) & unreached[p][d_cl] & valid
+        cand = torch.where(hit, src, INF)
+        out[p].scatter_reduce_(0, dst, cand, "amin")
+    return out[:, :n_rows]
+
+
+def _ell_push(nbr, n_cols: int, f) -> torch.Tensor:
+    return spmv_ops.spmv_min_planes(nbr, _pack_planes(f), chunk_pad(n_cols))
+
+
+def _ell_pull(nbr, n_cols: int, f, unreached) -> torch.Tensor:
+    return spmv_ops.spmv_pull_min_planes(
+        nbr, _pack_planes(f), _pack_planes(unreached), chunk_pad(n_cols)
+    )
+
+
+class ExpansionBackend:
+    """One local-expansion data structure (or a degree split over two).
+
+    ``graph_arrays`` builds the backend's extra host arrays (numpy; ``()``
+    for COO) from the flat edge list; ``local_block`` moves what the
+    backend keeps of those onto ``device`` as a :class:`LocalBlock`;
+    ``push_planes`` / ``pull_planes`` expand all B frontier planes at once
+    into ``(B, n_rows)`` min-candidate ids (INF where none).
+    """
+
+    name: str = ""
+
+    def graph_arrays(self, src, dst, n: int) -> tuple[np.ndarray, ...]:
+        return ()
+
+    def local_block(self, src, dst, extra, n_rows: int, n_cols: int,
+                    device: torch.device) -> LocalBlock:
+        raise NotImplementedError
+
+    def push_planes(self, blk: LocalBlock, f: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def pull_planes(self, blk: LocalBlock, f, unreached) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class CooExpansion(ExpansionBackend):
+    name = "coo"
+
+    def local_block(self, src, dst, extra, n_rows, n_cols, device):
+        if len(extra):
+            raise ValueError(f"coo takes no extra arrays, got {len(extra)}")
+        return LocalBlock(src=_put(src, torch.int32, device),
+                          dst=_put(dst, torch.int64, device),
+                          nbr=None, n_rows=n_rows, n_cols=n_cols)
+
+    def push_planes(self, blk, f):
+        return _coo_push(blk.src, blk.dst, blk.n_rows, blk.n_cols, f)
+
+    def pull_planes(self, blk, f, unreached):
+        return _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached)
+
+
+class EllExpansion(ExpansionBackend):
+    name = "ell"
+
+    def graph_arrays(self, src, dst, n):
+        nbr, _ = builder.ell_graph_arrays(np.asarray(src), np.asarray(dst), n)
+        return (nbr,)
+
+    def local_block(self, src, dst, extra, n_rows, n_cols, device):
+        (nbr,) = extra
+        none = np.zeros(0, np.int32)
+        return LocalBlock(src=_put(none, torch.int32, device),
+                          dst=_put(none, torch.int64, device),
+                          nbr=_put(nbr, torch.int32, device),
+                          n_rows=n_rows, n_cols=n_cols)
+
+    def push_planes(self, blk, f):
+        return _ell_push(blk.nbr, blk.n_cols, f)
+
+    def pull_planes(self, blk, f, unreached):
+        return _ell_pull(blk.nbr, blk.n_cols, f, unreached)
+
+
+class HybridExpansion(ExpansionBackend):
+    """Degree-split COO/ELL: low-degree rows on the slab, hubs in COO."""
+
+    name = "hybrid"
+
+    def graph_arrays(self, src, dst, n):
+        nbr, res_s, res_d, _ = builder.hybrid_graph_arrays(
+            np.asarray(src), np.asarray(dst), n)
+        return (nbr, res_s, res_d)
+
+    def local_block(self, src, dst, extra, n_rows, n_cols, device):
+        nbr, res_src, res_dst = extra
+        return LocalBlock(src=_put(res_src, torch.int32, device),
+                          dst=_put(res_dst, torch.int64, device),
+                          nbr=_put(nbr, torch.int32, device),
+                          n_rows=n_rows, n_cols=n_cols)
+
+    def push_planes(self, blk, f):
+        return torch.minimum(
+            _ell_push(blk.nbr, blk.n_cols, f),
+            _coo_push(blk.src, blk.dst, blk.n_rows, blk.n_cols, f),
+        )
+
+    def pull_planes(self, blk, f, unreached):
+        return torch.minimum(
+            _ell_pull(blk.nbr, blk.n_cols, f, unreached),
+            _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached),
+        )
+
+
+BACKENDS = {b.name: b for b in (CooExpansion(), EllExpansion(), HybridExpansion())}
+
+
+def resolve(name: str) -> ExpansionBackend:
+    """Expansion backend by name (``coo`` | ``ell`` | ``hybrid`` | ``auto``)."""
+    try:
+        return BACKENDS[ALIASES.get(name, name)]
+    except KeyError:
+        raise ValueError(
+            f"unknown expansion backend {name!r}; have {sorted(BACKENDS)} "
+            f"and aliases {sorted(ALIASES)}"
+        ) from None
+
+
+def block_from_arrays(expand: str, src, dst, extra, n: int, device=None) -> LocalBlock:
+    """The port's :class:`LocalBlock` from host arrays.
+
+    ``src``/``dst`` are the flat (m,) edge arrays and ``extra`` the numpy
+    containers that ``ExpansionBackend.graph_arrays`` (or
+    ``builder.hybrid_graph_arrays``) returns — in the port or in the JAX
+    package, which build the same arrays.  This is what carries a graph's
+    state onto the device.
+    """
+    return resolve(expand).local_block(src, dst, tuple(extra), n, n,
+                                       resolve_device(device))

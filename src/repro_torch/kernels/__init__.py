@@ -1,0 +1,171 @@
+"""Hand-written CUDA kernels for Hopper, built at first use and bound with ctypes.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together) and linked into one shared
+library with a plain C interface, which :func:`library` loads with
+``ctypes``.  The build lands in ``build/repro_torch/<hash>/`` at the repo
+root (git-ignored), keyed by a hash of the sources and flags, so a second
+process reuses it.  Nothing builds at import time: the CPU tests import
+every module on a machine without ``nvcc``.
+
+Each kernel module (``bitpack``, ``popcount``, ``spmv``) has a plain
+PyTorch version in ``ref.py`` and a wrapper in ``ops.py``.  The wrapper
+takes the plain version only for tensors that lie on the CPU; for CUDA
+tensors it launches the kernel through :func:`launch` or raises.  There is
+no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "librepro_torch_kernels.so"
+
+#: Kernel launches by kernel name.  A wrapper adds one where it launches its
+#: kernel and nowhere else, so a run can show that it went through the
+#: kernels; :func:`reset_launches` zeroes the counts.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_funcs: dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/*.cu`` into one shared library (cached by content).
+
+    Returns the library path and the compilers' output (``ptxas -v``
+    register and shared-memory report; empty when the cached build was
+    reused).  Raises ``RuntimeError`` with nvcc's output on failure.
+    """
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + sources:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib, ""
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        jobs = []
+        for src in sources:
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, obj, proc))
+        logs, failed = [], []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, lib)
+    return lib, "\n".join(logs)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def cfunc(name: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``name`` with its arguments declared.
+
+    Pointers are ``c_void_p``; the CUDA stream is appended as the last
+    ``c_void_p``.  Every entry point returns ``cudaGetLastError()``.
+    """
+    fn = _funcs.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _funcs[name] = fn
+    return fn
+
+
+def launch(kernel: str, name: str, argtypes, *args) -> None:
+    """Launch C entry point ``name`` on PyTorch's current stream, raise if
+    the launch was refused, and count one launch of ``kernel``."""
+    fn = cfunc(name, argtypes)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        msg = library().rt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    LAUNCHES[kernel] += 1
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when all are on
+    the CPU; anything else (mixed, or another device type) raises."""
+    devices = {t.device for t in tensors}
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len(devices) == 1:
+        return True
+    raise ValueError(
+        f"tensors must all lie on the CPU or all on one CUDA device, got "
+        f"{sorted(str(d) for d in devices)}"
+    )
+
+
+def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """Check what a kernel takes: dtype, rank and a contiguous layout."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong

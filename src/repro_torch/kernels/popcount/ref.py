@@ -1,0 +1,21 @@
+"""Plain PyTorch version of the popcount kernels (SWAR over int64 lanes
+masked to 32 bits: PyTorch has no shifts on ``uint32`` and int32 ``>>`` is
+arithmetic, so ``>> 24`` on an int32 word would smear the sign bit)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def popcount_words(words: torch.Tensor) -> torch.Tensor:
+    """Per-word bit counts of int32 words holding uint32 bit patterns."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def popcount_planes(words: torch.Tensor) -> torch.Tensor:
+    """(B, W) words -> (B,) int32 per-plane bit counts."""
+    return popcount_words(words).sum(dim=1, dtype=torch.int32)

@@ -1,0 +1,157 @@
+"""Port kernels vs the JAX package's Pallas kernels (interpret mode) and
+their oracles.  On the CPU every port wrapper runs its plain PyTorch
+version; the CUDA kernels themselves are held against those versions on
+the card (``tests/test_torch_gpu.py`` and ``chip_smoke.py``)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.bitpack import bitpack as jbitpack
+from repro.kernels.bitpack import ops as jbp_ops
+from repro.kernels.bitpack import ref as jbp_ref
+from repro.kernels.popcount import ops as jpc_ops
+from repro.kernels.popcount import popcount as jpopcount
+from repro.kernels.popcount import ref as jpc_ref
+from repro.kernels.spmv import ops as jsp_ops
+from repro.kernels.spmv import pull as jpull
+from repro.kernels.spmv import spmv as jspmv
+from repro_torch import kernels
+from repro_torch.kernels.bitpack import ops as bp_ops
+from repro_torch.kernels.bitpack import ref as bp_ref
+from repro_torch.kernels.popcount import ops as pc_ops
+from repro_torch.kernels.popcount import ref as pc_ref
+from repro_torch.kernels.spmv import ops as sp_ops
+from repro_torch.kernels.spmv import ref as sp_ref
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _i32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32))
+
+
+def _values(rng, shape, b):
+    return rng.integers(0, 2**b, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("b", bp_ref.B_CLASSES)
+@pytest.mark.parametrize("n", [1024, 4096, 12288])
+def test_pack_matches_jax(b, n):
+    rng = np.random.default_rng(31 * b + n)
+    vals = _values(rng, n, b)
+    expect = np.asarray(jbp_ref.pack(jnp.asarray(vals), b))
+    np.testing.assert_array_equal(_u32(bp_ops.pack(_i32(vals), b)), expect)
+    if n % jbitpack.VALS_PER_BLOCK == 0:
+        pallas = jbitpack.pack_pallas(jnp.asarray(vals), b, interpret=True)
+        np.testing.assert_array_equal(np.asarray(pallas), expect)
+
+
+@pytest.mark.parametrize("b", bp_ref.B_CLASSES)
+def test_pack_planes_matches_jax(b):
+    rng = np.random.default_rng(b)
+    vals = _values(rng, (3, 2048), b)
+    expect = np.asarray(jbp_ops.pack_planes(jnp.asarray(vals), b))
+    np.testing.assert_array_equal(_u32(bp_ops.pack_planes(_i32(vals), b)), expect)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1025, 5000])
+def test_pack_planes_ragged_bool_is_zero_padded_pack(n):
+    """Ragged bool planes pack as the reference packs their zero-padded
+    uint32 copy (expand.py:72-76), which the port never materializes."""
+    rng = np.random.default_rng(n)
+    bits = rng.random((4, n)) < 0.4
+    padded = np.zeros((4, n + (-n) % 1024), np.uint32)
+    padded[:, :n] = bits
+    expect = np.asarray(jbp_ops.pack_planes(jnp.asarray(padded), 1))
+    for planes in (torch.from_numpy(bits), torch.from_numpy(bits.astype(np.uint8))):
+        np.testing.assert_array_equal(_u32(bp_ops.pack_planes(planes, 1)), expect)
+
+
+@pytest.mark.parametrize("w", [1024, 2048, 1500, 7])
+def test_popcount_planes_matches_jax(w):
+    rng = np.random.default_rng(w)
+    words = rng.integers(0, 2**32, size=(5, w), dtype=np.uint64).astype(np.uint32)
+    expect = np.asarray(jpc_ops.popcount_planes(jnp.asarray(words)))
+    got = pc_ops.popcount_planes(_i32(words))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), expect)
+    if w % jpopcount.WORDS_PER_BLOCK == 0:
+        pallas = jpopcount.popcount_planes_pallas(jnp.asarray(words), interpret=True)
+        np.testing.assert_array_equal(np.asarray(pallas).sum(axis=1), expect)
+    np.testing.assert_array_equal(
+        pc_ops.popcount_words(_i32(words)).numpy(),
+        np.asarray(jpc_ref.popcount_words(jnp.asarray(words))),
+    )
+
+
+def _spmv_inputs(rng, n_rows, k, n_real, planes, density=0.2, unreached=0.5):
+    nbr = rng.integers(0, n_real, size=(n_rows, k)).astype(np.int32)
+    nbr[rng.random((n_rows, k)) < 0.3] = n_real  # pad slots hold the sentinel
+    f_bits = np.zeros((planes, n_real + (-n_real) % 1024), np.uint32)
+    f_bits[:, :n_real] = rng.random((planes, n_real)) < density
+    u_bits = np.zeros((planes, n_rows + (-n_rows) % 1024), np.uint32)
+    u_bits[:, :n_rows] = rng.random((planes, n_rows)) < unreached
+    f = np.asarray(jbp_ops.pack_planes(jnp.asarray(f_bits), 1))
+    u = np.asarray(jbp_ops.pack_planes(jnp.asarray(u_bits), 1))
+    return nbr, f, u, f_bits.shape[1]
+
+
+@pytest.mark.parametrize("n_rows,k,planes", [(1024, 8, 3), (2048, 16, 2)])
+def test_spmv_aligned_matches_pallas(n_rows, k, planes):
+    rng = np.random.default_rng(n_rows + k)
+    nbr, f, u, n_cols = _spmv_inputs(rng, n_rows, k, 4096, planes)
+    push = np.asarray(jspmv.spmv_min_planes_pallas(
+        jnp.asarray(nbr), jnp.asarray(f), n_cols, interpret=True))
+    pull = np.asarray(jpull.spmv_pull_min_planes_pallas(
+        jnp.asarray(nbr), jnp.asarray(f), jnp.asarray(u), n_cols, interpret=True))
+    t_nbr, t_f, t_u = torch.from_numpy(nbr), _i32(f), _i32(u)
+    np.testing.assert_array_equal(sp_ops.spmv_min_planes(t_nbr, t_f, n_cols).numpy(), push)
+    np.testing.assert_array_equal(
+        sp_ops.spmv_pull_min_planes(t_nbr, t_f, t_u, n_cols).numpy(), pull)
+
+
+@pytest.mark.parametrize("n_rows,k,n_real,planes", [(1500, 13, 4500, 3), (77, 1, 100, 9),
+                                                    (3001, 5, 2048, 1)])
+def test_spmv_ragged_matches_jax_ops(n_rows, k, n_real, planes):
+    rng = np.random.default_rng(n_rows * k)
+    nbr, f, u, n_cols = _spmv_inputs(rng, n_rows, k, n_real, planes)
+    push = np.asarray(jsp_ops.spmv_min_planes(jnp.asarray(nbr), jnp.asarray(f), n_cols))
+    pull = np.asarray(jsp_ops.spmv_pull_min_planes(
+        jnp.asarray(nbr), jnp.asarray(f), jnp.asarray(u), n_cols))
+    t_nbr, t_f, t_u = torch.from_numpy(nbr), _i32(f), _i32(u)
+    np.testing.assert_array_equal(sp_ops.spmv_min_planes(t_nbr, t_f, n_cols).numpy(), push)
+    np.testing.assert_array_equal(
+        sp_ops.spmv_pull_min_planes(t_nbr, t_f, t_u, n_cols).numpy(), pull)
+
+
+def test_frontier_bit_matches_jax():
+    from repro.kernels.spmv import ref as jsp_ref
+
+    rng = np.random.default_rng(3)
+    bits = np.zeros(3072, np.uint32)
+    bits[rng.choice(3072, 700, replace=False)] = 1
+    words = np.asarray(jbp_ref.pack(jnp.asarray(bits), 1))
+    idx = rng.integers(0, 3500, size=(40, 7)).astype(np.int32)
+    expect = np.asarray(jsp_ref.frontier_bit(jnp.asarray(words), jnp.asarray(idx), 3072))
+    got = sp_ref.frontier_bit(_i32(words), torch.from_numpy(idx), 3072)
+    np.testing.assert_array_equal(got.numpy(), expect)
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes the plain version only for CPU tensors; anything
+    else that is not one CUDA device raises instead of running it."""
+    meta = torch.zeros((2, 1024), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        bp_ops.pack_planes(meta, 1)
+    with pytest.raises(ValueError):
+        pc_ops.popcount_planes(torch.zeros((2, 32), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        sp_ops.spmv_min_planes(torch.zeros((4, 2), dtype=torch.int32),
+                               torch.zeros((1, 32), dtype=torch.int32, device="meta"), 1024)
+    with pytest.raises(ValueError):
+        bp_ops.pack_planes(torch.zeros((1, 8), dtype=torch.int32), 3)
+    assert kernels.on_cuda(torch.zeros(1)) is False
