@@ -90,9 +90,9 @@ class TraversalPolicy:
     """One expansion direction, or a per-level switch over them.
 
     ``propose_batch`` produces the (B, n) candidate-parent planes.
-    ``passes``, when given, is the host's ``(run_top_down, run_bottom_up)``
-    decision for this level (from the per-level host copy); without it a
-    switching policy reads the flags from the device.
+    ``passes`` is the host's ``(run_top_down, run_bottom_up)`` decision for
+    this level, from the per-level host copy (:func:`host_passes`); only a
+    switching policy reads it.
     """
 
     name: str = ""
@@ -101,7 +101,7 @@ class TraversalPolicy:
     uses_bottom_up: bool = False
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      plane_mask=None, passes=None) -> torch.Tensor:
+                      passes, plane_mask=None) -> torch.Tensor:
         raise NotImplementedError
 
     def next_direction(self, oracle: DensityOracle, count, use_bu, m_f=None,
@@ -116,7 +116,7 @@ class TopDownPolicy(TraversalPolicy):
     name = "top_down"
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      plane_mask=None, passes=None):
+                      passes, plane_mask=None):
         return expand.push_planes(block, frontier)
 
 
@@ -127,7 +127,7 @@ class BottomUpPolicy(TraversalPolicy):
     uses_bottom_up = True
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      plane_mask=None, passes=None):
+                      passes, plane_mask=None):
         mask = value < 0
         if plane_mask is not None:
             mask = mask & plane_mask[:, None]
@@ -151,23 +151,22 @@ class DirectionOptPolicy(TraversalPolicy):
         self._bu = BottomUpPolicy()
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      plane_mask=None, passes=None):
+                      passes, plane_mask=None):
         act = frontier.any(dim=1)
         td_mask = ~use_bu & act
         bu_mask = use_bu & act
-        if passes is None:
-            passes = (bool(td_mask.any()), bool(bu_mask.any()))
         run_td, run_bu = passes
         out = None
         if run_td:
             out = self._td.propose_batch(expand, block, value,
-                                         frontier & td_mask[:, None], use_bu)
+                                         frontier & td_mask[:, None], use_bu,
+                                         passes)
         if run_bu:
             # the pull pass's mask is restricted to its planes, so it
             # proposes nothing for planes riding the push direction
             bu = self._bu.propose_batch(expand, block, value,
                                         frontier & bu_mask[:, None], use_bu,
-                                        plane_mask=bu_mask)
+                                        passes, plane_mask=bu_mask)
             out = bu if out is None else torch.minimum(out, bu)
         if out is None:
             out = torch.full(value.shape, INF, dtype=torch.int32, device=value.device)
@@ -212,7 +211,7 @@ def level_once(policy: TraversalPolicy, oracle: DensityOracle, alg,
     """
     proposed = policy.propose_batch(
         expand, block, state.value, state.frontier, state.use_bu,
-        passes=host_passes(state),
+        host_passes(state),
     )
     value, new = alg.update(state.value, proposed)
     counts = oracle.plane_counts(new)

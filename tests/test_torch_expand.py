@@ -113,13 +113,13 @@ def test_policy_passes_are_gated_per_direction():
     frontier = torch.from_numpy(_planes(rng, 3, g.n, 0.05))
     value = torch.where(frontier, 0, -1).to(torch.int32)
     use_bu = torch.tensor([False, True, False])
-    both = pol.propose_batch(backend, block, value, frontier, use_bu)
-    td_only = pol.propose_batch(backend, block, value, frontier, use_bu, passes=(True, False))
+    both = pol.propose_batch(backend, block, value, frontier, use_bu, (True, True))
+    td_only = pol.propose_batch(backend, block, value, frontier, use_bu, (True, False))
     push = backend.push_planes(block, frontier)
     np.testing.assert_array_equal(td_only[[0, 2]].numpy(), push[[0, 2]].numpy())
     assert bool((td_only[1] == expand.INF).all())
     assert torch.equal(both[[0, 2]], td_only[[0, 2]])
-    none = pol.propose_batch(backend, block, value, frontier, use_bu, passes=(False, False))
+    none = pol.propose_batch(backend, block, value, frontier, use_bu, (False, False))
     assert bool((none == expand.INF).all())
     with pytest.raises(ValueError):
         traversal.resolve("sideways")
