@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's single-device Graph500 BFS path on one NVIDIA card:
+Drives the port's two Graph500 BFS paths on one NVIDIA card, the
+single-device one and the 2D-distributed one on a simulated grid:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
 3. holds every kernel against its plain PyTorch version on the card, for
-   exact equality, at ragged small shapes and at the main path's own
+   exact equality, at ragged small shapes and at the single-device path's
    shapes (B=8 planes of the scale-S graph, its hybrid slab, a real
    frontier and unreached plane), and times kernel and plain version;
 4. runs the Graph500 harness (scale S, edgefactor 16, seed 1, 64 valid
    roots in batches of 8, ``direction_opt`` + ``hybrid``, every tree
    validated) with the launch counts zeroed just before and read just
    after; every kernel of the path must have launched;
-5. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
-   ``direction_opt`` on the card and ``direction_opt`` on the CPU give
+5. partitions the same graph onto a simulated 2x2 grid and runs the
+   distributed BFS (``auto`` + ``direction_opt`` + ``hybrid``) on 16 of
+   the roots in batches of 8, counts zeroed before and read after: every
+   tree valid, every kernel of the path launched, the first batch equal to
+   the single-device run; the first batch again under ``raw`` gives the
+   per-phase bytes of both wire plans.  Before the counted run, one batch
+   records the inputs the path gives each kernel (a rank's frontier
+   planes, its column slice, unreached plane and slab, the id streams at
+   every bucket it used, what it unpacks); each is held against its plain
+   version exactly and timed beside its bound, as is unpack on a 16-bit id
+   stream at cap 16,384;
+6. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
+   ``direction_opt`` on the card, single-device and on the 2x2 grid under
+   ``raw``, ``bitmap`` and ``auto``, and ``direction_opt`` on the CPU give
    bit-identical parents, levels and level counts.
 
     python3 chip_smoke.py [--scale 22]
@@ -28,11 +41,14 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -40,18 +56,31 @@ CHECK_SCALE = 16  # the cross-check's graph, small enough for the CPU run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores: the
 #                        published 32-bit scalar rate the integer ops are held to
+GRID = (2, 2)  # the simulated grid of the distributed path
+DIST_ROOTS = 16
 REPLACES = {
     "pack": "src/repro/kernels/bitpack/bitpack.py:50",
+    "unpack": "src/repro/kernels/bitpack/bitpack.py:72",
+    "popcount_blocks": "src/repro/kernels/popcount/popcount.py:32",
     "popcount_planes": "src/repro/kernels/popcount/popcount.py:50",
+    "spmv_min": "src/repro/kernels/spmv/spmv.py:203",
     "spmv_min_planes": "src/repro/kernels/spmv/spmv.py:171",
+    "spmv_pull_min": "src/repro/kernels/spmv/pull.py:122",
     "spmv_pull_min_planes": "src/repro/kernels/spmv/pull.py:89",
 }
 SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/bitpack.cu",
+    "unpack": "src/repro_torch/kernels/csrc/bitpack.cu",
+    "popcount_blocks": "src/repro_torch/kernels/csrc/popcount.cu",
     "popcount_planes": "src/repro_torch/kernels/csrc/popcount.cu",
+    "spmv_min": "src/repro_torch/kernels/csrc/spmv.cu",
     "spmv_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
+    "spmv_pull_min": "src/repro_torch/kernels/csrc/spmv.cu",
     "spmv_pull_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
 }
+#: the kernels each main path must launch
+GRAPH500_PATH = ("pack", "popcount_planes", "spmv_min_planes", "spmv_pull_min_planes")
+DIST_PATH = GRAPH500_PATH + ("unpack",)
 
 
 def card_line() -> str:
@@ -106,10 +135,19 @@ def check_ragged() -> None:
         expect(same(bp_ops.pack_planes(bits, 1), bp_ref.pack_planes(bits, 1)), ('pack bool', n))
         expect(same(bp_ops.pack_planes(bits.to(torch.uint8), 1), bp_ref.pack_planes(bits, 1)),
                ('pack uint8', n))
+    for planes, chunks in ((1, 1), (3, 5), (7, 2)):
+        for b in bp_ref.B_CLASSES:
+            w = torch.randint(-2**31, 2**31 - 1, (planes, chunks * 32 * b), generator=gen,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+            expect(same(bp_ops.unpack_planes(w, b), bp_ref.unpack_planes(w, b)),
+                   ('unpack', planes, chunks, b))
     words = torch.randint(-2**31, 2**31 - 1, (5, 1500), generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
     expect(same(pc_ops.popcount_planes(words), pc_ref.popcount_planes(words)), 'popcount_planes')
     expect(same(pc_ops.popcount_words(words), pc_ref.popcount_words(words)), 'popcount_words')
+    for w in (7, 1024, 1500, 5000):
+        expect(same(pc_ops.popcount_blocks(words.reshape(-1)[:w]),
+                    pc_ref.popcount_blocks(words.reshape(-1)[:w])), ('popcount_blocks', w))
     for n_rows, k, planes in ((3001, 13, 11), (1024, 8, 8), (77, 1, 3)):
         n_real = 4500
         n_cols = n_real + (-n_real) % 1024
@@ -122,13 +160,41 @@ def check_ragged() -> None:
                     sp_ref.spmv_min_planes(nbr, f, n_cols)), ("push", n_rows, k, planes))
         expect(same(sp_ops.spmv_pull_min_planes(nbr, f, u, n_cols),
                     sp_ref.spmv_pull_min_planes(nbr, f, u, n_cols)), ("pull", n_rows, k, planes))
+        expect(same(sp_ops.spmv_min(nbr, f[0], n_cols), sp_ref.spmv_min(nbr, f[0], n_cols)),
+               ("push one plane", n_rows, k))
+        expect(same(sp_ops.spmv_pull_min(nbr, f[0], u[0], n_cols),
+                    sp_ref.spmv_pull_min(nbr, f[0], u[0], n_cols)), ("pull one plane", n_rows, k))
     torch.cuda.synchronize()
 
 
-def main_shape_rows(setup, roots) -> dict:
-    """Kernel vs plain version at the main path's shapes: B=8 planes of the
-    graph, its slab, and the frontier/unreached planes of a real batch at
-    its densest level (timed) and at level 1 (a sparse frontier)."""
+def _row(name, kern, plain, nbytes, ops_n, shape, reps=50) -> dict:
+    """Check ``kern`` against ``plain`` exactly, time both and bound the
+    work: the larger of the bytes over the memory rate and the integer
+    operations over the 32-bit scalar rate."""
+    import torch
+
+    a, b = kern(), plain()
+    torch.cuda.synchronize()
+    expect(same(a, b), (name, shape))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / ALU_OPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": None,
+        "max_abs_err": int((a.to(torch.int64) - b.to(torch.int64)).abs().max()),
+        "ms": time_ms(kern, reps), "plain_ms": time_ms(plain, 5),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "shape": shape,
+    }
+
+
+def main_shape_rows(setup, roots):
+    """Kernel vs plain version at the single-device path's shapes: B=8
+    planes of the graph, its slab, and the frontier/unreached planes of a
+    real batch at its densest level (timed) and at level 1 (a sparse
+    frontier); the single-plane entries on plane 0.  Returns the rows and
+    the single-device BFS of ``roots``."""
     import torch
     from repro_torch.core import bfs as bfsmod
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
@@ -143,59 +209,267 @@ def main_shape_rows(setup, roots) -> dict:
     sizes = torch.stack([(level == d).sum() for d in range(1, res.n_levels + 1)])
     dense = int(sizes.argmax()) + 1
     n_cp = bp_ref.chunk_pad(n)
+    r, k = nbr.shape
     rows = {}
     for d in sorted({1, dense}):
         frontier = level == d
         unreached = (level < 0) | (level > d)
         f = bp_ops.pack_planes(frontier, 1)
         u = bp_ops.pack_planes(unreached, 1)
+        planes, wf, wu = frontier.shape[0], f.shape[1], u.shape[1]
+        live = int(unreached.any(dim=0).sum())  # pull reads only these slab rows
+        live0 = int(unreached[0].sum())
+        shape = {"planes": planes, "n": n, "slab": [r, k], "level": d,
+                 "frontier": int(frontier.sum()), "unreached": int(unreached.sum())}
         checks = {
             "pack": (lambda: bp_ops.pack_planes(frontier, 1),
-                     lambda: bp_ref.pack_planes(frontier, 1)),
+                     lambda: bp_ref.pack_planes(frontier, 1),
+                     planes * n + planes * wf * 4, 2 * planes * n_cp),
             "popcount_planes": (lambda: pc_ops.popcount_planes(f),
-                                lambda: pc_ref.popcount_planes(f)),
+                                lambda: pc_ref.popcount_planes(f),
+                                planes * wf * 4 + planes * 4, 2 * planes * wf),
+            "popcount_blocks": (lambda: pc_ops.popcount_blocks(f[0]),
+                                lambda: pc_ref.popcount_blocks(f[0]),
+                                wf * 4 + -(-wf // 1024) * 4, 2 * wf),
             "spmv_min_planes": (lambda: sp_ops.spmv_min_planes(nbr, f, n_cp),
-                                lambda: sp_ref.spmv_min_planes(nbr, f, n_cp)),
-            "spmv_pull_min_planes": (lambda: sp_ops.spmv_pull_min_planes(nbr, f, u, n_cp),
-                                     lambda: sp_ref.spmv_pull_min_planes(nbr, f, u, n_cp)),
+                                lambda: sp_ref.spmv_min_planes(nbr, f, n_cp),
+                                r * k * 4 + planes * wf * 4 + planes * r * 4,
+                                4 * r * k * planes),
+            "spmv_min": (lambda: sp_ops.spmv_min(nbr, f[0], n_cp),
+                         lambda: sp_ref.spmv_min(nbr, f[0], n_cp),
+                         r * k * 4 + wf * 4 + r * 4, 4 * r * k),
+            "spmv_pull_min_planes": (
+                lambda: sp_ops.spmv_pull_min_planes(nbr, f, u, n_cp),
+                lambda: sp_ref.spmv_pull_min_planes(nbr, f, u, n_cp),
+                live * k * 4 + planes * (wf + wu) * 4 + planes * r * 4,
+                4 * int(unreached.sum()) * k),
+            "spmv_pull_min": (lambda: sp_ops.spmv_pull_min(nbr, f[0], u[0], n_cp),
+                              lambda: sp_ref.spmv_pull_min(nbr, f[0], u[0], n_cp),
+                              live0 * k * 4 + (wf + wu) * 4 + r * 4, 4 * live0 * k),
         }
-        for name, (kern, plain) in checks.items():
-            a, b = kern(), plain()
-            torch.cuda.synchronize()
-            expect(same(a, b), (name, "level", d))
-            err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-            if d != dense:
-                continue
-            planes, r = frontier.shape[0], nbr.shape[0]
-            wf, wu = f.shape[1], u.shape[1]
-            k = nbr.shape[1]
-            if name == "pack":
-                nbytes, ops_n = planes * n + planes * wf * 4, 2 * planes * n_cp
-            elif name == "popcount_planes":
-                nbytes, ops_n = planes * wf * 4 + planes * 4, 2 * planes * wf
-            elif name == "spmv_min_planes":
-                nbytes = r * k * 4 + planes * wf * 4 + planes * r * 4
-                ops_n = 4 * r * k * planes
-            else:  # pull: only rows still unreached in some plane read the slab
-                live = int(unreached.any(dim=0).sum())
-                probes = int(unreached.sum())
-                nbytes = live * k * 4 + planes * (wf + wu) * 4 + planes * r * 4
-                ops_n = 4 * probes * k
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops_n / ALU_OPS_PER_S * 1e3
-            rows[name] = {
-                "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": None,
-                "max_abs_err": err,
-                "ms": time_ms(kern, 50), "plain_ms": time_ms(plain, 5),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,
-                "shape": {"planes": planes, "n": n, "slab": list(nbr.shape),
-                          "level": d, "frontier": int(frontier.sum()),
-                          "unreached": int(unreached.sum())},
-            }
+        for name, (kern, plain, nbytes, ops_n) in checks.items():
+            row = _row(name, kern, plain, nbytes, ops_n, shape)
+            if d == dense:
+                rows[name] = row
+
+    return rows, res
+
+
+@contextlib.contextmanager
+def capture_path_inputs():
+    """Record the inputs the distributed path gives each of its kernels.
+
+    While active, every call of a DIST_PATH wrapper that launches its
+    kernel is passed through; per kernel and distinct argument shapes the
+    arguments of the call with the most nonzero entries in its data input
+    (the frontier for the SpMV kernels) are kept.  Yields the dict
+    ``(name, signature) -> args``."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as bp_ops
+    from repro_torch.kernels.popcount import ops as pc_ops
+    from repro_torch.kernels.spmv import ops as sp_ops
+
+    hooks = {"pack": (bp_ops, "pack_planes", 0), "unpack": (bp_ops, "unpack_planes", 0),
+             "popcount_planes": (pc_ops, "popcount_planes", 0),
+             "spmv_min_planes": (sp_ops, "spmv_min_planes", 1),
+             "spmv_pull_min_planes": (sp_ops, "spmv_pull_min_planes", 1)}
+    kept, weights = {}, {}
+
+    def recorder(name, fn, data):
+        def run(*args):
+            if args[data].numel() and not (name in ("pack", "unpack") and args[1] == 32):
+                sig = (name, tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                                   for a in args),
+                       str(args[0].dtype))
+                w = int(torch.count_nonzero(args[data]))
+                if w >= weights.get(sig, -1):
+                    kept[sig], weights[sig] = args, w
+            return fn(*args)
+        return run
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in hooks.values()]
+    for name, (mod, attr, data) in hooks.items():
+        setattr(mod, attr, recorder(name, getattr(mod, attr), data))
+    try:
+        yield kept
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def dist_shape_rows(kept, level, s) -> dict:
+    """Every DIST_PATH kernel against its plain version on the inputs one
+    distributed batch gave it (``capture_path_inputs``), timed beside its
+    bound; and unpack on a 16-bit id stream at cap 16,384 (a bucket of the
+    column ladder at s = 2**20) of the level-1 frontier.  Returns name ->
+    rows, the one moving the most bytes first."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
+    from repro_torch.kernels.popcount import ops as pc_ops, ref as pc_ref
+    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
+
+    fns = {"pack": (bp_ops.pack_planes, bp_ref.pack_planes),
+           "unpack": (bp_ops.unpack_planes, bp_ref.unpack_planes),
+           "popcount_planes": (pc_ops.popcount_planes, pc_ref.popcount_planes),
+           "spmv_min_planes": (sp_ops.spmv_min_planes, sp_ref.spmv_min_planes),
+           "spmv_pull_min_planes": (sp_ops.spmv_pull_min_planes,
+                                    sp_ref.spmv_pull_min_planes)}
+
+    def work(name, args, out):  # (bytes moved, integer operations)
+        if name == "pack":
+            x = args[0]
+            return x.numel() * x.element_size() + out.numel() * 4, 2 * x.numel()
+        if name == "unpack":
+            return args[0].numel() * 4 + out.numel() * out.element_size(), 2 * out.numel()
+        if name == "popcount_planes":
+            return args[0].numel() * 4 + out.numel() * 4, 2 * args[0].numel()
+        nbr, f = args[0], args[1]
+        r, k = nbr.shape
+        if name == "spmv_min_planes":
+            return r * k * 4 + f.numel() * 4 + out.numel() * 4, 4 * r * k * f.shape[0]
+        unreached = bp_ref.unpack_planes(args[2], 1)[:, :r]
+        live = int(unreached.any(dim=0).sum())  # pull reads only these slab rows
+        return (live * k * 4 + (f.numel() + args[2].numel()) * 4 + out.numel() * 4,
+                4 * int(unreached.sum()) * k)
+
+    rows: dict[str, list] = {}
+    for (name, sig, dtype), args in sorted(kept.items(), key=lambda kv: str(kv[0])):
+        kern, plain = fns[name]
+        nbytes, ops_n = work(name, args, kern(*args))
+        rows.setdefault(name, []).append(_row(
+            name, lambda: kern(*args), lambda: plain(*args), nbytes, ops_n,
+            {"args": [list(a) if isinstance(a, tuple) else a for a in sig],
+             "dtype": dtype}))
+    ids, counts = bp_ops.compact_ids(level[:, :s] == 1, 16384, fill=s)  # rank 0's chunk
+    low = (bp_ops.gaps_from_sorted(ids, counts) & 0xFFFF).to(torch.int32)
+    id_words = bp_ops.pack_planes(low, 16)
+    rows["unpack"].append(_row(
+        "unpack", lambda: bp_ops.unpack_planes(id_words, 16),
+        lambda: bp_ref.unpack_planes(id_words, 16),
+        id_words.numel() * 4 + id_words.numel() * 2 * 4, 2 * id_words.numel() * 2,
+        {"args": [list(id_words.shape), 16], "dtype": "torch.int32", "cap": 16384,
+         "level": 1}))
+    payload = torch.randint(0, 2**31 - 1, (level.shape[0], 16384), device="cuda",
+                            dtype=torch.int32)
+    expect(bp_ops.unpack_planes(payload, 32) is payload, "unpack b=32 is the identity")
+    for name in rows:
+        rows[name].sort(key=lambda r: r["bound_ms"], reverse=True)
     return rows
+
+
+def require_launched(counts: dict, kernels_of_path, path: str) -> None:
+    missing = [k for k in kernels_of_path if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels of the {path} path never launched: {missing}")
+
+
+def distributed_step(setup, roots, single, card) -> dict:
+    """The distributed path at full width: the scale-S graph on a simulated
+    2x2 grid, auto + direction_opt + hybrid on DIST_ROOTS roots in batches
+    of 8 with the launch counts zeroed before and read after.  The first
+    batch under raw runs first (and warms the path up); its bytes are
+    printed beside auto's; then one auto batch records the inputs each
+    kernel gets (``dist_shape_rows`` checks and times them).  Returns the
+    path's launch counts and those rows."""
+    from repro_torch import kernels
+    from repro_torch.bench import distributed
+    from repro_torch.comm import SimGrid
+
+    t0 = time.perf_counter()
+    st = distributed.setup(setup.g, SimGrid(*GRID, device="cuda"), "hybrid")
+    print(f"distributed: {GRID[0]}x{GRID[1]} grid, partition {st.partition_s:.3f}s "
+          f"containers {st.containers_s:.3f}s (chunk s={st.bg.part.chunk:,}, "
+          f"block edges {st.bg.e_counts.ravel().tolist()})")
+    droots = roots[:DIST_ROOTS]
+    raw = distributed.search(st, droots[:8], batch=8, mode="raw", validate_trees=False)
+    with capture_path_inputs() as kept:
+        distributed.search(st, droots[:8], batch=8, mode="auto", policy="direction_opt",
+                           validate_trees=False)
+    missing = sorted(set(DIST_PATH) - {name for name, _, _ in kept})
+    if missing:
+        raise AssertionError(f"the distributed path gave no input to {missing}")
+    rows = dist_shape_rows(kept, single.level, st.bg.part.chunk)
+    del kept
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"kernel {name} (distributed, rank inputs): exact at {r['shape']}; "
+                  f"{r['ms'] * 1e3:.2f} us vs plain {r['plain_ms'] * 1e3:.2f} us, bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) on {card}")
+    kernels.reset_launches()
+    out = distributed.search(st, droots, batch=8, mode="auto", policy="direction_opt")
+    counts = dict(kernels.LAUNCHES)
+    print(f"launches on the distributed path ({sum(out['depths'])} levels over "
+          f"{len(out['depths'])} batches): {counts}")
+    require_launched(counts, DIST_PATH, "distributed")
+    if out["n_valid"] != out["n_roots"]:
+        raise AssertionError(f"invalid distributed trees: {out['failures']}")
+    n = setup.g.n
+    parent, level = out["trees"][0]
+    if not (np.array_equal(parent, single.parent[:, :n].cpu().numpy())
+            and np.array_equal(level, single.level[:, :n].cpu().numpy())):
+        raise AssertionError("distributed first batch differs from the single-device run")
+    if not (np.array_equal(raw["trees"][0][0], parent)
+            and np.array_equal(raw["trees"][0][1], level)):
+        raise AssertionError("raw and auto wire plans give different trees")
+    print(f"distributed scale {setup.scale} (auto, direction_opt, hybrid): "
+          f"{out['n_valid']}/{out['n_roots']} trees valid, first batch equal to the "
+          f"single-device run; batches {[round(t, 4) for t in out['batch_s']]} s, depths "
+          f"{out['depths']}; TEPS harmonic mean {out['teps_harmonic_mean']:.6e} "
+          f"({GRID[0] * GRID[1]} ranks simulated on one card, not a multi-card figure) "
+          f"on {card}")
+    auto_z = distributed.zone_bytes(out["stats"][:1])
+    raw_z = distributed.zone_bytes(raw["stats"])
+    print("bytes over links, all ranks, first batch (raw vs auto, ratio raw/auto):")
+    for zone in sorted(set(auto_z) | set(raw_z)):
+        a, r = sum(auto_z.get(zone, {}).values()), sum(raw_z.get(zone, {}).values())
+        ratio = f"{r / a:.3f}" if a else "-"
+        print(f"  {zone:18s} raw {r:>14,}  auto {a:>14,}  ratio {ratio}  "
+              f"auto formats {auto_z.get(zone, {})}")
+    total_a = sum(sum(z.values()) for z in auto_z.values())
+    total_r = sum(sum(z.values()) for z in raw_z.values())
+    print(f"  {'total':18s} raw {total_r:>14,}  auto {total_a:>14,}  ratio "
+          f"{total_r / total_a:.3f}")
+    print(f"distributed step: {time.perf_counter() - t0:.1f}s")
+    return counts, rows
+
+
+def cross_check(card) -> None:
+    """Scale CHECK_SCALE: every policy on the card, single-device and on the
+    2x2 grid under every wire plan, equals direction_opt on the CPU."""
+    from repro_torch.bench import graph500, teps
+    from repro_torch.comm import SimGrid
+    from repro_torch.core import bfs as bfsmod, csr
+    from repro_torch.core import distributed_bfs as dbfs
+
+    small = graph500.build(CHECK_SCALE, 16, 1, "hybrid", "cuda")
+    small_cpu = graph500.build(CHECK_SCALE, 16, 1, "hybrid", "cpu")
+    sroots = teps.valid_roots(small.g, 8, seed=2)
+    results = {}
+    for policy in ("top_down", "bottom_up", "direction_opt"):
+        r = bfsmod.bfs(small.src, small.dst, sroots, small.g.n, policy=policy,
+                       expand="hybrid", device="cuda", block=small.block)
+        results[f"cuda/{policy}"] = (r.parent.cpu(), r.level.cpu(), r.n_levels)
+    r = bfsmod.bfs(small_cpu.src, small_cpu.dst, sroots, small_cpu.g.n,
+                   policy="direction_opt", expand="hybrid", device="cpu",
+                   block=small_cpu.block)
+    results["cpu/direction_opt"] = (r.parent, r.level, r.n_levels)
+    grid = SimGrid(*GRID, device="cuda")
+    bg = csr.partition_2d(small.g, *GRID)
+    n = small.g.n
+    blocks = dbfs.shard_blocked(grid, bg, dbfs.DistBFSConfig(expand="hybrid"))
+    for mode in ("raw", "bitmap", "auto"):
+        for policy in ("top_down", "bottom_up", "direction_opt"):
+            cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand="hybrid")
+            parent, level, depth = dbfs.build_bfs(grid, bg, cfg)(*blocks, sroots)
+            results[f"cuda/2x2/{mode}/{policy}"] = (parent[:, :n].cpu(), level[:, :n].cpu(),
+                                                    depth)
+    base = results["cpu/direction_opt"]
+    for key, (parent, level, depth) in results.items():
+        if not (same(parent, base[0]) and same(level, base[1]) and depth == base[2]):
+            raise AssertionError(f"{key} differs from cpu/direction_opt at scale "
+                                 f"{CHECK_SCALE}")
+    print(f"cross-check scale {CHECK_SCALE} on {card}: {len(results)} runs identical "
+          f"{sorted(results)} (parents, levels, n_levels={base[2]})")
 
 
 def main() -> int:
@@ -210,7 +484,6 @@ def main() -> int:
         return 1
     from repro_torch import kernels
     from repro_torch.bench import graph500, teps
-    from repro_torch.core import bfs as bfsmod
 
     t_start = time.perf_counter()
     card = card_line()
@@ -227,8 +500,9 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     check_ragged()
-    print("ragged shapes: pack (b=1..32, bool/uint8/int32), popcount_planes, "
-          "popcount_words, spmv push/pull: exact")
+    print("ragged shapes: pack (b=1..32, bool/uint8/int32), unpack (b=1..32), "
+          "popcount_planes, popcount_blocks, popcount_words, spmv push/pull (B planes "
+          "and one): exact")
 
     setup = graph500.build(args.scale, 16, 1, "hybrid", "cuda")
     info = graph500.summary(setup)
@@ -240,7 +514,7 @@ def main() -> int:
           f"{info['kernel1_s']:.3f}s containers {info['containers_s']:.3f}s")
     roots = teps.valid_roots(setup.g, 64, seed=2)
 
-    rows = main_shape_rows(setup, roots[:8])
+    rows, single = main_shape_rows(setup, roots[:8])
     for r in rows.values():
         print(f"kernel {r['name']}: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us vs plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -248,42 +522,32 @@ def main() -> int:
 
     kernels.reset_launches()
     out = graph500.search(setup, roots, batch=8, policy="direction_opt")
-    launches = dict(kernels.LAUNCHES)
+    launches = {"graph500": dict(kernels.LAUNCHES)}
     levels = sum(out["depths"])
     print(f"phases: bfs {out['bfs_s']:.3f}s validation {out['validation_s']:.3f}s "
           f"(batches {[round(t, 4) for t in out['batch_s']]}, depths {out['depths']})")
-    print(f"launches on the main path ({levels} levels over {len(out['depths'])} batches): "
-          f"{launches}")
-    missing = [k for k in REPLACES if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels of the path never launched: {missing}")
+    print(f"launches on the Graph500 path ({levels} levels over {len(out['depths'])} "
+          f"batches): {launches['graph500']}")
+    require_launched(launches["graph500"], GRAPH500_PATH, "Graph500")
     if out["n_valid"] != out["n_roots"]:
         raise AssertionError(f"invalid trees: {out['failures']}")
     print(f"Graph500 scale {args.scale}: {out['n_valid']}/{out['n_roots']} trees valid, "
           f"TEPS harmonic mean {out['teps_harmonic_mean']:.6e} on {card}")
 
-    small = graph500.build(CHECK_SCALE, 16, 1, "hybrid", "cuda")
-    small_cpu = graph500.build(CHECK_SCALE, 16, 1, "hybrid", "cpu")
-    sroots = teps.valid_roots(small.g, 8, seed=2)
-    results = {}
-    for policy in ("top_down", "bottom_up", "direction_opt"):
-        r = bfsmod.bfs(small.src, small.dst, sroots, small.g.n, policy=policy,
-                       expand="hybrid", device="cuda", block=small.block)
-        results[f"cuda/{policy}"] = (r.parent.cpu(), r.level.cpu(), r.n_levels)
-    r = bfsmod.bfs(small_cpu.src, small_cpu.dst, sroots, small_cpu.g.n,
-                   policy="direction_opt", expand="hybrid", device="cpu",
-                   block=small_cpu.block)
-    results["cpu/direction_opt"] = (r.parent, r.level, r.n_levels)
-    base = results["cpu/direction_opt"]
-    for key, (parent, level, depth) in results.items():
-        if not (same(parent, base[0]) and same(level, base[1]) and depth == base[2]):
-            raise AssertionError(f"{key} differs from cpu/direction_opt at scale "
-                                 f"{CHECK_SCALE}")
-    print(f"cross-check scale {CHECK_SCALE}: {sorted(results)} identical "
-          f"(parents, levels, n_levels={base[2]})")
+    launches["distributed"], dist_rows = distributed_step(setup, roots, single, card)
+    cross_check(card)
 
+    # unpack runs on the distributed path only: its row is the input that
+    # moves the most bytes; every kernel lists its distributed inputs
+    rows["unpack"] = dict(dist_rows["unpack"][0])
+    for name, rs in dist_rows.items():
+        rows[name]["distributed_shapes"] = [
+            {key: r[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by")} for r in rs]
     for name, r in rows.items():
-        r["launches"] = launches[name]
+        per_path = {path: counts.get(name, 0) for path, counts in launches.items()}
+        r["launches"] = sum(per_path.values())
+        r["launches_by_path"] = per_path
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -56,15 +56,21 @@ class Graph500Setup:
     containers_s: float
 
 
-def build(scale: int, edgefactor: int = 16, seed: int = 1, expand: str = "hybrid",
-          device=None) -> Graph500Setup:
-    """Generate, build the CSR (Kernel 1) and move the containers."""
-    dev = resolve_device(device)
+def generate(scale: int, edgefactor: int = 16, seed: int = 1):
+    """Untimed generation and the timed Kernel 1 -> (graph, generation
+    seconds, Kernel-1 seconds)."""
     t0 = time.perf_counter()
     edges = kronecker.kronecker_edges(scale, edgefactor, seed=seed)
     t1 = time.perf_counter()
     g = builder.build_csr(edges, n=1 << scale)
-    del edges
+    return g, t1 - t0, time.perf_counter() - t1
+
+
+def build(scale: int, edgefactor: int = 16, seed: int = 1, expand: str = "hybrid",
+          device=None) -> Graph500Setup:
+    """Generate, build the CSR (Kernel 1) and move the containers."""
+    dev = resolve_device(device)
+    g, generation_s, kernel1_s = generate(scale, edgefactor, seed)
     t2 = time.perf_counter()
     backend = expand_mod.resolve(expand)
     extra = backend.graph_arrays(g.src, g.dst, g.n)
@@ -83,7 +89,7 @@ def build(scale: int, edgefactor: int = 16, seed: int = 1, expand: str = "hybrid
         scale=scale, edgefactor=edgefactor, g=g, src=src, dst=dst, block=block,
         expand=backend.name, device=dev, split_k=split_k,
         slab_edges=slab or 0, residue_edges=residue,
-        generation_s=t1 - t0, kernel1_s=t2 - t1, containers_s=t3 - t2,
+        generation_s=generation_s, kernel1_s=kernel1_s, containers_s=t3 - t2,
     )
 
 
@@ -115,8 +121,18 @@ def search(setup: Graph500Setup, roots: np.ndarray, batch: int = 8,
         times.append(time.perf_counter() - t0)
         depths.append(res.n_levels)
         trees.append((res.parent.cpu().numpy(), res.level.cpu().numpy()))
-    bfs_s = sum(times)
+    return {"n_roots": len(roots), "batch": batch, "policy": policy,
+            "expand": setup.expand, "depths": depths,
+            **verdicts(g, roots, trees, times, batch, validate_trees)}
 
+
+def verdicts(g, roots: np.ndarray, trees, times, batch: int,
+             validate_trees: bool = True) -> dict:
+    """Validate every tree on the host (threads) and compute TEPS.
+
+    ``trees[k]`` is batch k's host (parent, level) planes over the first
+    ``g.n`` vertices and ``times[k]`` its seconds; a search's time is its
+    batch's divided by ``batch``."""
     t0 = time.perf_counter()
     jobs = [(trees[i // batch][0][i % batch], int(roots[i]), trees[i // batch][1][i % batch])
             for i in range(len(roots))]
@@ -132,13 +148,8 @@ def search(setup: Graph500Setup, roots: np.ndarray, batch: int = 8,
                 if v is not None and not v.ok]
     teps_list = [te / (times[i // batch] / batch) for i, (_, te) in enumerate(checked)]
     return {
-        "n_roots": len(roots),
-        "batch": batch,
-        "policy": policy,
-        "expand": setup.expand,
         "batch_s": times,
-        "depths": depths,
-        "bfs_s": bfs_s,
+        "bfs_s": sum(times),
         "validation_s": validation_s,
         "validated": validate_trees,
         "n_valid": len(roots) - len(failures) if validate_trees else None,

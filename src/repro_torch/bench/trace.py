@@ -1,60 +1,128 @@
-"""Where a Graph500 batch's device time goes: one traced ``bfs()`` batch.
+"""Where a Graph500 batch's device time goes: one traced batch.
 
 Builds the graph as the harness does, runs one untimed warm-up batch,
 then traces one batch of ``--batch`` roots with ``torch.profiler`` and
-prints the device time by kernel (top rows of ``key_averages``), the
-device-busy total and the idle share of the batch's wall time.
+prints the device time by kernel and by PyTorch op (top rows of
+``key_averages``), the device-busy total and the idle share of the batch's
+wall time.  With ``--grid RxC`` the batch is the distributed BFS on a
+simulated grid (``--mode``, ``direction_opt`` + ``hybrid``), and the trace
+also gives the device time of the pack and unpack kernels and of the
+kernels launched inside the fixed-capacity compaction and inside the local
+expansion, each as a share of the busy time.  The last two come from
+profiler ranges around ``compact_ids`` and the backend's push/pull, set
+only for the trace.  A range's device span (its first kernel's start to its
+last kernel's end, idle gaps included) is printed apart, as a share of
+the wall time.
 
-    python -m repro_torch.bench.trace --scale 22 [--out trace.json]
+    python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import time
 
 import torch
 
-from repro_torch.bench import graph500, teps
+from repro_torch.bench import distributed, graph500, teps
+from repro_torch.comm import SimGrid
 from repro_torch.core import bfs as bfsmod
+from repro_torch.core import distributed_bfs as dbfs
+from repro_torch.core import expand as expand_mod
+from repro_torch.kernels.bitpack import ops as bp_ops
 
 
 def _device_us(evt) -> float:
     return evt.self_device_time_total
 
 
+def _ranged(name, fn):
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+
+    return run
+
+
+@contextlib.contextmanager
+def _phase_ranges():
+    """Profiler ranges around the compaction and the local expansion, for
+    the traced batch only."""
+    saved = [(bp_ops, "compact_ids", bp_ops.compact_ids)]
+    bp_ops.compact_ids = _ranged("range/compaction", bp_ops.compact_ids)
+    for backend in expand_mod.BACKENDS.values():
+        for meth in ("push_planes", "pull_planes"):
+            saved.append((backend, meth, None))
+            setattr(backend, meth, _ranged("range/expansion", getattr(backend, meth)))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--grid", default=None, help="R x C: trace the distributed BFS")
+    ap.add_argument("--mode", default="auto", choices=["raw", "bitmap", "auto"])
     ap.add_argument("--out", default=None, help="chrome trace output path")
     args = ap.parse_args(argv)
 
-    setup = graph500.build(args.scale, device="cuda")
-    roots = teps.valid_roots(setup.g, 2 * args.batch, seed=2)
+    if args.grid:
+        g, _, _ = graph500.generate(args.scale)
+        st = distributed.setup(g, SimGrid(*distributed.parse_grid(args.grid)), "hybrid")
+        cfg = dbfs.DistBFSConfig(mode=args.mode, policy="direction_opt", expand="hybrid")
+        fn = dbfs.build_bfs(st.grid, st.bg, cfg)
 
-    def batch(r):
-        return bfsmod.bfs(setup.src, setup.dst, r, setup.g.n, policy="direction_opt",
-                          expand=setup.expand, device=setup.device, block=setup.block)
+        def batch(r):
+            return fn(*st.blocks, r)[2]
+    else:
+        setup = graph500.build(args.scale, device="cuda")
+        g = setup.g
 
+        def batch(r):
+            return bfsmod.bfs(setup.src, setup.dst, r, setup.g.n, policy="direction_opt",
+                              expand=setup.expand, device=setup.device,
+                              block=setup.block).n_levels
+
+    roots = teps.valid_roots(g, 2 * args.batch, seed=2)
     batch(roots[: args.batch])
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    ranges = _phase_ranges() if args.grid else contextlib.nullcontext()
+    with ranges, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        res = batch(roots[args.batch :])
+        levels = batch(roots[args.batch:])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     # kernels are the device-side entries; a CPU op's device time repeats
-    # its kernels', so only kernels are summed into the busy time
-    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+    # its kernels', so only kernels are summed into the busy time (the
+    # device-side spans of the profiler ranges are not kernels)
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a range's host-side entry sums the kernels launched inside it; its
+    # device-side entry is the span from its first kernel to its last
+    spans = {e.key: _device_us(e) / 1e3 for e in on_device if e.key.startswith("range/")}
+    in_range = {e.key: e.device_time_total / 1e3 for e in events
+                if e.device_type != torch.autograd.DeviceType.CUDA
+                and e.key.startswith("range/")}
+    kernels = sorted((e for e in on_device if not e.key.startswith("range/")),
                      key=_device_us, reverse=True)
-    ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
-                 key=_device_us, reverse=True)
+    ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("range/")), key=_device_us, reverse=True)
     busy_us = sum(_device_us(e) for e in kernels)
-    print(f"# scale {args.scale} batch {args.batch} levels {res.n_levels} on "
+    what = f"grid {args.grid} ({args.mode}), ranks simulated on one card" if args.grid \
+        else "one device"
+    print(f"# scale {args.scale} batch {args.batch} levels {levels} {what} on "
           f"{torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
     table = {}
@@ -66,11 +134,27 @@ def main(argv=None) -> dict:
                                 "device_ms": _device_us(e) / 1e3,
                                 "share": _device_us(e) / busy_us if busy_us else 0.0})
             print(f"{_device_us(e) / 1e3:10.3f} ms {e.count:6d} x  {e.key[:100]}")
-    if args.out:
-        prof.export_chrome_trace(args.out)
-    out = {"scale": args.scale, "batch": args.batch, "levels": res.n_levels,
+    out = {"scale": args.scale, "batch": args.batch, "grid": args.grid, "levels": levels,
            "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "idle_share": 1 - busy_us / wall_us, "top": table}
+    if args.grid:
+        def kernel_ms(pred):
+            return sum(_device_us(e) for e in kernels if pred(e.key)) / 1e3
+
+        shares = {
+            "pack": kernel_ms(lambda k: "pack_kernel" in k and "unpack" not in k),
+            "unpack": kernel_ms(lambda k: "unpack_kernel" in k),
+            "compaction": in_range.get("range/compaction", 0.0),
+            "expansion": in_range.get("range/expansion", 0.0),
+        }
+        print("## phases (kernel device ms, share of busy): " + ", ".join(
+            f"{k} {v:.3f} ({v * 1e3 / busy_us:.4f})" for k, v in shares.items()))
+        print("## range spans (device ms, share of wall): " + ", ".join(
+            f"{k[6:]} {v:.3f} ({v * 1e3 / wall_us:.4f})" for k, v in sorted(spans.items())))
+        out["phases_ms"] = shares
+        out["span_ms"] = {k[6:]: v for k, v in spans.items()}
+    if args.out:
+        prof.export_chrome_trace(args.out)
     print(json.dumps(out))
     return out
 

@@ -1,0 +1,40 @@
+"""The communication plane of the port: wire formats, bucket ladders, the
+adaptive exchange engine and its byte ledger, over a simulated grid.
+
+* :mod:`.formats`     — wire-format geometry + pack/unpack (bitmap, PFOR16
+  id stream, found-bitmap + parents, raw ids, dense).
+* :mod:`.ladder`      — bucket ladders pruned by word count and the
+  :mod:`.threshold` break-even (paper §5.4.3).
+* :mod:`.grid`        — :class:`SimGrid`, R x C ranks in one process.
+* :mod:`.engine`      — :class:`AdaptiveExchange`: per-group consensus,
+  branch dispatch, byte-recording collectives.
+* :mod:`.stats`       — :class:`CommStats`, the per-phase byte ledger.
+* :mod:`.collectives` — the BFS column and row exchanges.
+* :mod:`.registry`    — the ``raw`` / ``bitmap`` / ``auto`` wire plans.
+
+Layering: core.distributed_bfs -> comm -> kernels (bitpack).
+"""
+
+from repro_torch.comm.engine import AdaptiveExchange  # noqa: F401
+from repro_torch.comm.formats import (  # noqa: F401
+    INF,
+    BitmapFormat,
+    BitmapParentFormat,
+    DenseFormat,
+    IdStreamFormat,
+    IdStreamSpec,
+    RawIdFormat,
+    WireFormat,
+    pack_bitmap,
+    pack_id_stream,
+    pack_plane_meta,
+    plane_meta_words,
+    plane_wire_bytes,
+    unpack_bitmap,
+    unpack_id_stream,
+    unpack_plane_meta,
+)
+from repro_torch.comm.grid import SimGrid  # noqa: F401
+from repro_torch.comm.ladder import BucketLadder, stream_stats  # noqa: F401
+from repro_torch.comm.stats import CommStats, ExchangeRecord  # noqa: F401
+from repro_torch.comm.threshold import ThresholdPolicy  # noqa: F401

@@ -1,0 +1,149 @@
+"""Wire plans: the builders of one exchange mode's BFS collectives.
+
+The port's counterpart of ``repro/comm/registry.py:84-321`` for the
+``raw``, ``bitmap`` and ``auto`` plans (``btfly`` and the host codec
+factory come with later slices; traversal policies, expansion backends and
+algebras resolve in their own modules).  A plan's builders take the grid,
+the axis and ``b``, the number of source planes each exchange carries, and
+return plane-batched callables over per-rank lists:
+
+* ``build_column(s, grid, axis, *, b, ...)`` -> ``fn(bits (b, s) bool) ->
+  (b, g*s) bool``: the frontier membership all-gather over the grid column;
+* ``build_row(s, grid, axis, n_c, parent_width, *, b, ...)`` ->
+  ``fn(prop (b, c, s) int32 global candidates) -> (b, s)``: push row phase;
+* ``build_row_bu(...)`` -> ``fn(prop (b, c, s) column-LOCAL candidates) ->
+  (b, s) global parents``: pull row phase;
+* ``build_unreached(s, grid, axis, *, b, ...)`` -> the unreached-membership
+  all-gather over the grid row that the pull direction probes.
+
+At ``b == 1`` each builder uses the single-source wire (its two-word
+sideband); at ``b > 1`` all planes share one bucket consensus and one
+collective pair per exchange.  This slice carries the ``bfs`` algebra, so
+row payloads are parent ids: column-local on the wire, re-globalized by
+the receiver.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.comm import collectives as cc
+from repro_torch.comm.engine import AdaptiveExchange
+from repro_torch.comm.formats import INF, BitmapParentFormat
+from repro_torch.comm.ladder import BucketLadder
+
+
+@dataclasses.dataclass(frozen=True)
+class WirePlan:
+    """Builders for one exchange mode's column/row collectives."""
+
+    name: str
+    build_column: Callable
+    build_row: Callable
+    build_row_bu: Callable
+    build_unreached: Callable
+
+
+def _one(fn, xs):
+    """Run a single-source collective on plane 0 of per-rank (1, ...) values."""
+    got = fn([None if x is None else x[0] for x in xs])
+    return [None if x is None else x[None] for x in got]
+
+
+def _raw_column(s, grid, axis, *, b=1, stats=None, phase="bfs/column"):
+    ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    if b == 1:
+        return lambda bits: _one(lambda x: cc.gather_raw_ids(ex, x), bits)
+    return lambda bits: cc.gather_raw_ids_planes(ex, bits)
+
+
+def _bitmap_column(s, grid, axis, *, b=1, stats=None, phase="bfs/column"):
+    ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    if b == 1:
+        return lambda bits: _one(lambda x: cc.gather_bitmap(ex, x), bits)
+    return lambda bits: cc.gather_bitmap_planes(ex, bits)
+
+
+def _auto_column(s, grid, axis, *, b=1, stats=None, phase="bfs/column"):
+    ladder = BucketLadder.default(s)
+    if b == 1:
+        return lambda bits: _one(lambda x: cc.allgather_membership(
+            x, grid, axis, ladder, stats=stats, phase=phase), bits)
+    return lambda bits: cc.allgather_membership_planes(
+        bits, grid, axis, ladder, stats=stats, phase=phase)
+
+
+def _dense_row(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
+               phase="bfs/row"):
+    ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    if b == 1:
+        return lambda prop: _one(lambda x: cc.alltoall_dense_min(ex, x), prop)
+    return lambda prop: cc.alltoall_dense_min_planes(ex, prop)
+
+
+def _auto_row(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
+              phase="bfs/row"):
+    # the row phase's dense fallback is a 32-bit candidate vector -> its own
+    # (deeper) ladder, with the parent payload priced into every bucket; the
+    # payload packs COLUMN-LOCAL offsets, so parent_width = class(n_c)
+    ladder = BucketLadder.default(s, floor_words=s, payload_width=parent_width)
+    if b == 1:
+        return lambda prop: _one(lambda x: cc.alltoall_min_candidates(
+            x, grid, axis, ladder, stats=stats, phase=phase, n_c=n_c), prop)
+    return lambda prop: cc.alltoall_min_candidates_planes(
+        prop, grid, axis, ladder, stats=stats, phase=phase, n_c=n_c)
+
+
+def _dense_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
+                  phase="bfs/row-pull"):
+    """Baseline pull row exchange: globalize candidates, dense int32 wire."""
+    ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    col = grid.axis_index(axis)
+
+    def run(prop):
+        glob = [None if x is None else torch.where(x < INF, col[p] * n_c + x, INF)
+                for p, x in enumerate(prop)]
+        if b == 1:
+            return _one(lambda x: cc.alltoall_dense_min(ex, x), glob)
+        return cc.alltoall_dense_min_planes(ex, glob)
+
+    return run
+
+
+def _bitmap_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
+                   phase="bfs/row-pull"):
+    """Compressed pull row exchange: found-bitmap + bit-packed parents."""
+    if parent_width >= 32:
+        # width-32 payloads (huge n_c) would not undercut the dense vector
+        return _dense_row_bu(s, grid, axis, n_c, parent_width, b=b, stats=stats,
+                             phase=phase)
+    fmt = BitmapParentFormat(s, parent_width)
+    ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    if b == 1:
+        return lambda prop: _one(lambda x: cc.alltoall_bitmap_min(ex, x, fmt, n_c), prop)
+    return lambda prop: cc.alltoall_bitmap_min_planes(ex, prop, fmt, n_c)
+
+
+# the unreached-membership gather rides the same wire as the plan's
+# uncompressed or bitmap column gather (over the grid row)
+WIRE_PLANS = {
+    p.name: p
+    for p in (
+        WirePlan("raw", _raw_column, _dense_row, _dense_row_bu, _raw_column),
+        WirePlan("bitmap", _bitmap_column, _dense_row, _bitmap_row_bu, _bitmap_column),
+        WirePlan("auto", _auto_column, _auto_row, _bitmap_row_bu, _bitmap_column),
+    )
+}
+
+
+def wire_plan(name: str) -> WirePlan:
+    """Wire plan by name (``raw`` | ``bitmap`` | ``auto``)."""
+    try:
+        return WIRE_PLANS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown wire plan {name!r}; this port has {sorted(WIRE_PLANS)}"
+        ) from None

@@ -16,7 +16,9 @@ Three backends, resolved by name:
 
 Every backend gives bit-identical ``(B, n_rows)`` min-candidate planes:
 each row's edge set lives in exactly one structure, and min commutes with
-the split.
+the split.  On the 2D grid ``block_arrays`` builds each backend's per-block
+containers (:mod:`repro_torch.core.csr`), and a rank's block has
+``n_rows = n_r`` destinations and ``n_cols = n_c`` sources.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import csr as csrmod
 from repro_torch.core.algebra import INF
 from repro_torch.graphgen import builder
 from repro_torch.kernels.bitpack import ops as bp_ops
@@ -108,15 +111,22 @@ class ExpansionBackend:
     """One local-expansion data structure (or a degree split over two).
 
     ``graph_arrays`` builds the backend's extra host arrays (numpy; ``()``
-    for COO) from the flat edge list; ``local_block`` moves what the
+    for COO) from the flat edge list, ``block_arrays`` the same per 2D
+    block of a :class:`~repro_torch.core.csr.BlockedGraph` (each array leads
+    with the (R, C) grid axes); ``local_block`` moves what the
     backend keeps of those onto ``device`` as a :class:`LocalBlock`;
     ``push_planes`` / ``pull_planes`` expand all B frontier planes at once
     into ``(B, n_rows)`` min-candidate ids (INF where none).
     """
 
     name: str = ""
+    #: rank of each extra per-rank array (after the (R, C) grid axes)
+    extra_ndims: tuple[int, ...] = ()
 
     def graph_arrays(self, src, dst, n: int) -> tuple[np.ndarray, ...]:
+        return ()
+
+    def block_arrays(self, bg: csrmod.BlockedGraph) -> tuple[np.ndarray, ...]:
         return ()
 
     def local_block(self, src, dst, extra, n_rows: int, n_cols: int,
@@ -149,10 +159,14 @@ class CooExpansion(ExpansionBackend):
 
 class EllExpansion(ExpansionBackend):
     name = "ell"
+    extra_ndims = (2,)  # (n_r, k) slab
 
     def graph_arrays(self, src, dst, n):
         nbr, _ = builder.ell_graph_arrays(np.asarray(src), np.asarray(dst), n)
         return (nbr,)
+
+    def block_arrays(self, bg):
+        return (csrmod.ell_blocked(bg).nbr,)
 
     def local_block(self, src, dst, extra, n_rows, n_cols, device):
         (nbr,) = extra
@@ -173,11 +187,16 @@ class HybridExpansion(ExpansionBackend):
     """Degree-split COO/ELL: low-degree rows on the slab, hubs in COO."""
 
     name = "hybrid"
+    extra_ndims = (2, 1, 1)  # (n_r, k) slab + (r_cap,) residue src/dst
 
     def graph_arrays(self, src, dst, n):
         nbr, res_s, res_d, _ = builder.hybrid_graph_arrays(
             np.asarray(src), np.asarray(dst), n)
         return (nbr, res_s, res_d)
+
+    def block_arrays(self, bg):
+        h = csrmod.hybrid_blocked(bg)
+        return (h.nbr, h.res_src, h.res_dst)
 
     def local_block(self, src, dst, extra, n_rows, n_cols, device):
         nbr, res_src, res_dst = extra

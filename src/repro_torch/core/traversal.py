@@ -14,18 +14,35 @@ The port's counterpart of ``repro/core/traversal.py:77-177, 206-385,
 The reference traces both directions under ``lax.cond``; here the level
 loop takes one device->host copy per level — the (B,) frontier counts and
 direction flags — and Python decides which pass runs.
+
+On the 2D grid (``repro/core/traversal.py:59-76,180-414``) a policy's
+``expand_dist`` runs the local expansion of every rank's block and the row
+exchange of the wire plan, over per-rank lists; the pull direction first
+gathers the unreached membership of the grid row.  The default bottom-up
+entry density comes from the row ladder (:func:`ladder_alpha`), so one
+oracle decides the wire bucket and the direction.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.comm.ladder import BucketLadder
 from repro_torch.core.algebra import INF
 from repro_torch.kernels.bitpack import ops as bp_ops
 from repro_torch.kernels.popcount import ops as pc_ops
+
+
+def ladder_alpha(s: int, payload_width: int) -> float:
+    """Bottom-up entry density from the row ladder's geometry: pull wins
+    where a chunk's candidate count overflows the largest sparse bucket
+    (a ladder with no sparse bucket gives 0.25)."""
+    ladder = BucketLadder.default(s, floor_words=s, payload_width=payload_width)
+    return ladder.specs[-1].cap / s if ladder.specs else 0.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,10 +103,30 @@ def edge_signals(deg: torch.Tensor, new: torch.Tensor, parent: torch.Tensor):
     return m_f, m_u
 
 
+class DistLevelCtx(NamedTuple):
+    """Everything a policy needs to expand one level on the grid; the
+    exchange callables come from the wire plan, the expansion from the
+    backend.  Per-rank values are lists over the grid's ranks."""
+
+    expand: object  # ExpansionBackend
+    blocks: list  # each rank's LocalBlock
+    n_r: int  # row-slice width (destinations per grid row)
+    n_c: int  # column-slice width (sources per grid column)
+    s: int  # owned-chunk width
+    c: int  # grid columns
+    col_index: list[int]  # each rank's grid column j
+    row_exchange: Callable | None  # push: (B,c,s) global candidates -> (B,s) min
+    row_exchange_bu: Callable | None  # pull: (B,c,s) LOCAL candidates -> (B,s)
+    unreached_gather: Callable | None  # (B,s) own unreached -> (B,n_r) row slice
+
+
 class TraversalPolicy:
     """One expansion direction, or a per-level switch over them.
 
-    ``propose_batch`` produces the (B, n) candidate-parent planes.
+    ``propose_batch`` produces the (B, n) candidate-parent planes of the
+    single-device driver; ``expand_dist`` runs local expansion + the row
+    exchange on the grid and returns each rank's (B, s) min-reduced global
+    candidates for its owned chunk.
     ``passes`` is the host's ``(run_top_down, run_bottom_up)`` decision for
     this level, from the per-level host copy (:func:`host_passes`); only a
     switching policy reads it.
@@ -102,6 +139,10 @@ class TraversalPolicy:
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
                       passes, plane_mask=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def expand_dist(self, ctx: DistLevelCtx, value: list, f_col: list, use_bu: list,
+                    active: list, passes, plane_mask=None) -> list:
         raise NotImplementedError
 
     def next_direction(self, oracle: DensityOracle, count, use_bu, m_f=None,
@@ -119,6 +160,16 @@ class TopDownPolicy(TraversalPolicy):
                       passes, plane_mask=None):
         return expand.push_planes(block, frontier)
 
+    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, plane_mask=None):
+        # the backend returns column-LOCAL min candidates; the push wire
+        # carries global ids, and min commutes with the shift j * n_c
+        prop = [None] * len(f_col)
+        for p, blk in enumerate(ctx.blocks):
+            local = ctx.expand.push_planes(blk, f_col[p])  # (B, n_r)
+            glob = torch.where(local < INF, ctx.col_index[p] * ctx.n_c + local, INF)
+            prop[p] = glob.reshape(-1, ctx.c, ctx.s)
+        return ctx.row_exchange(prop)
+
 
 class BottomUpPolicy(TraversalPolicy):
     name = "bottom_up"
@@ -132,6 +183,23 @@ class BottomUpPolicy(TraversalPolicy):
         if plane_mask is not None:
             mask = mask & plane_mask[:, None]
         return expand.pull_planes(block, frontier, mask)
+
+    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, plane_mask=None):
+        # the unreached membership of the whole row slice, gathered over the
+        # grid row; exhausted planes are masked out so that their permanent
+        # unreached set does not escalate the gather the live planes pay for
+        mask = []
+        for p, v in enumerate(value):
+            pm = active[p] if plane_mask is None else plane_mask[p] & active[p]
+            mask.append((v < 0) & pm[:, None])
+        unreached = ctx.unreached_gather(mask)  # (B, n_r) per rank
+        # candidates stay column-LOCAL so the payload bit-packs at the
+        # column-width class; the receiver globalizes per sender
+        prop = [None] * len(f_col)
+        for p, blk in enumerate(ctx.blocks):
+            local = ctx.expand.pull_planes(blk, f_col[p], unreached[p])
+            prop[p] = local.reshape(-1, ctx.c, ctx.s)
+        return ctx.row_exchange_bu(prop)
 
 
 class DirectionOptPolicy(TraversalPolicy):
@@ -170,6 +238,30 @@ class DirectionOptPolicy(TraversalPolicy):
             out = bu if out is None else torch.minimum(out, bu)
         if out is None:
             out = torch.full(value.shape, INF, dtype=torch.int32, device=value.device)
+        return out
+
+    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, plane_mask=None):
+        # one pass per direction over all planes, as on one device; the
+        # host's passes skip a direction no live plane takes, which is
+        # group-uniform because the flags derive from psum-ed counts
+        run_td, run_bu = passes
+        td_mask = [~u & a for u, a in zip(use_bu, active)]
+        bu_mask = [u & a for u, a in zip(use_bu, active)]
+        out = None
+        if run_td:
+            out = self._td.expand_dist(
+                ctx, value, [f & m[:, None] for f, m in zip(f_col, td_mask)],
+                use_bu, active, passes)
+        if run_bu:
+            # the pull pass's plane mask keeps push planes out of the
+            # unreached bitmap, hence out of the pull wire's content
+            bu = self._bu.expand_dist(
+                ctx, value, [f & m[:, None] for f, m in zip(f_col, bu_mask)],
+                use_bu, active, passes, plane_mask=bu_mask)
+            out = bu if out is None else [torch.minimum(a, b) for a, b in zip(out, bu)]
+        if out is None:
+            out = [torch.full((v.shape[0], ctx.s), INF, dtype=torch.int32,
+                              device=v.device) for v in value]
         return out
 
     def next_direction(self, oracle, count, use_bu, m_f=None, m_u=None,

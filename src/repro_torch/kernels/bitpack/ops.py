@@ -1,8 +1,9 @@
-"""Wrapper of the bit-packing kernel (``csrc/bitpack.cu``).
+"""Wrappers of the bit-packing kernels (``csrc/bitpack.cu``).
 
 CPU tensors go to the plain version in :mod:`.ref`; CUDA tensors go to the
 kernel or raise.  ``b=32`` is the identity on the bit pattern and launches
-nothing.
+nothing.  The delta coding and the fixed-capacity compaction are plain
+PyTorch on both devices, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -11,9 +12,16 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.bitpack import ref
+from repro_torch.kernels.bitpack.ref import (  # noqa: F401
+    compact_ids,
+    gaps_from_sorted,
+    sorted_from_gaps,
+)
 
 KERNEL = "pack"
+UNPACK_KERNEL = "unpack"
 _ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I64, kernels.I32, kernels.I32)
+_UNPACK_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I32)
 _MAX_PLANES = 65535  # gridDim.y
 
 
@@ -46,3 +54,33 @@ def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
 def pack(values: torch.Tensor, b: int) -> torch.Tensor:
     """(n,) values -> (chunk_pad(n)*b/32,) int32 packed words."""
     return pack_planes(values.reshape(1, -1), b)[0]
+
+
+def unpack_planes(words: torch.Tensor, b: int) -> torch.Tensor:
+    """(B, W) int32 words -> (B, W*32/b) values; ``W*32/b`` is a multiple of
+    1024.  ``b=1`` gives bool planes, other widths int32."""
+    if b not in ref.B_CLASSES:
+        raise ValueError(f"bit width {b} not in {ref.B_CLASSES}")
+    if not kernels.on_cuda(words):
+        return ref.unpack_planes(words, b)
+    kernels.require(words, "unpack_planes", (torch.int32,), 2)
+    planes, w = words.shape
+    if (w * 32 // b) % ref.CHUNK:
+        raise ValueError(f"unpack_planes: {w} words at width {b} are not whole chunks")
+    if b == 32:
+        return words
+    if planes > _MAX_PLANES:
+        raise ValueError(f"unpack_planes: at most {_MAX_PLANES} planes, got {planes}")
+    dtype = torch.bool if b == 1 else torch.int32
+    out = torch.empty((planes, w * 32 // b), dtype=dtype, device=words.device)
+    if out.numel() == 0:
+        return out
+    name = "rt_unpack_u8" if b == 1 else "rt_unpack_u32"
+    kernels.launch(UNPACK_KERNEL, name, _UNPACK_ARGS, words.data_ptr(), out.data_ptr(),
+                   w, planes, b)
+    return out
+
+
+def unpack(words: torch.Tensor, b: int) -> torch.Tensor:
+    """(W,) words -> (W*32/b,) values, as :func:`unpack_planes`."""
+    return unpack_planes(words.reshape(1, -1), b)[0]

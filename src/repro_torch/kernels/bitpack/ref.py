@@ -60,3 +60,84 @@ def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
 def pack(values: torch.Tensor, b: int) -> torch.Tensor:
     """(n,) values -> (words_for(n, b),) int32 packed words."""
     return pack_planes(values.reshape(1, -1), b)[0]
+
+
+def unpack_planes(words: torch.Tensor, b: int) -> torch.Tensor:
+    """Inverse of :func:`pack_planes`: (B, W) int32 words -> (B, W*32/b)
+    values, ``W*32/b`` a multiple of ``CHUNK``.
+
+    ``b=1`` gives bool membership planes; every other width gives int32
+    (values < 2**b, and at ``b=32`` the words' own bit patterns).
+    """
+    assert b in B_CLASSES, b
+    planes, w = words.shape
+    assert (w * 32 // b) % CHUNK == 0, (w, b)
+    if b == 32:
+        return words.to(torch.int32)
+    k_per_word = 32 // b
+    wc = 32 * b
+    v = (words.to(torch.int64) & _MASK32).reshape(planes, -1, 1, wc)
+    shifts = (torch.arange(k_per_word, device=words.device, dtype=torch.int64) * b)
+    vals = (v >> shifts[None, None, :, None]) & ((1 << b) - 1)
+    vals = vals.reshape(planes, -1)
+    return vals == 1 if b == 1 else vals.to(torch.int32)
+
+
+def unpack(words: torch.Tensor, b: int) -> torch.Tensor:
+    """(W,) words -> (W*32/b,) values, as :func:`unpack_planes`."""
+    return unpack_planes(words.reshape(1, -1), b)[0]
+
+
+# ---------------------------------------------------------------------------
+# delta (gap) coding of sorted id streams and fixed-capacity compaction
+# ---------------------------------------------------------------------------
+
+
+def gaps_from_sorted(ids: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Sorted ids (..., cap) padded to a static capacity -> int64 gaps.
+
+    ``gaps[0] = ids[0]``, ``gaps[i] = ids[i] - ids[i-1]``; positions
+    ``>= count`` are zero.  ``count`` has the leading shape of ``ids``.
+    The values are the reference's uint32 gaps, held in int64.
+    """
+    cap = ids.shape[-1]
+    idx = torch.arange(cap, device=ids.device)
+    cnt = torch.as_tensor(count, device=ids.device).to(torch.int64)[..., None]
+    # repeat the last valid id into the padding so padded gaps are zero
+    src = torch.clamp(torch.minimum(idx, cnt - 1), 0, cap - 1)
+    ids_m = torch.gather(ids.to(torch.int64), -1, src.expand(ids.shape))
+    prev = torch.cat([torch.zeros_like(ids_m[..., :1]), ids_m[..., :-1]], dim=-1)
+    return torch.where(idx < cnt, (ids_m - prev) & _MASK32, 0)
+
+
+def sorted_from_gaps(gaps: torch.Tensor, count: torch.Tensor, fill: int) -> torch.Tensor:
+    """Inverse of :func:`gaps_from_sorted` -> int32 ids; positions
+    ``>= count`` get ``fill``.  The prefix sum wraps at 32 bits as the
+    reference's uint32 cumsum does."""
+    ids = to_int32_bits(torch.cumsum(gaps.to(torch.int64) & _MASK32, dim=-1) & _MASK32)
+    idx = torch.arange(gaps.shape[-1], device=gaps.device)
+    cnt = torch.as_tensor(count, device=gaps.device).to(torch.int64)[..., None]
+    return torch.where(idx < cnt, ids, fill).to(torch.int32)
+
+
+def compact_ids(mask_bits: torch.Tensor, capacity: int, fill: int):
+    """Stream-compact (..., n) membership planes -> (ids (..., capacity)
+    int32 ascending, count (...) int32).
+
+    The reference is ``jnp.nonzero(size=capacity)``: ids past
+    ``capacity`` are dropped and padding slots hold ``fill``, but
+    ``count`` is the full popcount even when it exceeds ``capacity``.
+    Here a cumsum gives each set bit its slot and one scatter writes it,
+    with a fixed output size and no device->host copy; slots past
+    ``capacity`` land in a spill column that is cut off.
+    """
+    lead, n = mask_bits.shape[:-1], mask_bits.shape[-1]
+    bits = mask_bits.reshape(-1, n).to(torch.bool)
+    slot = torch.cumsum(bits, dim=1, dtype=torch.int64) - 1
+    slot = torch.where(bits & (slot < capacity), slot, capacity)
+    out = torch.full((bits.shape[0], capacity + 1), fill, dtype=torch.int32,
+                     device=bits.device)
+    pos = torch.arange(n, dtype=torch.int32, device=bits.device).expand(bits.shape[0], n)
+    out.scatter_(1, slot, pos)
+    count = bits.sum(dim=1, dtype=torch.int32)
+    return out[:, :capacity].reshape(*lead, capacity), count.reshape(lead)

@@ -16,6 +16,14 @@
 // whatever the order.  The x-grid is sized so about four blocks per SM are in
 // flight over all planes together, so a small B still fills the card.
 //
+// popcount_blocks replaces popcount_blocks_pallas / _popcount_kernel
+// (popcount.py:32 and :22): (W,) words -> (ceil(W/1024),) int32 partials, one
+// per 1024-word block, the last block zero-padded.  Same bound: every word
+// read once, one int32 written per block.  One thread block per 1024-word
+// block: each of its 256 threads sums four words with a stride of 256 (so a
+// warp's loads are contiguous), and warp shuffles plus one shared-memory pass
+// reduce them to the block's partial, written by one thread -- no atomics.
+//
 // popcount_words is the elementwise per-word count (the port's counterpart of
 // the oracle repro/kernels/popcount/ref.py:popcount_words).
 #include "common.cuh"
@@ -43,6 +51,29 @@ __global__ void popcount_planes_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+constexpr int kBlockWords = 1024;  // words per partial, as the TPU kernel
+
+__global__ void popcount_blocks_kernel(const uint32_t* __restrict__ words,
+                                       int* __restrict__ out, int64_t w) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kBlockWords;
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < kBlockWords / kThreads; ++k) {
+    const int64_t i = first + k * kThreads + threadIdx.x;
+    if (i < w) acc += __popc(__ldg(words + i));
+  }
+  acc = rt::warp_sum(acc);
+  __shared__ int partial[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) partial[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = rt::warp_sum(lane < kThreads / 32 ? partial[lane] : 0);
+    if (lane == 0) out[blockIdx.x] = acc;
+  }
+}
+
 __global__ void popcount_words_kernel(const uint32_t* __restrict__ words,
                                       int* __restrict__ out, int64_t n) {
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
@@ -61,6 +92,15 @@ RT_API int rt_popcount_planes(const void* words, void* out, long long w, int pla
   const long long bx = by_work < by_card ? by_work : by_card;
   const dim3 grid(static_cast<unsigned>(bx > 0 ? bx : 1), static_cast<unsigned>(planes));
   popcount_planes_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<int*>(out), w);
+  return rt::launch_status();
+}
+
+// words: (w,) uint32; out: (ceil(w / 1024),) int32.
+RT_API int rt_popcount_blocks(const void* words, void* out, long long w, void* stream) {
+  const long long blocks = (w + kBlockWords - 1) / kBlockWords;
+  popcount_blocks_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<int*>(out), w);
   return rt::launch_status();
 }

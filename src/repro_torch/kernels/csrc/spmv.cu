@@ -3,7 +3,9 @@
 // Replaces the Pallas kernels spmv_min_planes_pallas / _spmv_planes_kernel
 // (src/repro/kernels/spmv/spmv.py:171 and :59) and
 // spmv_pull_min_planes_pallas / _pull_planes_kernel
-// (src/repro/kernels/spmv/pull.py:89 and :60):
+// (src/repro/kernels/spmv/pull.py:89 and :60), and their single-plane forms
+// spmv_min_pallas (spmv.py:203) and spmv_pull_min_pallas (pull.py:122), which
+// the wrappers launch as the same kernel with planes = 1:
 //
 //   out[p, r] = min { c = nbr[r, d] : c < n_cols and bit c of frontier p }
 //

@@ -11,6 +11,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.popcount import ref
 
+BLOCKS_KERNEL = "popcount_blocks"
 PLANES_KERNEL = "popcount_planes"
 WORDS_KERNEL = "popcount_words"
 _MAX_PLANES = 65535  # gridDim.y
@@ -30,6 +31,20 @@ def popcount_planes(words: torch.Tensor) -> torch.Tensor:
     kernels.launch(PLANES_KERNEL, "rt_popcount_planes",
                    (kernels.P, kernels.P, kernels.I64, kernels.I32),
                    words.data_ptr(), out.data_ptr(), w, planes)
+    return out
+
+
+def popcount_blocks(words: torch.Tensor) -> torch.Tensor:
+    """(W,) int32 words -> (ceil(W/1024),) int32 per-1024-word-block counts."""
+    if not kernels.on_cuda(words):
+        return ref.popcount_blocks(words)
+    kernels.require(words, "popcount_blocks", (torch.int32,), 1)
+    out = torch.empty(-(-words.shape[0] // ref.BLOCK_WORDS), dtype=torch.int32,
+                      device=words.device)
+    if out.numel() == 0:
+        return out
+    kernels.launch(BLOCKS_KERNEL, "rt_popcount_blocks", (kernels.P, kernels.P, kernels.I64),
+                   words.data_ptr(), out.data_ptr(), words.shape[0])
     return out
 
 

@@ -19,3 +19,16 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
 def popcount_planes(words: torch.Tensor) -> torch.Tensor:
     """(B, W) words -> (B,) int32 per-plane bit counts."""
     return popcount_words(words).sum(dim=1, dtype=torch.int32)
+
+
+BLOCK_WORDS = 1024  # words per partial count, as the TPU kernel's (8, 128) tile
+
+
+def popcount_blocks(words: torch.Tensor) -> torch.Tensor:
+    """(W,) words -> (ceil(W/1024),) int32 per-block bit counts (the last
+    block zero-padded)."""
+    pad = (-words.shape[0]) % BLOCK_WORDS
+    counts = popcount_words(words)
+    if pad:
+        counts = torch.cat([counts, counts.new_zeros(pad)])
+    return counts.reshape(-1, BLOCK_WORDS).sum(dim=1, dtype=torch.int32)

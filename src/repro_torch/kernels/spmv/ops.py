@@ -14,6 +14,8 @@ from repro_torch.kernels.spmv import ref
 
 PUSH_KERNEL = "spmv_min_planes"
 PULL_KERNEL = "spmv_pull_min_planes"
+PUSH_ONE_KERNEL = "spmv_min"
+PULL_ONE_KERNEL = "spmv_pull_min"
 
 
 def _check(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> None:
@@ -32,6 +34,10 @@ def spmv_min_planes(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> to
     """Push: nbr (n_rows, K) int32, f_words (B, n_cols/32) -> (B, n_rows)."""
     if not kernels.on_cuda(nbr, f_words):
         return ref.spmv_min_planes(nbr, f_words, n_cols)
+    return _push(nbr, f_words, n_cols, PUSH_KERNEL)
+
+
+def _push(nbr, f_words, n_cols: int, kernel: str) -> torch.Tensor:
     _check(nbr, f_words, n_cols)
     n_rows, k = nbr.shape
     planes = f_words.shape[0]
@@ -39,7 +45,7 @@ def spmv_min_planes(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> to
     if out.numel() == 0:
         return out
     kernels.launch(
-        PUSH_KERNEL, "rt_spmv_min_planes",
+        kernel, "rt_spmv_min_planes",
         (kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
          kernels.I32, kernels.I64),
         nbr.data_ptr(), f_words.data_ptr(), out.data_ptr(), n_rows, k, n_cols,
@@ -55,6 +61,10 @@ def spmv_pull_min_planes(
     rows whose unreached bit is clear give INF."""
     if not kernels.on_cuda(nbr, f_words, u_words):
         return ref.spmv_pull_min_planes(nbr, f_words, u_words, n_cols)
+    return _pull(nbr, f_words, u_words, n_cols, PULL_KERNEL)
+
+
+def _pull(nbr, f_words, u_words, n_cols: int, kernel: str) -> torch.Tensor:
     _check(nbr, f_words, n_cols)
     kernels.require(u_words, "u_words", (torch.int32,), 2)
     n_rows, k = nbr.shape
@@ -68,10 +78,28 @@ def spmv_pull_min_planes(
     if out.numel() == 0:
         return out
     kernels.launch(
-        PULL_KERNEL, "rt_spmv_pull_min_planes",
+        kernel, "rt_spmv_pull_min_planes",
         (kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
          kernels.I32, kernels.I32, kernels.I64, kernels.I64),
         nbr.data_ptr(), f_words.data_ptr(), u_words.data_ptr(), out.data_ptr(),
         n_rows, k, n_cols, planes, f_words.shape[1], u_words.shape[1],
     )
     return out
+
+
+def spmv_min(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Single-plane push (the reference's ``spmv_min``): f_words
+    (n_cols/32,) -> (n_rows,).  Launches the ELL kernel with one plane,
+    counted under its own name."""
+    if not kernels.on_cuda(nbr, f_words):
+        return ref.spmv_min(nbr, f_words, n_cols)
+    return _push(nbr, f_words.reshape(1, -1), n_cols, PUSH_ONE_KERNEL)[0]
+
+
+def spmv_pull_min(nbr: torch.Tensor, f_words: torch.Tensor, u_words: torch.Tensor,
+                  n_cols: int) -> torch.Tensor:
+    """Single-plane pull (the reference's ``spmv_pull_min``)."""
+    if not kernels.on_cuda(nbr, f_words, u_words):
+        return ref.spmv_pull_min(nbr, f_words, u_words, n_cols)
+    return _pull(nbr, f_words.reshape(1, -1), u_words.reshape(1, -1), n_cols,
+                 PULL_ONE_KERNEL)[0]

@@ -48,3 +48,15 @@ def spmv_pull_min_planes(
     rows = torch.arange(n_rows, dtype=torch.int32, device=nbr.device)
     unreached = frontier_bit(u_words, rows, n_rows)  # (B, n_rows)
     return torch.where(unreached, spmv_min_planes(nbr, f_words, n_cols), INF)
+
+
+def spmv_min(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Single-plane push: (n_cols/32,) frontier words -> (n_rows,)."""
+    return spmv_min_planes(nbr, f_words.reshape(1, -1), n_cols)[0]
+
+
+def spmv_pull_min(nbr: torch.Tensor, f_words: torch.Tensor, u_words: torch.Tensor,
+                  n_cols: int) -> torch.Tensor:
+    """Single-plane pull: as push, rows whose unreached bit is clear give INF."""
+    return spmv_pull_min_planes(nbr, f_words.reshape(1, -1), u_words.reshape(1, -1),
+                                n_cols)[0]

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import bfs
+from repro_torch.comm import CommStats, SimGrid
+from repro_torch.core import bfs, csr
+from repro_torch.core import distributed_bfs as dbfs
 from repro_torch.graphgen import builder, kronecker
 from repro_torch.kernels.bitpack import ops as bp_ops
 from repro_torch.kernels.bitpack import ref as bp_ref
@@ -34,8 +36,8 @@ def test_kernels_match_plain_on_card(cuda):
 
     kernels.reset_launches()
     chip_smoke.check_ragged()
-    for name in ("pack", "popcount_planes", "popcount_words", "spmv_min_planes",
-                 "spmv_pull_min_planes"):
+    for name in ("pack", "unpack", "popcount_planes", "popcount_blocks", "popcount_words",
+                 "spmv_min_planes", "spmv_pull_min_planes", "spmv_min", "spmv_pull_min"):
         assert kernels.LAUNCHES[name] > 0, name
     nbr = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
     f = bp_ops.pack_planes(torch.ones((1, 4), dtype=torch.bool, device=cuda), 1)
@@ -54,3 +56,27 @@ def test_bfs_on_card_matches_cpu(cuda, policy, expand):
     assert torch.equal(on_card.parent.cpu(), on_cpu.parent)
     assert torch.equal(on_card.level.cpu(), on_cpu.level)
     assert on_card.n_levels == on_cpu.n_levels
+
+
+@pytest.mark.gpu
+def test_distributed_on_card_matches_cpu(cuda):
+    """auto + direction_opt + hybrid on a simulated 2x2 grid: the card's
+    parents, levels, depth and byte ledger equal the CPU run's, and the
+    path launched the unpack kernel."""
+    g = builder.build_csr(kronecker.kronecker_edges(12, seed=1), n=1 << 12)
+    bg = csr.partition_2d(g, 2, 2)
+    cfg = dbfs.DistBFSConfig(mode="auto", policy="direction_opt", expand="hybrid")
+    roots = np.array([0, 7, 100, 4000], np.int32)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        grid = SimGrid(2, 2, dev)
+        stats = CommStats()
+        kernels.reset_launches()
+        parent, level, depth = dbfs.build_bfs(grid, bg, cfg, stats=stats)(
+            *dbfs.shard_blocked(grid, bg, cfg), roots)
+        runs[str(dev)] = (parent.cpu(), level.cpu(), depth, stats.table(),
+                          dict(kernels.LAUNCHES))
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    assert card[2] == cpu[2] and card[3] == cpu[3]
+    assert card[4].get("unpack", 0) > 0 and not cpu[4]

@@ -155,3 +155,89 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         bp_ops.pack_planes(torch.zeros((1, 8), dtype=torch.int32), 3)
     assert kernels.on_cuda(torch.zeros(1)) is False
+
+
+@pytest.mark.parametrize("b", bp_ref.B_CLASSES)
+@pytest.mark.parametrize("n", [1024, 4096, 12288])
+def test_unpack_matches_jax_bit_for_bit(b, n):
+    """unpack / unpack_planes equal the JAX oracle and the Pallas kernel
+    in interpret mode, and invert pack; b=1 gives bool planes."""
+    rng = np.random.default_rng(7 * b + n)
+    words = np.asarray(jbp_ref.pack(jnp.asarray(_values(rng, n, b)), b))
+    expect = np.asarray(jbp_ref.unpack(jnp.asarray(words), b))
+    got = bp_ops.unpack(_i32(words), b)
+    assert got.dtype == (torch.bool if b == 1 else torch.int32)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64) & 0xFFFFFFFF,
+                                  expect.astype(np.int64))
+    if n % jbitpack.VALS_PER_BLOCK == 0:
+        pallas = jbitpack.unpack_pallas(jnp.asarray(words), b, interpret=True)
+        np.testing.assert_array_equal(np.asarray(pallas), expect)
+    planes = np.stack([words, words[::-1]])
+    expect_p = np.asarray(jbp_ops.unpack_planes(jnp.asarray(planes), b))
+    got_p = bp_ops.unpack_planes(_i32(planes), b).numpy().astype(np.int64) & 0xFFFFFFFF
+    np.testing.assert_array_equal(got_p, expect_p.astype(np.int64))
+    np.testing.assert_array_equal(_u32(bp_ops.pack_planes(bp_ops.unpack_planes(
+        _i32(planes), b).to(torch.int32), b)), planes)
+
+
+@pytest.mark.parametrize("n,capacity,density", [(5000, 64, 0.05), (5000, 8192, 0.3),
+                                                (2048, 2048, 1.0), (3000, 128, 0.0)])
+def test_compact_ids_and_gap_coding_match_jax(n, capacity, density):
+    """Fixed-capacity compaction: ids past ``capacity`` are dropped and
+    padding takes ``fill``, while ``count`` stays the full popcount (the
+    first case has count > capacity); the gap coding round-trips."""
+    from repro.kernels.bitpack import ops as jops
+
+    rng = np.random.default_rng(n + capacity)
+    bits = rng.random((3, n)) < density
+    fill = n + 5
+    for k in range(3):
+        j_ids, j_count = jops.compact_ids(jnp.asarray(bits[k]), capacity, fill=fill)
+        ids, count = bp_ops.compact_ids(torch.from_numpy(bits[k]), capacity, fill=fill)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+        assert int(count) == int(j_count) == int(bits[k].sum())
+        j_gaps = jbp_ref.gaps_from_sorted(j_ids, j_count)
+        gaps = bp_ops.gaps_from_sorted(ids, count)
+        np.testing.assert_array_equal(gaps.numpy(), np.asarray(j_gaps).astype(np.int64))
+        back = bp_ops.sorted_from_gaps(gaps, count, fill)
+        np.testing.assert_array_equal(
+            back.numpy(), np.asarray(jbp_ref.sorted_from_gaps(j_gaps, j_count, fill)))
+    ids, counts = bp_ops.compact_ids(torch.from_numpy(bits), capacity, fill=fill)
+    for k in range(3):  # the batched form is the per-row form
+        one, cnt = bp_ops.compact_ids(torch.from_numpy(bits[k]), capacity, fill=fill)
+        assert torch.equal(ids[k], one) and int(counts[k]) == int(cnt)
+
+
+@pytest.mark.parametrize("w", [1024, 3072, 1500, 7])
+def test_popcount_blocks_matches_jax(w):
+    rng = np.random.default_rng(w + 1)
+    words = rng.integers(0, 2**32, size=w, dtype=np.uint64).astype(np.uint32)
+    expect = np.asarray(jpc_ops.popcount_blocks(jnp.asarray(words)))
+    got = pc_ops.popcount_blocks(_i32(words))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), expect)
+    if w % jpopcount.WORDS_PER_BLOCK == 0:
+        pallas = jpopcount.popcount_blocks_pallas(jnp.asarray(words), interpret=True)
+        np.testing.assert_array_equal(np.asarray(pallas), expect)
+
+
+@pytest.mark.parametrize("n_rows,k,n_real", [(1024, 8, 4096), (1500, 13, 4500)])
+def test_single_plane_spmv_matches_jax(n_rows, k, n_real):
+    """spmv_min / spmv_pull_min: the single-plane entries equal JAX's ops
+    (and the Pallas kernels in interpret mode where the rows are aligned)."""
+    rng = np.random.default_rng(n_rows + 3 * k)
+    nbr, f, u, n_cols = _spmv_inputs(rng, n_rows, k, n_real, 1)
+    f1, u1 = f[0], u[0]
+    push = np.asarray(jsp_ops.spmv_min(jnp.asarray(nbr), jnp.asarray(f1), n_cols))
+    pull = np.asarray(jsp_ops.spmv_pull_min(jnp.asarray(nbr), jnp.asarray(f1),
+                                            jnp.asarray(u1), n_cols))
+    if n_rows % 1024 == 0:
+        np.testing.assert_array_equal(np.asarray(jspmv.spmv_min_pallas(
+            jnp.asarray(nbr), jnp.asarray(f1), n_cols, interpret=True)), push)
+        np.testing.assert_array_equal(np.asarray(jpull.spmv_pull_min_pallas(
+            jnp.asarray(nbr), jnp.asarray(f1), jnp.asarray(u1), n_cols, interpret=True)),
+            pull)
+    t_nbr = torch.from_numpy(nbr)
+    np.testing.assert_array_equal(sp_ops.spmv_min(t_nbr, _i32(f1), n_cols).numpy(), push)
+    np.testing.assert_array_equal(
+        sp_ops.spmv_pull_min(t_nbr, _i32(f1), _i32(u1), n_cols).numpy(), pull)
