@@ -28,7 +28,21 @@ single-device one and the 2D-distributed one on a simulated grid:
 6. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
    ``direction_opt`` on the card, single-device and on the 2x2 grid under
    ``raw``, ``bitmap`` and ``auto``, and ``direction_opt`` on the CPU give
-   bit-identical parents, levels and level counts.
+   bit-identical parents, levels and level counts; so do ``sssp`` and
+   ``cc`` under every policy on the card, single-device and on the grid
+   under every plan, against ``top_down`` on the CPU;
+7. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
+   kernel ``gspmm_min_planes`` against its plain version at the path's own
+   inputs (a real SSSP level of 8 planes, push and pull, both ops; one
+   rank's slab of the 2x2 grid with its bases; CC's single plane), timed
+   beside its bound; then ``sssp`` (8 roots), ``cc`` and ``pagerank`` (one
+   plane each) on one device, counts zeroed before each run and read
+   after, checked on the card (SSSP shortest-path certificates, CC labels,
+   PageRank against a float64 power iteration) and against scipy (one
+   root's Dijkstra, the connected components); the same runs on the 2x2
+   grid under ``auto`` equal the single-device ones (PageRank within a
+   float32 bound), and the first SSSP batch again under ``raw`` gives the
+   per-phase bytes of both plans.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -56,6 +70,7 @@ CHECK_SCALE = 16  # the cross-check's graph, small enough for the CPU run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores: the
 #                        published 32-bit scalar rate the integer ops are held to
+INF = 2**31 - 1
 GRID = (2, 2)  # the simulated grid of the distributed path
 DIST_ROOTS = 16
 REPLACES = {
@@ -67,6 +82,7 @@ REPLACES = {
     "spmv_min_planes": "src/repro/kernels/spmv/spmv.py:171",
     "spmv_pull_min": "src/repro/kernels/spmv/pull.py:122",
     "spmv_pull_min_planes": "src/repro/kernels/spmv/pull.py:89",
+    "gspmm_min_planes": "src/repro/kernels/spmv/spmv.py:127",
 }
 SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/bitpack.cu",
@@ -77,10 +93,19 @@ SOURCES = {
     "spmv_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
     "spmv_pull_min": "src/repro_torch/kernels/csrc/spmv.cu",
     "spmv_pull_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
+    "gspmm_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
 }
 #: the kernels each main path must launch
 GRAPH500_PATH = ("pack", "popcount_planes", "spmv_min_planes", "spmv_pull_min_planes")
 DIST_PATH = GRAPH500_PATH + ("unpack",)
+#: the min algebras' path; PageRank's sum reduce runs the plain gspmm by
+#: design (as the reference on every platform), so it needs pack and
+#: popcount only
+ALGEBRA_PATH = ("gspmm_min_planes", "pack", "popcount_planes")
+PAGERANK_PATH = ("pack", "popcount_planes")
+#: PageRank on the grid against one device: float32 sums over a vertex's
+#: in-edges in another order, a few ulp of relative error per vertex
+PAGERANK_GRID_L1 = 1e-5
 
 
 def card_line() -> str:
@@ -114,6 +139,14 @@ def same(a, b) -> bool:
 def expect(ok: bool, what) -> None:
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {what}")
+
+
+def _min_algebra(op: str, max_weight: int):
+    """The min algebra whose value gather is ``op``: SSSP (``minplus``) or
+    CC (``copy``)."""
+    from repro_torch.core import algebra
+
+    return algebra.SsspAlgebra(max_weight=max_weight) if op == "minplus" else algebra.CcAlgebra()
 
 
 def check_ragged() -> None:
@@ -164,6 +197,18 @@ def check_ragged() -> None:
                ("push one plane", n_rows, k))
         expect(same(sp_ops.spmv_pull_min(nbr, f[0], u[0], n_cols),
                     sp_ref.spmv_pull_min(nbr, f[0], u[0], n_cols)), ("pull one plane", n_rows, k))
+        # values near INF exercise minplus saturation; n_x < n_cols reads INF
+        x = torch.randint(0, 2**31 - 1, (planes, n_real), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+        x[:, ::7] = INF - torch.randint(0, 40, (1,), generator=gen, device=dev).to(torch.int32)
+        for op in ("copy", "minplus"):
+            alg = _min_algebra(op, 29)
+            for base in ((0, 0), (123457, 98765)):
+                for uw in (None, u):
+                    got = sp_ops.gspmm_planes(nbr, f, x, n_cols, alg, row_base=base[0],
+                                              col_base=base[1], u_words=uw)
+                    want = sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op, 29, *base, uw)
+                    expect(same(got, want), ("gspmm", op, base, uw is None, n_rows, k, planes))
     torch.cuda.synchronize()
 
 
@@ -370,7 +415,7 @@ def distributed_step(setup, roots, single, card) -> dict:
     batch under raw runs first (and warms the path up); its bytes are
     printed beside auto's; then one auto batch records the inputs each
     kernel gets (``dist_shape_rows`` checks and times them).  Returns the
-    path's launch counts and those rows."""
+    path's launch counts, those rows and the grid set-up."""
     from repro_torch import kernels
     from repro_torch.bench import distributed
     from repro_torch.comm import SimGrid
@@ -430,7 +475,7 @@ def distributed_step(setup, roots, single, card) -> dict:
     print(f"  {'total':18s} raw {total_r:>14,}  auto {total_a:>14,}  ratio "
           f"{total_r / total_a:.3f}")
     print(f"distributed step: {time.perf_counter() - t0:.1f}s")
-    return counts, rows
+    return counts, rows, st
 
 
 def cross_check(card) -> None:
@@ -470,6 +515,258 @@ def cross_check(card) -> None:
                                  f"{CHECK_SCALE}")
     print(f"cross-check scale {CHECK_SCALE} on {card}: {len(results)} runs identical "
           f"{sorted(results)} (parents, levels, n_levels={base[2]})")
+    for alg, aroots in (("sssp", sroots), ("cc", sroots[:1])):
+        r = bfsmod.bfs(small_cpu.src, small_cpu.dst, aroots, n, policy="top_down",
+                       expand="hybrid", device="cpu", block=small_cpu.block, algebra=alg,
+                       max_levels=1024)
+        base = (r.parent, r.level, r.n_levels)
+        runs = {}
+        for policy in ("top_down", "bottom_up", "direction_opt"):
+            r = bfsmod.bfs(small.src, small.dst, aroots, n, policy=policy, expand="hybrid",
+                           device="cuda", block=small.block, algebra=alg, max_levels=1024)
+            runs[f"cuda/{policy}"] = (r.parent.cpu(), r.level.cpu(), r.n_levels)
+            for mode in ("raw", "bitmap", "auto"):
+                cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand="hybrid",
+                                         algebra=alg, max_levels=1024)
+                value, level, depth = dbfs.build_bfs(grid, bg, cfg)(*blocks, aroots)
+                runs[f"cuda/2x2/{mode}/{policy}"] = (value[:, :n].cpu(), level[:, :n].cpu(),
+                                                     depth)
+        for key, (value, level, depth) in runs.items():
+            if not (same(value, base[0]) and same(level, base[1]) and depth == base[2]):
+                raise AssertionError(f"{alg} {key} differs from cpu/top_down at scale "
+                                     f"{CHECK_SCALE}")
+        print(f"cross-check {alg} scale {CHECK_SCALE} (B={len(aroots)}) on {card}: "
+              f"{len(runs)} card runs identical to cpu/top_down (n_levels={base[2]})")
+
+
+@contextlib.contextmanager
+def capture_gspmm():
+    """While active, keep the arguments of the ``gspmm_planes`` call with
+    the most frontier bits set (the densest level the path gave it)."""
+    from repro_torch.kernels.popcount import ref as pc_ref
+    from repro_torch.kernels.spmv import ops as sp_ops
+
+    kept = {}
+    real = sp_ops.gspmm_planes
+
+    def run(nbr, f_words, x, n_cols, alg, **kw):
+        w = int(pc_ref.popcount_planes(f_words).sum())
+        if alg.reduce == "min" and w >= kept.get("weight", -1):
+            kept.update(weight=w, args=(nbr, f_words, x, n_cols, alg), kw=kw)
+        return real(nbr, f_words, x, n_cols, alg, **kw)
+
+    sp_ops.gspmm_planes = run
+    try:
+        yield kept
+    finally:
+        sp_ops.gspmm_planes = real
+
+
+def _x_read(nbr, f, n_cols: int, u=None) -> int:
+    """Value entries the gather needs: ``x[p, c]`` for each set bit ``c`` of
+    frontier ``p`` that a row it still reads holds as a neighbour (every
+    row in push; in pull, the rows unreached in plane ``p``)."""
+    import torch
+
+    from repro_torch.kernels.spmv import ref as sp_ref
+
+    r = nbr.shape[0]
+    bits = sp_ref.frontier_bit(f, torch.arange(n_cols, device=f.device), n_cols)
+    if u is not None:
+        live = sp_ref.frontier_bit(u, torch.arange(r, device=u.device), r)
+    need = torch.zeros_like(bits)
+    for p in range(bits.shape[0]):
+        c = (nbr if u is None else nbr[live[p]]).reshape(-1).to(torch.int64)
+        need[p, c[(c >= 0) & (c < n_cols)]] = True
+    return int((need & bits).sum())
+
+
+def gspmm_rows(kept, setup, st, kept_cc) -> tuple[dict, list, list]:
+    """``gspmm_min_planes`` against its plain version on the inputs of a real
+    SSSP level: the captured (8, n) push (minplus, and the same inputs with
+    ``copy``), the pull with the level's unreached vertices, and the same
+    level cut to one rank's column slice and slab on the grid (rank (1, 1),
+    nonzero bases); and on CC's own single plane at its densest level.
+    Returns the main row, the other single-device rows and the rank rows."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
+    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
+
+    nbr, f, x, n_cols, sssp = kept["args"]
+    n = setup.g.n
+    unreached = (x[:, :n] == INF).contiguous()
+    level_shape = {"planes": x.shape[0], "n": n, "frontier": kept["weight"],
+                   "unreached": int(unreached.sum())}
+
+    def row(nbr, f, x, n_cols, op, u=None, bases=(0, 0), shape=None):
+        alg = _min_algebra(op, sssp.max_weight)
+        r, k = nbr.shape
+        planes = x.shape[0]
+        rows_read = r if u is None else int(bp_ref.unpack_planes(u, 1)[:, :r].any(0).sum())
+        nbytes = (rows_read * k * 4 + f.numel() * 4 + _x_read(nbr, f, n_cols, u) * 4
+                  + planes * r * 4 + (0 if u is None else u.numel() * 4))
+        ops_n = rows_read * k * ((12 if op == "minplus" else 0) + 6 * planes)
+        return _row("gspmm_min_planes",
+                    lambda: sp_ops.gspmm_planes(nbr, f, x, n_cols, alg, row_base=bases[0],
+                                                col_base=bases[1], u_words=u),
+                    lambda: sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op,
+                                                    sssp.max_weight, *bases, u),
+                    nbytes, ops_n, {**shape, "op": op, "slab": [r, k],
+                                    "pull": u is not None, "bases": list(bases)})
+
+    u = bp_ops.pack_planes(unreached, 1)
+    main = row(nbr, f, x, n_cols, "minplus", shape=level_shape)
+    others = [row(nbr, f, x, n_cols, "copy", shape=level_shape),
+              row(nbr, f, x, n_cols, "minplus", u, shape=level_shape),
+              row(nbr, f, x, n_cols, "copy", u, shape=level_shape)]
+    nbr1, f1, x1, n_cols1, _ = kept_cc["args"]
+    others.append(row(nbr1, f1, x1, n_cols1, "copy",
+                      shape={"planes": 1, "n": n, "frontier": kept_cc["weight"],
+                             "algebra": "cc"}))
+    part = st.bg.part
+    i, j = 1, 1
+    q = i * part.cols + j
+    pad = part.n - n  # the grid's padded vertices: no frontier bit, INF values
+    bits = torch.nn.functional.pad(bp_ops.unpack_planes(f, 1)[:, :n], (0, pad))
+    x_all = torch.nn.functional.pad(x[:, :n], (0, pad), value=INF)
+    f_col = bp_ops.pack_planes(bits[:, j * part.n_c:(j + 1) * part.n_c].contiguous(), 1)
+    x_col = x_all[:, j * part.n_c:(j + 1) * part.n_c].contiguous()
+    u_row = bp_ops.pack_planes((x_all[:, i * part.n_r:(i + 1) * part.n_r] == INF)
+                               .contiguous(), 1)
+    slab = st.blocks[2][q]
+    bases = (i * part.n_r, j * part.n_c)
+    rank_shape = {**level_shape, "rank": [i, j]}
+    rank = [row(slab, f_col, x_col, part.n_c, op, uw, bases, rank_shape)
+            for op in ("minplus", "copy") for uw in (None, u_row)]
+    return main, others, rank
+
+
+def _scipy_graph(g):
+    """The stored edges as a scipy matrix of their hashed SSSP weights."""
+    import scipy.sparse as sp
+
+    from repro_torch.core import algebra
+
+    w = algebra.edge_weight(g.src, g.dst).astype(np.float64)
+    return sp.csr_matrix((w, (g.src, g.dst)), shape=(g.n, g.n))
+
+
+def algebra_step(setup, roots, st, card) -> tuple[dict, dict]:
+    """The frontier algebras at the smoke's scale (hybrid + top_down): the
+    value kernel at the path's own inputs, then sssp / cc / pagerank on one
+    device and on the 2x2 grid with their checks.  Returns the launch counts
+    per path and the kernel's JSON row."""
+    import torch
+    from scipy.sparse import csgraph
+
+    from repro_torch import kernels
+    from repro_torch.bench import algebras, distributed
+    from repro_torch.core import bfs as bfsmod
+
+    t0 = time.perf_counter()
+    g = setup.g
+    aroots = {a: roots[:algebras.BATCH[a]] for a in algebras.ALGEBRAS}
+    # an SSSP batch first (the warm-up): it records the densest level's
+    # value-gather inputs
+    with capture_gspmm() as kept:
+        algebras.run_single(setup, "sssp", aroots["sssp"])
+    with capture_gspmm() as kept_cc:
+        algebras.run_single(setup, "cc", aroots["cc"])
+    main, others, rank = gspmm_rows(kept, setup, st, kept_cc)
+    del kept, kept_cc
+    for r in [main, *others, *rank]:
+        print(f"kernel gspmm_min_planes: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us vs "
+              f"plain {r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}) on {card}")
+    main["other_shapes"] = [{key: r[key] for key in ("shape", "max_abs_err", "ms",
+                                                      "plain_ms", "bound_ms", "bound_by")}
+                            for r in others]
+    main["distributed_shapes"] = [{key: r[key] for key in ("shape", "max_abs_err", "ms",
+                                                            "plain_ms", "bound_ms",
+                                                            "bound_by")} for r in rank]
+
+    launches = {"algebras": {}, "algebras_grid": {}}
+    single, grid = {}, {}
+    for where, runs, fn in (("algebras", single, lambda a, r: algebras.run_single(setup, a, r)),
+                            ("algebras_grid", grid, lambda a, r: algebras.run_grid(st, a, r))):
+        for alg in algebras.ALGEBRAS:
+            kernels.reset_launches()
+            runs[alg] = fn(alg, aroots[alg])
+            counts = dict(kernels.LAUNCHES)
+            need = PAGERANK_PATH if alg == "pagerank" else ALGEBRA_PATH
+            if where == "algebras_grid":
+                need = need + ("unpack",)
+            require_launched(counts, need, f"{alg} ({where})")
+            for name, c in counts.items():
+                launches[where][name] = launches[where].get(name, 0) + c
+            print(f"{alg} ({where}, B={len(aroots[alg])}): {runs[alg]['n_levels']} levels, "
+                  f"{runs[alg]['batch_s']:.4f} s, launches {counts} on {card}")
+
+    failures = []
+    for alg in algebras.ALGEBRAS:
+        v = algebras.check(setup, alg, aroots[alg], single[alg])
+        failures += [f"{alg}: {x}" for x in v["failures"]]
+        if alg == "pagerank":
+            print(f"pagerank: L1 {v['l1_to_float64']:.6e} to the float64 iteration "
+                  f"({v['float64_iterations']} iterations; bound {algebras.PAGERANK_L1})")
+    print(f"sssp: shortest-path certificates checked on the card for roots "
+          f"{aroots['sssp'].tolist()}")
+    root = int(aroots["sssp"][0])
+    t1 = time.perf_counter()
+    mat = _scipy_graph(g)
+    dist = csgraph.dijkstra(mat, indices=root)
+    dist = np.where(np.isinf(dist), INF, dist).astype(np.int64)
+    if not np.array_equal(single["sssp"]["value"][0].cpu().numpy().astype(np.int64), dist):
+        failures.append(f"sssp root {root} differs from scipy dijkstra")
+    n_comp, comp = csgraph.connected_components(mat, directed=False)
+    del mat
+    mins = np.full(n_comp, g.n, np.int64)
+    np.minimum.at(mins, comp, np.arange(g.n))
+    if not np.array_equal(single["cc"]["value"][0].cpu().numpy(), mins[comp]):
+        failures.append("cc differs from scipy connected_components")
+    print(f"scipy: dijkstra from root {root} and connected_components ({n_comp:,} "
+          f"components) checked in {time.perf_counter() - t1:.1f}s")
+
+    for alg in ("sssp", "cc"):
+        a, b = single[alg], grid[alg]
+        if not (same(a["value"], b["value"]) and same(a["level"], b["level"])
+                and a["n_levels"] == b["n_levels"]):
+            failures.append(f"{alg}: the grid differs from one device")
+    one = single["pagerank"]["value"]
+    if st.bg.part.n != g.n:  # PageRank's 1/n: one device over the grid's padded n
+        one = bfsmod.bfs(setup.src, setup.dst, aroots["pagerank"], st.bg.part.n,
+                         expand="hybrid", device="cuda", algebra="pagerank",
+                         max_levels=algebras.MAX_LEVELS["pagerank"]).parent[:, :g.n]
+    l1 = float((one.double() - grid["pagerank"]["value"].double()).abs().sum())
+    if l1 > PAGERANK_GRID_L1:
+        failures.append(f"pagerank: grid vs one device L1 {l1} > {PAGERANK_GRID_L1}")
+    print(f"grid vs one device: sssp and cc bit-identical; pagerank L1 {l1:.6e} "
+          f"(bound {PAGERANK_GRID_L1})")
+    if failures:
+        raise AssertionError(f"algebra checks failed: {failures}")
+
+    raw = algebras.run_grid(st, "sssp", aroots["sssp"], mode="raw")
+    if not same(raw["value"], grid["sssp"]["value"]):
+        raise AssertionError("sssp: raw and auto wire plans give different distances")
+    auto_z = distributed.zone_bytes([grid["sssp"]["stats"]])
+    raw_z = distributed.zone_bytes([raw["stats"]])
+    print(f"sssp bytes over links, all ranks, first batch (raw {raw['batch_s']:.4f} s vs "
+          f"auto {grid['sssp']['batch_s']:.4f} s):")
+    for zone in sorted(set(auto_z) | set(raw_z)):
+        a, r = sum(auto_z.get(zone, {}).values()), sum(raw_z.get(zone, {}).values())
+        ratio = f"{r / a:.3f}" if a else "-"
+        print(f"  {zone:20s} raw {r:>14,}  auto {a:>14,}  ratio {ratio}  "
+              f"auto formats {auto_z.get(zone, {})}")
+    total_a = sum(sum(z.values()) for z in auto_z.values())
+    total_r = sum(sum(z.values()) for z in raw_z.values())
+    print(f"  {'total':20s} raw {total_r:>14,}  auto {total_a:>14,}  ratio "
+          f"{total_r / total_a:.3f}")
+    for alg in ("cc", "pagerank"):
+        z = distributed.zone_bytes([grid[alg]["stats"]])
+        print(f"{alg} bytes over links, all ranks (auto): "
+              f"{ {k: sum(v.values()) for k, v in sorted(z.items())} }")
+    print(f"algebra step: {time.perf_counter() - t0:.1f}s")
+    return launches, main
 
 
 def main() -> int:
@@ -534,8 +831,10 @@ def main() -> int:
     print(f"Graph500 scale {args.scale}: {out['n_valid']}/{out['n_roots']} trees valid, "
           f"TEPS harmonic mean {out['teps_harmonic_mean']:.6e} on {card}")
 
-    launches["distributed"], dist_rows = distributed_step(setup, roots, single, card)
+    launches["distributed"], dist_rows, st = distributed_step(setup, roots, single, card)
     cross_check(card)
+    alg_launches, rows["gspmm_min_planes"] = algebra_step(setup, roots, st, card)
+    launches.update(alg_launches)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

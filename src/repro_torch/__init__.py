@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of :mod:`repro` (single-device Graph500 BFS path).
+"""PyTorch + CUDA port of :mod:`repro`: the Graph500 BFS on one device and
+on a simulated 2D grid, and the frontier algebras (SSSP, CC, PageRank).
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:

@@ -1,11 +1,14 @@
 """Where a Graph500 batch's device time goes: one traced batch.
 
 Builds the graph as the harness does, runs one untimed warm-up batch,
-then traces one batch of ``--batch`` roots with ``torch.profiler`` and
+then traces one batch (per ``--algebra``: ``bfs`` by default, ``--batch``
+roots under ``direction_opt``; or any of ``sssp``, ``cc``, ``pagerank``,
+one after another on the same graph, each with the batch, level cap and
+policy of :mod:`repro_torch.bench.algebras`) with ``torch.profiler`` and
 prints the device time by kernel and by PyTorch op (top rows of
 ``key_averages``), the device-busy total and the idle share of the batch's
 wall time.  With ``--grid RxC`` the batch is the distributed BFS on a
-simulated grid (``--mode``, ``direction_opt`` + ``hybrid``), and the trace
+simulated grid (``--mode``, ``hybrid``), and the trace
 also gives the device time of the pack and unpack kernels and of the
 kernels launched inside the fixed-capacity compaction and inside the local
 expansion, each as a share of the busy time.  The last two come from
@@ -15,6 +18,7 @@ last kernel's end, idle gaps included) is printed apart, as a share of
 the wall time.
 
     python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
+    python -m repro_torch.bench.trace --scale 22 --algebra sssp cc pagerank [--grid 2x2]
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import time
 
 import torch
 
-from repro_torch.bench import distributed, graph500, teps
+from repro_torch.bench import algebras, distributed, graph500, teps
 from repro_torch.comm import SimGrid
 from repro_torch.core import bfs as bfsmod
 from repro_torch.core import distributed_bfs as dbfs
@@ -55,7 +59,8 @@ def _phase_ranges():
     saved = [(bp_ops, "compact_ids", bp_ops.compact_ids)]
     bp_ops.compact_ids = _ranged("range/compaction", bp_ops.compact_ids)
     for backend in expand_mod.BACKENDS.values():
-        for meth in ("push_planes", "pull_planes"):
+        for meth in ("push_planes", "pull_planes", "push_value_planes",
+                     "pull_value_planes"):
             saved.append((backend, meth, None))
             setattr(backend, meth, _ranged("range/expansion", getattr(backend, meth)))
     try:
@@ -68,40 +73,55 @@ def _phase_ranges():
                 setattr(obj, name, fn)
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="roots per BFS batch (the algebras take their own)")
     ap.add_argument("--grid", default=None, help="R x C: trace the distributed BFS")
     ap.add_argument("--mode", default="auto", choices=["raw", "bitmap", "auto"])
-    ap.add_argument("--out", default=None, help="chrome trace output path")
+    ap.add_argument("--algebra", nargs="+", default=["bfs"],
+                    choices=["bfs", "sssp", "cc", "pagerank"])
+    ap.add_argument("--out", default=None, help="chrome trace output path (last algebra)")
     args = ap.parse_args(argv)
 
     if args.grid:
         g, _, _ = graph500.generate(args.scale)
         st = distributed.setup(g, SimGrid(*distributed.parse_grid(args.grid)), "hybrid")
-        cfg = dbfs.DistBFSConfig(mode=args.mode, policy="direction_opt", expand="hybrid")
-        fn = dbfs.build_bfs(st.grid, st.bg, cfg)
-
-        def batch(r):
-            return fn(*st.blocks, r)[2]
     else:
         setup = graph500.build(args.scale, device="cuda")
         g = setup.g
+    roots = teps.valid_roots(g, 2 * max(args.batch, *algebras.BATCH.values()), seed=2)
+    return [_trace(args, alg, st if args.grid else setup, roots) for alg in args.algebra]
+
+
+def _trace(args, alg: str, where, roots) -> dict:
+    """Warm up on one batch, trace the next; print and return the table."""
+    if alg == "bfs":
+        b, policy, max_levels = args.batch, "direction_opt", 1024
+    else:
+        b, policy, max_levels = algebras.BATCH[alg], algebras.POLICY, algebras.MAX_LEVELS[alg]
+    if args.grid:
+        cfg = dbfs.DistBFSConfig(mode=args.mode, policy=policy, expand="hybrid",
+                                 algebra=alg, max_levels=max_levels)
+        fn = dbfs.build_bfs(where.grid, where.bg, cfg)
 
         def batch(r):
-            return bfsmod.bfs(setup.src, setup.dst, r, setup.g.n, policy="direction_opt",
-                              expand=setup.expand, device=setup.device,
-                              block=setup.block).n_levels
+            return fn(*where.blocks, r)[2]
+    else:
+        def batch(r):
+            return bfsmod.bfs(where.src, where.dst, r, where.g.n, policy=policy,
+                              expand=where.expand, device=where.device,
+                              block=where.block, algebra=alg,
+                              max_levels=max_levels).n_levels
 
-    roots = teps.valid_roots(g, 2 * args.batch, seed=2)
-    batch(roots[: args.batch])
+    batch(roots[:b])
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ranges = _phase_ranges() if args.grid else contextlib.nullcontext()
     with ranges, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        levels = batch(roots[args.batch:])
+        levels = batch(roots[b:2 * b])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -122,7 +142,7 @@ def main(argv=None) -> dict:
     busy_us = sum(_device_us(e) for e in kernels)
     what = f"grid {args.grid} ({args.mode}), ranks simulated on one card" if args.grid \
         else "one device"
-    print(f"# scale {args.scale} batch {args.batch} levels {levels} {what} on "
+    print(f"# {alg} ({policy}) scale {args.scale} batch {b} levels {levels} {what} on "
           f"{torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
     table = {}
@@ -134,9 +154,10 @@ def main(argv=None) -> dict:
                                 "device_ms": _device_us(e) / 1e3,
                                 "share": _device_us(e) / busy_us if busy_us else 0.0})
             print(f"{_device_us(e) / 1e3:10.3f} ms {e.count:6d} x  {e.key[:100]}")
-    out = {"scale": args.scale, "batch": args.batch, "grid": args.grid, "levels": levels,
-           "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-           "idle_share": 1 - busy_us / wall_us, "top": table}
+    out = {"scale": args.scale, "algebra": alg, "policy": policy, "batch": b,
+           "grid": args.grid, "levels": levels, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / wall_us,
+           "top": table}
     if args.grid:
         def kernel_ms(pred):
             return sum(_device_us(e) for e in kernels if pred(e.key)) / 1e3

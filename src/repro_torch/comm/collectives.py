@@ -8,6 +8,11 @@ chosen per communicator group by the bucket ladder.  The bottom-up (pull)
 direction swaps the row id streams for :func:`alltoall_bitmap_min_planes`
 — found-bitmap + bit-packed parents, density-independent.
 
+The frontier algebras add a value column phase
+(:func:`gather_values_planes`) and a combine row phase for sum algebras
+(:func:`alltoall_dense_combine_planes`); value payloads that are already
+global ride the min-candidate and bitmap+payload wires with ``n_c=None``.
+
 Every function takes and returns per-rank lists over the grid.  The
 ``*_planes`` forms carry ``(B, ...)`` source planes per rank with a packed
 one-word-per-plane id-stream sideband; the single-source forms (one root)
@@ -194,6 +199,25 @@ def allgather_membership(bits: list, grid: SimGrid, axis, ladder: BucketLadder, 
 
 
 # ---------------------------------------------------------------------------
+# column phase: value-plane all-gather (the frontier algebras but bfs)
+# ---------------------------------------------------------------------------
+
+
+def gather_values_planes(ex: AdaptiveExchange, x: list, groups=None) -> list:
+    """Dense int32 all-gather of per-rank ``(B, s)`` encoded value planes ->
+    ``(B, g*s)``: the source values of the column slice, next to its
+    membership bits.  Values travel as raw int32 words (width-32 packing is
+    the identity), recorded as ``values``."""
+    ranks = ex.ranks(groups)
+    b, s = x[ranks[0]].shape
+    got = ex.all_gather(x, fmt="values", groups=groups)
+    out = [None] * ex.grid.size
+    for p in ranks:
+        out[p] = got[p].reshape(ex.group_size, b, s).transpose(0, 1).reshape(b, -1)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # row phase: candidate all-to-all + min-reduce
 # ---------------------------------------------------------------------------
 
@@ -211,6 +235,29 @@ def alltoall_dense_min_planes(ex: AdaptiveExchange, prop: list, groups=None) -> 
     out = [None] * ex.grid.size
     for p in ranks:
         out[p] = recv[p].reshape(c, b, s).amin(dim=0)
+    return out
+
+
+def alltoall_dense_combine_planes(ex: AdaptiveExchange, prop: list, alg,
+                                  groups=None) -> list:
+    """Dense int32 all-to-all of per-rank ``(B, c, s)`` candidate planes,
+    merged with the algebra's combine -> ``(B, s)``: a min like
+    :func:`alltoall_dense_min_planes`, or a sum of the decoded float32
+    partial sums (the absent 0 decodes to 0.0, so nothing is masked)."""
+    ranks = ex.ranks(groups)
+    b, c, s = prop[ranks[0]].shape
+    fmt = DenseFormat(s)
+    send = [None] * ex.grid.size
+    for p in ranks:
+        send[p] = prop[p].transpose(0, 1).contiguous()  # (c, B, s)
+    recv = ex.all_to_all(send, fmt=fmt.name, groups=groups)
+    out = [None] * ex.grid.size
+    for p in ranks:
+        got = recv[p].reshape(c, b, s)
+        if alg.reduce == "min":
+            out[p] = got.amin(dim=0)
+        else:
+            out[p] = alg.enc(alg.dec(got).sum(dim=0))
     return out
 
 

@@ -10,8 +10,8 @@ The port's counterpart of ``repro/comm/engine.py``, over a
   read to the host once, and each branch then runs over the groups that
   chose it — where JAX's ``lax.switch`` runs one branch per group.  A
   single-branch exchange skips the consensus.
-* :meth:`all_gather` / :meth:`all_to_all` / :meth:`pmax` / :meth:`psum` /
-  :meth:`ppermute` — the grid's collectives, each recording one rank's
+* :meth:`all_gather` / :meth:`all_to_all` / :meth:`pmax` / :meth:`pmin` /
+  :meth:`psum` / :meth:`ppermute` — the grid's collectives, each recording one rank's
   result-shape bytes per call as the reference engine does, with
   ``moved_bytes`` excluding identity ``ppermute`` pairs, the own chunk of
   a gather or all-to-all, and counting the ring all-reduce's
@@ -109,6 +109,14 @@ class AdaptiveExchange:
              groups=None) -> list:
         out = self.grid.pmax(xs, self.axis, self.groups(groups))
         # one consensus serves every plane: never split per plane
+        self._rec(fmt, "all-reduce", part, out, groups,
+                  moved=2 * self._peer_share(out, groups), per_plane=False)
+        return out
+
+    def pmin(self, xs: Sequence, *, fmt: str = CONSENSUS, part: str = "bucket",
+             groups=None) -> list:
+        out = self.grid.pmin(xs, self.axis, self.groups(groups))
+        # consensus-shaped like pmax (the SSSP window floor rides this)
         self._rec(fmt, "all-reduce", part, out, groups,
                   moved=2 * self._peer_share(out, groups), per_plane=False)
         return out

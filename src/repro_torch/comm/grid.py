@@ -6,8 +6,8 @@ rank ``p = i*C + j`` (grid row ``i``, grid column ``j``); the per-rank body of
 the distributed BFS is written once against such lists, and a rank that
 takes no part in a call holds ``None``.  The collectives follow
 ``jax.lax``'s semantics exactly — tiled ``all_gather`` and ``all_to_all``
-(split and concatenate on dim 0), ``psum``, ``pmax``, ``ppermute`` (a rank
-no pair sends to receives zeros) — over the communicator groups of an axis:
+(split and concatenate on dim 0), ``psum``, ``pmax``, ``pmin``, ``ppermute``
+(a rank no pair sends to receives zeros) — over the communicator groups of an axis:
 
 * ``"data"``  — the R ranks that share a grid column ``j`` (C groups);
 * ``"model"`` — the C ranks that share a grid row ``i`` (R groups);
@@ -122,6 +122,9 @@ class SimGrid:
 
     def pmax(self, xs: Sequence, axis, groups=None) -> list:
         return self._reduce(xs, axis, groups, torch.maximum)
+
+    def pmin(self, xs: Sequence, axis, groups=None) -> list:
+        return self._reduce(xs, axis, groups, torch.minimum)
 
     def ppermute(self, xs: Sequence, axis, perm, groups=None) -> list:
         """``perm``: (src, dst) pairs of axis indices; a member no pair

@@ -18,9 +18,12 @@ return plane-batched callables over per-rank lists:
 
 At ``b == 1`` each builder uses the single-source wire (its two-word
 sideband); at ``b > 1`` all planes share one bucket consensus and one
-collective pair per exchange.  This slice carries the ``bfs`` algebra, so
-row payloads are parent ids: column-local on the wire, re-globalized by
-the receiver.
+collective pair per exchange.  The row builders take the frontier
+algebra as ``alg`` (default BFS).  Id payloads (BFS parents) travel
+column-local and the receiver re-globalizes them; value payloads (SSSP
+distances, CC labels) are global already and travel as they are; a sum
+algebra (PageRank) takes the dense int32 wire with its add-combine under
+every plan, its candidates being dense partial sums.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ from repro_torch.comm import collectives as cc
 from repro_torch.comm.engine import AdaptiveExchange
 from repro_torch.comm.formats import INF, BitmapParentFormat
 from repro_torch.comm.ladder import BucketLadder
+from repro_torch.core.algebra import ALGEBRAS
+
+BFS = ALGEBRAS["bfs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,36 +82,60 @@ def _auto_column(s, grid, axis, *, b=1, stats=None, phase="bfs/column"):
         bits, grid, axis, ladder, stats=stats, phase=phase)
 
 
+def _sum_algebra(alg) -> bool:
+    """Sum algebras bypass the min-merge wires: every row exchange is the
+    dense int32 one with the algebra's add-combine."""
+    return alg.reduce == "sum"
+
+
+def _localize_n_c(alg, n_c):
+    """Column-slice width for payload localization, or None when the payload
+    is a global value rather than a source id."""
+    return n_c if alg.payload_is_id else None
+
+
 def _dense_row(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
-               phase="bfs/row"):
+               phase="bfs/row", alg=BFS):
     ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    if _sum_algebra(alg):
+        return lambda prop: cc.alltoall_dense_combine_planes(ex, prop, alg)
     if b == 1:
         return lambda prop: _one(lambda x: cc.alltoall_dense_min(ex, x), prop)
     return lambda prop: cc.alltoall_dense_min_planes(ex, prop)
 
 
 def _auto_row(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
-              phase="bfs/row"):
+              phase="bfs/row", alg=BFS):
+    if _sum_algebra(alg):
+        return _dense_row(s, grid, axis, n_c, parent_width, b=b, stats=stats,
+                          phase=phase, alg=alg)
     # the row phase's dense fallback is a 32-bit candidate vector -> its own
-    # (deeper) ladder, with the parent payload priced into every bucket; the
-    # payload packs COLUMN-LOCAL offsets, so parent_width = class(n_c)
+    # (deeper) ladder, with the payload priced into every bucket; parent ids
+    # pack COLUMN-LOCAL offsets (parent_width = class(n_c)), values their
+    # algebra's class, as they are (n_c=None)
     ladder = BucketLadder.default(s, floor_words=s, payload_width=parent_width)
+    loc = _localize_n_c(alg, n_c)
     if b == 1:
         return lambda prop: _one(lambda x: cc.alltoall_min_candidates(
-            x, grid, axis, ladder, stats=stats, phase=phase, n_c=n_c), prop)
+            x, grid, axis, ladder, stats=stats, phase=phase, n_c=loc), prop)
     return lambda prop: cc.alltoall_min_candidates_planes(
-        prop, grid, axis, ladder, stats=stats, phase=phase, n_c=n_c)
+        prop, grid, axis, ladder, stats=stats, phase=phase, n_c=loc)
 
 
 def _dense_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
-                  phase="bfs/row-pull"):
-    """Baseline pull row exchange: globalize candidates, dense int32 wire."""
+                  phase="bfs/row-pull", alg=BFS):
+    """Baseline pull row exchange: globalize id candidates, dense int32 wire."""
     ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    if _sum_algebra(alg):
+        return lambda prop: cc.alltoall_dense_combine_planes(ex, prop, alg)
     col = grid.axis_index(axis)
+    loc = _localize_n_c(alg, n_c)
 
     def run(prop):
-        glob = [None if x is None else torch.where(x < INF, col[p] * n_c + x, INF)
-                for p, x in enumerate(prop)]
+        glob = prop
+        if loc is not None:
+            glob = [None if x is None else torch.where(x < INF, col[p] * n_c + x, INF)
+                    for p, x in enumerate(prop)]
         if b == 1:
             return _one(lambda x: cc.alltoall_dense_min(ex, x), glob)
         return cc.alltoall_dense_min_planes(ex, glob)
@@ -114,17 +144,19 @@ def _dense_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
 
 
 def _bitmap_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
-                   phase="bfs/row-pull"):
-    """Compressed pull row exchange: found-bitmap + bit-packed parents."""
-    if parent_width >= 32:
-        # width-32 payloads (huge n_c) would not undercut the dense vector
+                   phase="bfs/row-pull", alg=BFS):
+    """Compressed pull row exchange: found-bitmap + bit-packed payloads."""
+    if _sum_algebra(alg) or parent_width >= 32:
+        # width-32 payloads (values, huge n_c) would not undercut the dense
+        # vector; sum candidates are dense by nature
         return _dense_row_bu(s, grid, axis, n_c, parent_width, b=b, stats=stats,
-                             phase=phase)
+                             phase=phase, alg=alg)
     fmt = BitmapParentFormat(s, parent_width)
     ex = AdaptiveExchange(phase, grid, axis, None, stats, planes=b)
+    loc = _localize_n_c(alg, n_c)
     if b == 1:
-        return lambda prop: _one(lambda x: cc.alltoall_bitmap_min(ex, x, fmt, n_c), prop)
-    return lambda prop: cc.alltoall_bitmap_min_planes(ex, prop, fmt, n_c)
+        return lambda prop: _one(lambda x: cc.alltoall_bitmap_min(ex, x, fmt, loc), prop)
+    return lambda prop: cc.alltoall_bitmap_min_planes(ex, prop, fmt, loc)
 
 
 # the unreached-membership gather rides the same wire as the plan's

@@ -7,9 +7,14 @@ traversal policy (:mod:`repro_torch.core.traversal`).  ``root`` may be a
 scalar or a ``(B,)`` batch of distinct sources; batched runs widen every
 plane to ``(B, n)`` and return, per plane, what B single-source runs give.
 
+The frontier algebra (:mod:`repro_torch.core.algebra`) is an argument of
+:func:`bfs`: ``sssp``, ``cc`` and ``pagerank`` run the same level loop, with
+the ``parent`` field of the result carrying the finalized values.
+
 JAX's ``while_loop`` / ``scan`` become a Python loop: each level takes one
-device->host copy, of the (B,) frontier counts and direction flags, which
-decides whether the loop goes on and which ``direction_opt`` pass runs.
+device->host copy, of the (B,) frontier counts, direction flags and the
+algebra's ``alive``, which decides whether the loop goes on and which
+``direction_opt`` pass runs.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ INF = algebra_mod.INF
 
 class BFSResult(NamedTuple):
     parent: torch.Tensor  # (n,) | (B, n) int32, -1 = unreached, parent[root] = root
-    level: torch.Tensor  # (n,) | (B, n) int32, -1 = unreached
+    #                      (value algebras: finalized values, float32 for pagerank)
+    level: torch.Tensor  # (n,) | (B, n) int32, -1 = unreached (last improvement)
     n_levels: int  # levels run (batched: depth of the longest plane)
 
 
@@ -70,7 +76,7 @@ def _init_state(roots: torch.Tensor, n: int, policy, alg) -> traversal.LevelStat
     b = roots.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=roots.device)
     hit = idx[None, :] == roots[:, None]
-    value, frontier = alg.init(hit, roots)
+    value, frontier = alg.init(hit, idx, roots, n)
     return traversal.LevelState(
         value=value,
         level=torch.where(hit, 0, -1).to(torch.int32),
@@ -82,10 +88,11 @@ def _init_state(roots: torch.Tensor, n: int, policy, alg) -> traversal.LevelStat
         counts=torch.ones(b, dtype=torch.int32, device=roots.device),
         host_counts=np.ones(b, np.int32),
         host_use_bu=np.full(b, policy.starts_bottom_up),
+        aux=alg.init_aux(frontier),
     )
 
 
-def _setup(src, dst, root, n, policy, expand, device, block):
+def _setup(src, dst, root, n, policy, expand, device, block, alg):
     """Shared argument handling of :func:`bfs` and :func:`bfs_levels`."""
     dev = resolve_device(device)
     roots = validate_roots(root, n)
@@ -96,19 +103,22 @@ def _setup(src, dst, root, n, policy, expand, device, block):
                         else np.asarray(a) for a in (src, dst))
         block = backend.local_block(src_h, dst_h, backend.graph_arrays(src_h, dst_h, n),
                                     n, n, dev)
+    # the degree vector, once before the level loop, where something reads
+    # it: the anticipatory direction oracle or PageRank's x = v/deg
     deg = None
-    if pol.uses_top_down and pol.uses_bottom_up:
+    if (pol.uses_top_down and pol.uses_bottom_up) or alg.needs_deg:
         deg = traversal.degree_vector(torch.as_tensor(src, device=dev),
                                       torch.as_tensor(dst, device=dev), n, n)
     roots_t = torch.as_tensor(np.atleast_1d(roots), device=dev)
-    state = _init_state(roots_t, n, pol, algebra_mod.resolve("bfs"))
+    state = _init_state(roots_t, n, pol, alg)
     return roots.ndim == 0, pol, backend, block, deg, state
 
 
-def _result(state, squeeze: bool) -> BFSResult:
+def _result(state, squeeze: bool, alg) -> BFSResult:
+    value = alg.finalize(state.value)
     if squeeze:
-        return BFSResult(state.value[0], state.level[0], state.depth)
-    return BFSResult(state.value, state.level, state.depth)
+        return BFSResult(value[0], state.level[0], state.depth)
+    return BFSResult(value, state.level, state.depth)
 
 
 def bfs(
@@ -121,6 +131,7 @@ def bfs(
     expand: str = "coo",
     device=None,
     block: expand_mod.LocalBlock | None = None,
+    algebra="bfs",
 ) -> BFSResult:
     """BFS over a symmetric COO edge list (padding edges may use src=dst=n).
 
@@ -141,14 +152,19 @@ def bfs(
         for this graph, from :func:`repro_torch.core.expand.block_from_arrays`,
         so that a loop over many roots builds the containers once; built
         from ``src``/``dst`` when omitted.
+      algebra: frontier algebra name or instance (``bfs`` | ``sssp`` |
+        ``cc`` | ``pagerank``, :mod:`repro_torch.core.algebra`).  For a
+        value algebra ``parent`` carries the finalized value plane (SSSP
+        distances with ``INF`` unreached, CC labels, float32 PageRank
+        scores) and ``level`` the level each vertex last improved in.
     """
+    alg = algebra_mod.resolve(algebra)
     squeeze, pol, backend, block, deg, state = _setup(
-        src, dst, root, n, policy, expand, device, block)
+        src, dst, root, n, policy, expand, device, block, alg)
     oracle = traversal.DensityOracle(n)
-    alg = algebra_mod.resolve("bfs")
     while state.active and state.depth < max_levels:
         state = traversal.level_once(pol, oracle, alg, state, backend, block, deg)
-    return _result(state, squeeze)
+    return _result(state, squeeze, alg)
 
 
 def bfs_levels(
@@ -168,10 +184,10 @@ def bfs_levels(
     after level ``l+1``, for ``max_levels`` rows (zeros once every plane
     is done); a scalar root gives a ``(max_levels,)`` column.
     """
-    squeeze, pol, backend, block, deg, state = _setup(
-        src, dst, root, n, policy, expand, device, block)
-    oracle = traversal.DensityOracle(n)
     alg = algebra_mod.resolve("bfs")
+    squeeze, pol, backend, block, deg, state = _setup(
+        src, dst, root, n, policy, expand, device, block, alg)
+    oracle = traversal.DensityOracle(n)
     sizes = np.zeros((max_levels, state.counts.shape[0]), np.int32)
     for lvl in range(max_levels):
         if not state.active:
@@ -179,4 +195,4 @@ def bfs_levels(
         state = traversal.level_once(pol, oracle, alg, state, backend, block, deg)
         sizes[lvl] = state.host_counts
     sizes_t = torch.from_numpy(sizes)
-    return _result(state, squeeze), (sizes_t[:, 0] if squeeze else sizes_t)
+    return _result(state, squeeze, alg), (sizes_t[:, 0] if squeeze else sizes_t)

@@ -1,7 +1,7 @@
 """Local-expansion backends: the block storage one BFS level expands over.
 
-The port's counterpart of ``repro/core/expand.py`` (id payloads only).
-Three backends, resolved by name:
+The port's counterpart of ``repro/core/expand.py``.  Three backends,
+resolved by name:
 
 * ``coo``    — the flat min over the sentinel-padded edge arrays, a
   ``scatter_reduce_(..., "amin")`` into an INF-filled ``(n+1)`` row per
@@ -16,7 +16,12 @@ Three backends, resolved by name:
 
 Every backend gives bit-identical ``(B, n_rows)`` min-candidate planes:
 each row's edge set lives in exactly one structure, and min commutes with
-the split.  On the 2D grid ``block_arrays`` builds each backend's per-block
+the split.  The value expansions of the frontier algebras
+(``push_value_planes`` / ``pull_value_planes``) propose the algebra's edge
+message of each source's value and combine under its reduce; on the slab a
+min-reduce runs the ``gspmm_min_planes`` kernel.  The hybrid halves merge
+with the algebra's combine, exact for min; for PageRank's float32 sum the
+split changes the order of the additions.  On the 2D grid ``block_arrays`` builds each backend's per-block
 containers (:mod:`repro_torch.core.csr`), and a rank's block has
 ``n_rows = n_r`` destinations and ``n_cols = n_c`` sources.
 """
@@ -107,6 +112,51 @@ def _ell_pull(nbr, n_cols: int, f, unreached) -> torch.Tensor:
     )
 
 
+def _coo_push_value(src, dst, n_rows, n_cols, f, x, alg, row_base, col_base):
+    """Value push over COO edges: each active edge proposes the algebra's
+    message of its source's value (column-LOCAL frontier, global ids from
+    the bases), reduced per destination with the algebra's combine."""
+    out = torch.empty((f.shape[0], n_rows), dtype=torch.int32, device=f.device)
+    valid = src < n_cols
+    s_cl = torch.clamp(src, 0, n_cols - 1).to(torch.int64)
+    w = alg.edge_weights(src + col_base, dst + row_base)
+    for p in range(f.shape[0]):
+        msg = alg.edge_message(x[p][s_cl], w)
+        cand = torch.where(f[p][s_cl] & valid, msg, alg.empty)
+        out[p] = alg.segment_combine(cand, dst, n_rows + 1)[:n_rows]
+    return out
+
+
+def _coo_pull_value(src, dst, n_rows, n_cols, f, unreached, x, alg, row_base, col_base):
+    """Value pull over COO edges: the frontier probed through its packed
+    bitmap, only ``unreached`` destinations (the algebra's pull mask)
+    accumulating."""
+    n_cp = chunk_pad(n_cols)
+    words = _pack_planes(f)
+    out = torch.empty((f.shape[0], n_rows), dtype=torch.int32, device=f.device)
+    valid = (src < n_cols) & (dst < n_rows)
+    s_cl = torch.clamp(src, 0, n_cols - 1).to(torch.int64)
+    d_cl = torch.clamp(dst, 0, n_rows - 1)
+    w = alg.edge_weights(src + col_base, dst + row_base)
+    for p in range(f.shape[0]):
+        hit = spmv_ref.frontier_bit(words[p], src, n_cp) & unreached[p][d_cl] & valid
+        msg = alg.edge_message(x[p][s_cl], w)
+        cand = torch.where(hit, msg, alg.empty)
+        out[p] = alg.segment_combine(cand, dst, n_rows + 1)[:n_rows]
+    return out
+
+
+def _ell_push_value(nbr, n_cols, f, x, alg, row_base, col_base):
+    return spmv_ops.gspmm_planes(nbr, _pack_planes(f), x, chunk_pad(n_cols), alg,
+                                 row_base=row_base, col_base=col_base)
+
+
+def _ell_pull_value(nbr, n_cols, f, unreached, x, alg, row_base, col_base):
+    return spmv_ops.gspmm_planes(nbr, _pack_planes(f), x, chunk_pad(n_cols), alg,
+                                 row_base=row_base, col_base=col_base,
+                                 u_words=_pack_planes(unreached))
+
+
 class ExpansionBackend:
     """One local-expansion data structure (or a degree split over two).
 
@@ -116,7 +166,11 @@ class ExpansionBackend:
     with the (R, C) grid axes); ``local_block`` moves what the
     backend keeps of those onto ``device`` as a :class:`LocalBlock`;
     ``push_planes`` / ``pull_planes`` expand all B frontier planes at once
-    into ``(B, n_rows)`` min-candidate ids (INF where none).
+    into ``(B, n_rows)`` min-candidate ids (INF where none);
+    ``push_value_planes`` / ``pull_value_planes`` do the same for a value
+    algebra ``alg`` with ``(B, n_cols)`` encoded source values ``x``
+    (``alg.empty`` where none), ``row_base`` / ``col_base`` being the
+    block's global id offsets.
     """
 
     name: str = ""
@@ -139,6 +193,14 @@ class ExpansionBackend:
     def pull_planes(self, blk: LocalBlock, f, unreached) -> torch.Tensor:
         raise NotImplementedError
 
+    def push_value_planes(self, blk: LocalBlock, f, x, alg, *, row_base=0,
+                          col_base=0) -> torch.Tensor:
+        raise NotImplementedError
+
+    def pull_value_planes(self, blk: LocalBlock, f, unreached, x, alg, *,
+                          row_base=0, col_base=0) -> torch.Tensor:
+        raise NotImplementedError
+
 
 class CooExpansion(ExpansionBackend):
     name = "coo"
@@ -155,6 +217,14 @@ class CooExpansion(ExpansionBackend):
 
     def pull_planes(self, blk, f, unreached):
         return _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached)
+
+    def push_value_planes(self, blk, f, x, alg, *, row_base=0, col_base=0):
+        return _coo_push_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, x, alg,
+                               row_base, col_base)
+
+    def pull_value_planes(self, blk, f, unreached, x, alg, *, row_base=0, col_base=0):
+        return _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached,
+                               x, alg, row_base, col_base)
 
 
 class EllExpansion(ExpansionBackend):
@@ -181,6 +251,13 @@ class EllExpansion(ExpansionBackend):
 
     def pull_planes(self, blk, f, unreached):
         return _ell_pull(blk.nbr, blk.n_cols, f, unreached)
+
+    def push_value_planes(self, blk, f, x, alg, *, row_base=0, col_base=0):
+        return _ell_push_value(blk.nbr, blk.n_cols, f, x, alg, row_base, col_base)
+
+    def pull_value_planes(self, blk, f, unreached, x, alg, *, row_base=0, col_base=0):
+        return _ell_pull_value(blk.nbr, blk.n_cols, f, unreached, x, alg, row_base,
+                               col_base)
 
 
 class HybridExpansion(ExpansionBackend):
@@ -215,6 +292,21 @@ class HybridExpansion(ExpansionBackend):
         return torch.minimum(
             _ell_pull(blk.nbr, blk.n_cols, f, unreached),
             _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached),
+        )
+
+    def push_value_planes(self, blk, f, x, alg, *, row_base=0, col_base=0):
+        return alg.combine(
+            _ell_push_value(blk.nbr, blk.n_cols, f, x, alg, row_base, col_base),
+            _coo_push_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, x, alg,
+                            row_base, col_base),
+        )
+
+    def pull_value_planes(self, blk, f, unreached, x, alg, *, row_base=0, col_base=0):
+        return alg.combine(
+            _ell_pull_value(blk.nbr, blk.n_cols, f, unreached, x, alg, row_base,
+                            col_base),
+            _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached,
+                            x, alg, row_base, col_base),
         )
 
 

@@ -12,8 +12,11 @@ The port's counterpart of ``repro/core/traversal.py:77-177, 206-385,
   :class:`DensityOracle` and the anticipatory Beamer ``m_f`` edge signal.
 
 The reference traces both directions under ``lax.cond``; here the level
-loop takes one device->host copy per level — the (B,) frontier counts and
-direction flags — and Python decides which pass runs.
+loop takes one device->host copy per level — the (B,) frontier counts,
+direction flags and the algebra's ``alive`` — and Python decides which
+pass runs.  Every policy serves every frontier algebra
+(:mod:`repro_torch.core.algebra`): value algebras take the backend's value
+expansion and merge the two passes with the algebra's combine.
 
 On the 2D grid (``repro/core/traversal.py:59-76,180-414``) a policy's
 ``expand_dist`` runs the local expansion of every rank's block and the row
@@ -32,9 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.comm.ladder import BucketLadder
-from repro_torch.core.algebra import INF
+from repro_torch.core.algebra import ALGEBRAS, INF, LOCAL_EXCHANGE
 from repro_torch.kernels.bitpack import ops as bp_ops
 from repro_torch.kernels.popcount import ops as pc_ops
+
+
+BFS = ALGEBRAS["bfs"]  # the default algebra: candidates are parent ids
 
 
 def ladder_alpha(s: int, payload_width: int) -> float:
@@ -118,15 +124,20 @@ class DistLevelCtx(NamedTuple):
     row_exchange: Callable | None  # push: (B,c,s) global candidates -> (B,s) min
     row_exchange_bu: Callable | None  # pull: (B,c,s) LOCAL candidates -> (B,s)
     unreached_gather: Callable | None  # (B,s) own unreached -> (B,n_r) row slice
+    algebra: object = BFS  # FrontierAlgebra
+    row_base: list | None = None  # each rank's first global row id, i * n_r
 
 
 class TraversalPolicy:
     """One expansion direction, or a per-level switch over them.
 
-    ``propose_batch`` produces the (B, n) candidate-parent planes of the
+    ``propose_batch`` produces the (B, n) candidate planes of the
     single-device driver; ``expand_dist`` runs local expansion + the row
-    exchange on the grid and returns each rank's (B, s) min-reduced global
-    candidates for its owned chunk.
+    exchange on the grid and returns each rank's (B, s) combined global
+    candidates for its owned chunk.  ``alg`` / ``x`` (``ctx.algebra`` /
+    ``x_col`` on the grid) switch a value algebra onto the backend's value
+    expansion, ``x`` being the per-source message operands; with an id
+    algebra (the default, BFS) the candidates are parent ids.
     ``passes`` is the host's ``(run_top_down, run_bottom_up)`` decision for
     this level, from the per-level host copy (:func:`host_passes`); only a
     switching policy reads it.
@@ -138,11 +149,11 @@ class TraversalPolicy:
     uses_bottom_up: bool = False
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      passes, plane_mask=None) -> torch.Tensor:
+                      passes, alg=BFS, x=None, plane_mask=None) -> torch.Tensor:
         raise NotImplementedError
 
     def expand_dist(self, ctx: DistLevelCtx, value: list, f_col: list, use_bu: list,
-                    active: list, passes, plane_mask=None) -> list:
+                    active: list, passes, x_col=None, plane_mask=None) -> list:
         raise NotImplementedError
 
     def next_direction(self, oracle: DensityOracle, count, use_bu, m_f=None,
@@ -157,16 +168,30 @@ class TopDownPolicy(TraversalPolicy):
     name = "top_down"
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      passes, plane_mask=None):
-        return expand.push_planes(block, frontier)
+                      passes, alg=BFS, x=None, plane_mask=None):
+        # push: every frontier source proposes itself, or the algebra's
+        # message of its value, to its neighbors
+        if alg.payload_is_id:
+            return expand.push_planes(block, frontier)
+        return expand.push_value_planes(block, frontier, x, alg)
 
-    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, plane_mask=None):
-        # the backend returns column-LOCAL min candidates; the push wire
-        # carries global ids, and min commutes with the shift j * n_c
+    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, x_col=None,
+                    plane_mask=None):
+        # id payloads: the backend returns column-LOCAL min candidates; the
+        # push wire carries global ids, and min commutes with the shift
+        # j * n_c.  Value payloads are global already: the bases only
+        # derive the edge messages.
+        alg = ctx.algebra
         prop = [None] * len(f_col)
         for p, blk in enumerate(ctx.blocks):
-            local = ctx.expand.push_planes(blk, f_col[p])  # (B, n_r)
-            glob = torch.where(local < INF, ctx.col_index[p] * ctx.n_c + local, INF)
+            col_base = ctx.col_index[p] * ctx.n_c
+            if alg.payload_is_id:
+                local = ctx.expand.push_planes(blk, f_col[p])  # (B, n_r)
+                glob = torch.where(local < INF, col_base + local, INF)
+            else:
+                glob = ctx.expand.push_value_planes(blk, f_col[p], x_col[p], alg,
+                                                    row_base=ctx.row_base[p],
+                                                    col_base=col_base)
             prop[p] = glob.reshape(-1, ctx.c, ctx.s)
         return ctx.row_exchange(prop)
 
@@ -178,26 +203,35 @@ class BottomUpPolicy(TraversalPolicy):
     uses_bottom_up = True
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      passes, plane_mask=None):
-        mask = value < 0
+                      passes, alg=BFS, x=None, plane_mask=None):
+        mask = alg.pull_mask(value)
         if plane_mask is not None:
             mask = mask & plane_mask[:, None]
-        return expand.pull_planes(block, frontier, mask)
+        if alg.payload_is_id:
+            return expand.pull_planes(block, frontier, mask)
+        return expand.pull_value_planes(block, frontier, mask, x, alg)
 
-    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, plane_mask=None):
-        # the unreached membership of the whole row slice, gathered over the
+    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, x_col=None,
+                    plane_mask=None):
+        # the pull-mask membership of the whole row slice, gathered over the
         # grid row; exhausted planes are masked out so that their permanent
         # unreached set does not escalate the gather the live planes pay for
+        alg = ctx.algebra
         mask = []
         for p, v in enumerate(value):
             pm = active[p] if plane_mask is None else plane_mask[p] & active[p]
-            mask.append((v < 0) & pm[:, None])
+            mask.append(alg.pull_mask(v) & pm[:, None])
         unreached = ctx.unreached_gather(mask)  # (B, n_r) per rank
-        # candidates stay column-LOCAL so the payload bit-packs at the
+        # id candidates stay column-LOCAL so the payload bit-packs at the
         # column-width class; the receiver globalizes per sender
         prop = [None] * len(f_col)
         for p, blk in enumerate(ctx.blocks):
-            local = ctx.expand.pull_planes(blk, f_col[p], unreached[p])
+            if alg.payload_is_id:
+                local = ctx.expand.pull_planes(blk, f_col[p], unreached[p])
+            else:
+                local = ctx.expand.pull_value_planes(
+                    blk, f_col[p], unreached[p], x_col[p], alg,
+                    row_base=ctx.row_base[p], col_base=ctx.col_index[p] * ctx.n_c)
             prop[p] = local.reshape(-1, ctx.c, ctx.s)
         return ctx.row_exchange_bu(prop)
 
@@ -207,7 +241,8 @@ class DirectionOptPolicy(TraversalPolicy):
 
     One gated pass per direction over all planes: planes routed to the
     direction a pass does not serve ride it masked-empty, and a pass whose
-    plane set is empty does not run.
+    plane set is empty does not run.  The two passes merge with the
+    algebra's combine (min for BFS).
     """
 
     name = "direction_opt"
@@ -219,7 +254,7 @@ class DirectionOptPolicy(TraversalPolicy):
         self._bu = BottomUpPolicy()
 
     def propose_batch(self, expand, block, value, frontier, use_bu,
-                      passes, plane_mask=None):
+                      passes, alg=BFS, x=None, plane_mask=None):
         act = frontier.any(dim=1)
         td_mask = ~use_bu & act
         bu_mask = use_bu & act
@@ -228,22 +263,25 @@ class DirectionOptPolicy(TraversalPolicy):
         if run_td:
             out = self._td.propose_batch(expand, block, value,
                                          frontier & td_mask[:, None], use_bu,
-                                         passes)
+                                         passes, alg=alg, x=x)
         if run_bu:
             # the pull pass's mask is restricted to its planes, so it
             # proposes nothing for planes riding the push direction
             bu = self._bu.propose_batch(expand, block, value,
                                         frontier & bu_mask[:, None], use_bu,
-                                        passes, plane_mask=bu_mask)
-            out = bu if out is None else torch.minimum(out, bu)
+                                        passes, alg=alg, x=x, plane_mask=bu_mask)
+            out = bu if out is None else alg.combine(out, bu)
         if out is None:
-            out = torch.full(value.shape, INF, dtype=torch.int32, device=value.device)
+            out = torch.full(value.shape, alg.empty, dtype=torch.int32,
+                             device=value.device)
         return out
 
-    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, plane_mask=None):
+    def expand_dist(self, ctx, value, f_col, use_bu, active, passes, x_col=None,
+                    plane_mask=None):
         # one pass per direction over all planes, as on one device; the
         # host's passes skip a direction no live plane takes, which is
         # group-uniform because the flags derive from psum-ed counts
+        alg = ctx.algebra
         run_td, run_bu = passes
         td_mask = [~u & a for u, a in zip(use_bu, active)]
         bu_mask = [u & a for u, a in zip(use_bu, active)]
@@ -251,16 +289,16 @@ class DirectionOptPolicy(TraversalPolicy):
         if run_td:
             out = self._td.expand_dist(
                 ctx, value, [f & m[:, None] for f, m in zip(f_col, td_mask)],
-                use_bu, active, passes)
+                use_bu, active, passes, x_col=x_col)
         if run_bu:
             # the pull pass's plane mask keeps push planes out of the
             # unreached bitmap, hence out of the pull wire's content
             bu = self._bu.expand_dist(
                 ctx, value, [f & m[:, None] for f, m in zip(f_col, bu_mask)],
-                use_bu, active, passes, plane_mask=bu_mask)
-            out = bu if out is None else [torch.minimum(a, b) for a, b in zip(out, bu)]
+                use_bu, active, passes, x_col=x_col, plane_mask=bu_mask)
+            out = bu if out is None else [alg.combine(a, b) for a, b in zip(out, bu)]
         if out is None:
-            out = [torch.full((v.shape[0], ctx.s), INF, dtype=torch.int32,
+            out = [torch.full((v.shape[0], ctx.s), alg.empty, dtype=torch.int32,
                               device=v.device) for v in value]
         return out
 
@@ -275,15 +313,16 @@ class LevelState:
     """The level loop's carry: (B, n) planes on the device, the (B,) counts
     and direction flags both on the device and as the host's copy."""
 
-    value: torch.Tensor  # (B, n) int32 parents, -1 unreached
-    level: torch.Tensor  # (B, n) int32, -1 unreached
+    value: torch.Tensor  # (B, n) int32 algebra values (BFS: parents, -1 unreached)
+    level: torch.Tensor  # (B, n) int32 level of the last improvement, -1 none
     frontier: torch.Tensor  # (B, n) bool
     depth: int
-    active: bool  # any plane still expanding
+    active: bool  # the algebra goes on (BFS: some plane still expanding)
     use_bu: torch.Tensor  # (B,) bool: plane expands bottom-up next level
     counts: torch.Tensor  # (B,) int32 frontier sizes (growing-guard carry)
     host_counts: np.ndarray  # host copy of ``counts``
     host_use_bu: np.ndarray  # host copy of ``use_bu``
+    aux: tuple = ()  # algebra-private carry (SSSP's pending planes)
 
 
 def host_passes(state: LevelState) -> tuple[bool, bool]:
@@ -295,35 +334,46 @@ def host_passes(state: LevelState) -> tuple[bool, bool]:
 
 def level_once(policy: TraversalPolicy, oracle: DensityOracle, alg,
                state: LevelState, expand, block, deg=None) -> LevelState:
-    """One traversal level over every source plane.
+    """One traversal level over every source plane, for the frontier
+    algebra ``alg``.
 
-    ``deg``, if given, is the (n,) degree vector feeding the anticipatory
-    Beamer ``m_f`` signal into the per-plane direction decision.  The one
-    device->host copy of the level brings back the new counts and flags.
+    Value algebras propose messages of ``alg.source_values`` (PageRank's
+    x = v/deg reads ``deg``); the update and then ``alg.post_update`` over
+    :data:`~repro_torch.core.algebra.LOCAL_EXCHANGE` give the next
+    frontier, counts and liveness.  For id payloads, ``deg`` also feeds the
+    anticipatory Beamer ``m_f`` signal into the per-plane direction
+    decision.  The one device->host copy of the level brings back the
+    counts, the flags and ``alive``.
     """
+    x = alg.source_values(state.value, deg) if alg.needs_values else None
     proposed = policy.propose_batch(
         expand, block, state.value, state.frontier, state.use_bu,
-        host_passes(state),
+        host_passes(state), alg=alg, x=x,
     )
-    value, new = alg.update(state.value, proposed)
-    counts = oracle.plane_counts(new)
+    value, new = alg.update(state.value, proposed, state.depth, state.value.shape[1])
+    (aux,), (frontier,), (counts,), (alive,) = alg.post_update(
+        LOCAL_EXCHANGE, [state.aux], [state.value], [value], [new], [state.frontier],
+        oracle.plane_counts)
     m_f = m_u = growing = None
-    if deg is not None:
+    if deg is not None and alg.payload_is_id:
         m_f, m_u = edge_signals(deg, new, state.value)
         growing = counts > state.counts
     use_bu = policy.next_direction(oracle, counts, state.use_bu,
                                    m_f=m_f, m_u=m_u, growing=growing)
-    host = torch.stack([counts, use_bu.to(torch.int32)]).cpu().numpy()
+    host = torch.cat([counts, use_bu.to(torch.int32),
+                      alive.reshape(1).to(torch.int32)]).cpu().numpy()
+    b = counts.shape[0]
     return LevelState(
         value=value,
         level=torch.where(new, state.depth + 1, state.level),
-        frontier=new,
+        frontier=frontier,
         depth=state.depth + 1,
-        active=bool((host[0] > 0).any()),
+        active=bool(host[-1]),
         use_bu=use_bu,
         counts=counts,
-        host_counts=host[0],
-        host_use_bu=host[1].astype(bool),
+        host_counts=host[:b],
+        host_use_bu=host[b:2 * b].astype(bool),
+        aux=aux,
     )
 
 

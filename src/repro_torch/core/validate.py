@@ -1,7 +1,9 @@
 """Graph500 BFS-tree validation — the benchmark's 5 rules (paper Alg. 1 l.5).
 
 The port's copy of ``repro/core/validate.py`` (``validate_bfs_tree``,
-``compute_levels``, ``reference_bfs``, ``traversed_edges``): host-side numpy,
+``compute_levels``, ``reference_bfs``, ``traversed_edges`` and the frontier
+algebras' oracles ``reference_sssp``, ``reference_cc``,
+``reference_pagerank``): host-side numpy,
 independent of the implementation under test.  The reference's per-vertex
 Python loops (the rule-5 edge check, the child gather of
 ``compute_levels`` and the frontier loop of ``reference_bfs``) are
@@ -21,8 +23,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import heapq
+
 import numpy as np
 
+from repro_torch.core.algebra import INF, edge_weight
 from repro_torch.graphgen.builder import CSRGraph
 
 
@@ -189,6 +194,76 @@ def reference_bfs(g: CSRGraph, root: int) -> np.ndarray:
         level[nbrs] = d
         frontier = nbrs
     return level
+
+
+def reference_sssp(g: CSRGraph, root: int, max_weight: int = 31) -> np.ndarray:
+    """Host Dijkstra over the hashed edge weights — the SSSP oracle.
+
+    Weights come from :func:`repro_torch.core.algebra.edge_weight` on numpy
+    arrays (uint32 wrap, the reference's weights exactly); unreached
+    vertices hold ``INF``, the driver's encoding.  A heap loop: fine at
+    test sizes, hours at Graph500 scales."""
+    dist = np.full(g.n, np.iinfo(np.int64).max, dtype=np.int64)
+    dist[root] = 0
+    pq = [(0, int(root))]
+    while pq:
+        du, u = heapq.heappop(pq)
+        if du > dist[u]:
+            continue
+        nbrs = g.col_idx[g.row_ptr[u] : g.row_ptr[u + 1]]
+        if nbrs.size == 0:
+            continue
+        w = edge_weight(np.full(nbrs.size, u, np.int64), nbrs.astype(np.int64),
+                        max_weight=max_weight).astype(np.int64)
+        for v, nd in zip(nbrs, du + w):
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(pq, (int(nd), int(v)))
+    return np.where(dist == np.iinfo(np.int64).max, np.int64(INF), dist)
+
+
+def reference_cc(g: CSRGraph) -> np.ndarray:
+    """Union-find min labels — the connected-components oracle: per vertex,
+    the minimum vertex id of its component (min-label propagation's fixed
+    point)."""
+    parent = np.arange(g.n, dtype=np.int64)
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for u, v in zip(g.src, g.dst):
+        ru, rv = find(int(u)), find(int(v))
+        if ru != rv:
+            parent[max(ru, rv)] = min(ru, rv)
+    # union keeps the smaller root, so the roots are the component minima
+    return np.array([find(i) for i in range(g.n)])
+
+
+def reference_pagerank(g: CSRGraph, n: int | None = None, damping: float = 0.85,
+                       tol: float = 1e-4, max_iter: int = 500) -> np.ndarray:
+    """Host float64 power iteration — the PageRank oracle, with the
+    ``pagerank`` algebra's conventions: uniform 1/n start over the
+    (padded) vertex count ``n``, dangling mass not redistributed, stop on a
+    global L1 step residual <= ``tol``.  Pass the distributed driver's
+    padded ``part.n`` as ``n`` to compare elementwise."""
+    n = g.n if n is None else n
+    src = np.concatenate([g.src, g.dst]).astype(np.int64)
+    dst = np.concatenate([g.dst, g.src]).astype(np.int64)
+    deg = np.zeros(n, np.int64)
+    np.add.at(deg, src, 1)
+    v = np.full(n, 1.0 / n)
+    for _ in range(max_iter):
+        contrib = np.where(deg > 0, v / np.maximum(deg, 1), 0.0)
+        nxt = np.full(n, (1.0 - damping) / n)
+        np.add.at(nxt, dst, damping * contrib[src])
+        done = np.abs(nxt - v).sum() <= tol
+        v = nxt
+        if done:
+            break
+    return v
 
 
 def traversed_edges(g: CSRGraph, parent: np.ndarray) -> int:

@@ -1,4 +1,5 @@
-"""Wrappers of the ELL push/pull kernels (``csrc/spmv.cu``).
+"""Wrappers of the ELL push/pull kernels and the value-gather kernel
+(``csrc/spmv.cu``).
 
 CPU tensors go to the plain version in :mod:`.ref`; CUDA tensors go to the
 kernel or raise.  No ROW_TILE / DEG_CHUNK padding is needed: the kernel
@@ -16,6 +17,7 @@ PUSH_KERNEL = "spmv_min_planes"
 PULL_KERNEL = "spmv_pull_min_planes"
 PUSH_ONE_KERNEL = "spmv_min"
 PULL_ONE_KERNEL = "spmv_pull_min"
+GSPMM_KERNEL = "gspmm_min_planes"
 
 
 def _check(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> None:
@@ -103,3 +105,67 @@ def spmv_pull_min(nbr: torch.Tensor, f_words: torch.Tensor, u_words: torch.Tenso
         return ref.spmv_pull_min(nbr, f_words, u_words, n_cols)
     return _pull(nbr, f_words.reshape(1, -1), u_words.reshape(1, -1), n_cols,
                  PULL_ONE_KERNEL)[0]
+
+
+def gspmm_planes(nbr: torch.Tensor, f_words: torch.Tensor, x: torch.Tensor, n_cols: int,
+                 alg, *, row_base: int = 0, col_base: int = 0,
+                 u_words: torch.Tensor | None = None) -> torch.Tensor:
+    """Value expansion of a frontier algebra over an ELL slab: (B, n_cols/32)
+    frontier planes and (B, n_x) encoded source values -> (B, n_rows)
+    combined candidates (``alg.empty`` where none).
+
+    Each hit slot proposes ``alg``'s edge message of its source's value
+    (global ids ``row_base + r`` / ``col_base + c`` derive the SSSP weight).
+    A min-reduce algebra launches the ``gspmm_min_planes`` kernel on CUDA
+    tensors (``op="minplus"`` when ``alg.uses_weights``, else ``"copy"``)
+    and runs its plain version on CPU tensors.  A sum-reduce algebra
+    (PageRank) runs the plain :func:`ref.gspmm` on both devices, as the
+    reference does on every platform (``repro/kernels/spmv/ops.py:152``):
+    its float32 accumulation has no kernel there to port.  ``u_words``
+    masks rows whose unreached bit is clear (pull).
+    """
+    tensors = (nbr, f_words, x) if u_words is None else (nbr, f_words, x, u_words)
+    cuda = kernels.on_cuda(*tensors)
+    if alg.reduce == "sum":
+        n_x = x.shape[1]
+
+        def message(rows, cols):
+            return x[:, torch.clamp(cols, max=n_x - 1)]
+
+        return ref.gspmm(nbr, f_words, n_cols, message, "sum", alg.empty, u_words)
+    if alg.reduce != "min":
+        raise ValueError(f"gspmm_planes: unknown reduce {alg.reduce!r}")
+    op = "minplus" if alg.uses_weights else "copy"
+    max_weight = getattr(alg, "max_weight", 31)
+    if not cuda:
+        return ref.gspmm_min_planes(nbr, f_words, x, n_cols, op, max_weight,
+                                    row_base, col_base, u_words)
+    _check(nbr, f_words, n_cols)
+    kernels.require(x, "x", (torch.int32,), 2)
+    n_rows, k = nbr.shape
+    planes = f_words.shape[0]
+    if x.shape[0] != planes:
+        raise ValueError(f"x {tuple(x.shape)} does not match {planes} frontier planes")
+    wu = 0
+    if u_words is not None:
+        kernels.require(u_words, "u_words", (torch.int32,), 2)
+        wu = u_words.shape[1]
+        if u_words.shape[0] != planes or wu * 32 < n_rows + (-n_rows) % 1024:
+            raise ValueError(f"unreached words {tuple(u_words.shape)} do not cover "
+                             f"{planes} planes of {n_rows} rows")
+    if not 0 <= row_base + n_rows < 2**31 or not 0 <= col_base + n_cols < 2**31:
+        raise ValueError("global row and column ids must fit int32")
+    out = torch.empty((planes, n_rows), dtype=torch.int32, device=nbr.device)
+    if out.numel() == 0:
+        return out
+    kernels.launch(
+        GSPMM_KERNEL, "rt_gspmm_min_planes",
+        (kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
+         kernels.I32, kernels.I32, kernels.I32, kernels.I64, kernels.I64, kernels.I32,
+         kernels.I32, kernels.I32, kernels.I32),
+        nbr.data_ptr(), f_words.data_ptr(), x.data_ptr(),
+        None if u_words is None else u_words.data_ptr(), out.data_ptr(),
+        n_rows, k, n_cols, x.shape[1], planes, f_words.shape[1], wu,
+        int(row_base), int(col_base), int(op == "minplus"), int(max_weight),
+    )
+    return out

@@ -8,6 +8,14 @@ with a sentinel >= the real column count, whose bit is never set.  Frontier
 planes are (B, n_cols/32) int32 words in the vertical width-1 layout of
 :mod:`repro_torch.kernels.bitpack`.  The pull direction adds a (B, W)
 unreached-row bitmap: rows whose bit is clear give INF.
+
+:func:`gspmm` is the op x reduce form behind the frontier algebras' value
+expansion (the reference's ``repro/kernels/spmv/ref.py:gspmm``): a hit slot
+proposes a message computed from the source's value instead of its id, and
+the candidates reduce per row under min or under a float32 sum.
+:func:`gspmm_min_planes` is its min instantiation, the plain version of the
+``gspmm_min_planes`` CUDA kernel: ``copy`` (CC labels) and ``minplus``
+(SSSP distances plus the hashed edge weight of :func:`edge_weight`).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import torch
 
 INF = 2**31 - 1
+_M32 = 0xFFFFFFFF
 
 
 def frontier_bit(words: torch.Tensor, idx: torch.Tensor, n_cols: int) -> torch.Tensor:
@@ -60,3 +69,74 @@ def spmv_pull_min(nbr: torch.Tensor, f_words: torch.Tensor, u_words: torch.Tenso
     """Single-plane pull: as push, rows whose unreached bit is clear give INF."""
     return spmv_pull_min_planes(nbr, f_words.reshape(1, -1), u_words.reshape(1, -1),
                                 n_cols)[0]
+
+
+def edge_weight(u: torch.Tensor, v: torch.Tensor, max_weight: int = 31) -> torch.Tensor:
+    """Symmetric hashed weight in [1, max_weight] of edges (u, v), int32.
+
+    The uint32 avalanche mix of ``repro/core/algebra.py:edge_weight``, in
+    int64 masked to 32 bits: with ids below 2**31 every product stays
+    below 2**63, so the wrap mod 2**32 is exact."""
+    a = torch.minimum(u, v).to(torch.int64) & _M32
+    b = torch.maximum(u, v).to(torch.int64) & _M32
+    h = ((a * 2654435761) & _M32) ^ ((b * 40503 + 2654435769) & _M32)
+    h = h ^ (h >> 16)
+    return (h % max_weight + 1).to(torch.int32)
+
+
+def gspmm(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int, message,
+          reduce: str = "min", empty: int = INF, u_words: torch.Tensor | None = None
+          ) -> torch.Tensor:
+    """One op x reduce expansion over B frontier planes.
+
+        out[p, r] = reduce over d of message(r, nbr[r, d])[p]  where bit
+                    nbr[r, d] of frontier p is set   (``empty`` if none)
+
+    ``message(rows, cols)`` maps the (n_rows, 1) destination and (n_rows, K)
+    source id grids (int64) to (B, n_rows, K) int32 candidates.  ``reduce``
+    is ``"min"`` or ``"sum"``: the sum decodes
+    the int32 words as float32 bit patterns, adds them and re-encodes (the
+    sentinel 0 is the bit pattern of 0.0, so misses need no mask).
+    ``u_words`` (B, >= n_rows/32), if given, masks rows whose unreached
+    bit is clear to ``empty`` (pull).
+    """
+    n_rows = nbr.shape[0]
+    hit = frontier_bit(f_words, nbr, n_cols)  # (B, n_rows, K)
+    rows = torch.arange(n_rows, dtype=torch.int64, device=nbr.device)[:, None]
+    cand = torch.where(hit, message(rows, nbr.to(torch.int64)), empty)
+    if reduce == "min":
+        out = cand.amin(dim=2)
+    elif reduce == "sum":
+        out = cand.view(torch.float32).sum(dim=2).view(torch.int32)
+    else:
+        raise ValueError(f"reduce must be 'min' or 'sum', got {reduce!r}")
+    if u_words is not None:
+        rows32 = torch.arange(n_rows, dtype=torch.int32, device=nbr.device)
+        out = torch.where(frontier_bit(u_words, rows32, n_rows), out, empty)
+    return out.to(torch.int32)
+
+
+def gspmm_min_planes(nbr: torch.Tensor, f_words: torch.Tensor, x: torch.Tensor,
+                     n_cols: int, op: str = "copy", max_weight: int = 31,
+                     row_base: int = 0, col_base: int = 0,
+                     u_words: torch.Tensor | None = None) -> torch.Tensor:
+    """Min value gather: (B, n_cols/32) frontier planes and (B, n_x) int32
+    source values -> (B, n_rows) min over hit slots of ``x[p, c]``
+    (``copy``) or of ``x[p, c] + w`` saturating at INF (``minplus``, ``w``
+    the :func:`edge_weight` of the global pair (row_base + r, col_base +
+    c)).  Columns at or past ``n_x`` read as INF, as the reference pads
+    ``x``; ``u_words`` as in :func:`gspmm`."""
+    if op not in ("copy", "minplus"):
+        raise ValueError(f"op must be 'copy' or 'minplus', got {op!r}")
+    n_x = x.shape[1]
+
+    def message(rows, cols):
+        inside = cols < n_x
+        xs = x[:, torch.clamp(cols, max=n_x - 1)]  # (B, n_rows, K)
+        xs = torch.where(inside, xs, INF)
+        if op == "copy":
+            return xs
+        w = edge_weight(rows + row_base, cols + col_base, max_weight)
+        return torch.where(xs >= INF - w, INF, xs + w)
+
+    return gspmm(nbr, f_words, n_cols, message, "min", INF, u_words)

@@ -80,3 +80,57 @@ def test_distributed_on_card_matches_cpu(cuda):
     assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
     assert card[2] == cpu[2] and card[3] == cpu[3]
     assert card[4].get("unpack", 0) > 0 and not cpu[4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["copy", "minplus"])
+def test_gspmm_kernel_matches_plain_on_card(cuda, op):
+    """The value-gather kernel against its plain version, push and pull,
+    9 planes (two passes), nonzero bases, values near INF, n_x < n_cols."""
+    from repro_torch.core import algebra
+    from repro_torch.kernels.spmv import ref as sp_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n_rows, k, planes, n_real = 5000, 11, 9, 7000
+    n_cols = bp_ref.chunk_pad(n_real)
+    nbr = torch.randint(0, n_real, (n_rows, k), generator=gen, device=cuda, dtype=torch.int32)
+    f = bp_ops.pack_planes(torch.rand((planes, n_real), generator=gen, device=cuda) < 0.2, 1)
+    u = bp_ops.pack_planes(torch.rand((planes, n_rows), generator=gen, device=cuda) < 0.5, 1)
+    x = torch.randint(0, 2**31 - 1, (planes, n_real - 10), generator=gen, device=cuda,
+                      dtype=torch.int64).to(torch.int32)
+    x[:, ::3] = algebra.INF - 5
+    alg = algebra.SsspAlgebra(max_weight=17) if op == "minplus" else algebra.CcAlgebra()
+    kernels.reset_launches()
+    for uw in (None, u):
+        got = sp_ops.gspmm_planes(nbr, f, x, n_cols, alg, row_base=70000, col_base=3000,
+                                  u_words=uw)
+        want = sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op, 17, 70000, 3000, uw)
+        assert torch.equal(got, want)
+    assert kernels.LAUNCHES["gspmm_min_planes"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["sssp", "cc", "pagerank"])
+def test_algebras_on_card_match_cpu(cuda, alg):
+    """Scale 12, hybrid: each algebra on the card equals the CPU run, on one
+    device and on a simulated 2x2 grid under auto (PageRank's float32 sums
+    within 1e-5 relative: the card adds in another order)."""
+    g = builder.build_csr(kronecker.kronecker_edges(12, seed=1), n=1 << 12)
+    roots = np.array([0, 7, 100, 4000], np.int32)
+    bg = csr.partition_2d(g, 2, 2)
+    cfg = dbfs.DistBFSConfig(mode="auto", policy="top_down", expand="hybrid", algebra=alg,
+                             max_levels=256)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        one = bfs.bfs(g.src, g.dst, roots, g.n, expand="hybrid", device=dev, algebra=alg,
+                      max_levels=256)
+        grid = SimGrid(2, 2, dev)
+        value, level, _ = dbfs.build_bfs(grid, bg, cfg)(*dbfs.shard_blocked(grid, bg, cfg),
+                                                       roots)
+        runs[str(dev)] = (one.parent.cpu(), one.level.cpu(), value.cpu(), level.cpu())
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    for a, b in zip(card, cpu):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        elif alg != "pagerank":
+            assert torch.equal(a, b)
