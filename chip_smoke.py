@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's two Graph500 BFS paths on one NVIDIA card, the
-single-device one and the 2D-distributed one on a simulated grid:
+Drives the port's paths on one NVIDIA card: the single-device Graph500
+BFS, the 2D-distributed one on a simulated grid, the frontier algebras on
+both, and the 2D GNN forward with int8 payloads:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -42,7 +43,17 @@ single-device one and the 2D-distributed one on a simulated grid:
    root's Dijkstra, the connected components); the same runs on the 2x2
    grid under ``auto`` equal the single-device ones (PageRank within a
    float32 bound), and the first SSSP batch again under ``raw`` gives the
-   per-phase bytes of both plans.
+   per-phase bytes of both plans;
+8. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
+   16 layers, d_hidden 512, 227 variables, on the refinement-6 multimesh,
+   40,962 nodes, over a simulated 2x2 grid): one int8 forward records the
+   inputs the path gives the ``quantize`` kernel (the owned chunk and the
+   all-to-all chunks), each held against its plain version exactly and
+   timed beside its byte bound, as are ragged and half-way inputs; then 4
+   int8 requests, one fp32 forward and the single-device forward with the
+   counts zeroed before and read after: ``quantize`` launched, every output
+   finite, the fp32 2D output within ``GNN_FP32_REL`` of the single-device
+   one, and the int8 output within ``GNN_INT8_L2`` relative L2 of fp32.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -83,6 +94,7 @@ REPLACES = {
     "spmv_pull_min": "src/repro/kernels/spmv/pull.py:122",
     "spmv_pull_min_planes": "src/repro/kernels/spmv/pull.py:89",
     "gspmm_min_planes": "src/repro/kernels/spmv/spmv.py:127",
+    "quantize": "src/repro/kernels/quant/quant.py:31",
 }
 SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/bitpack.cu",
@@ -94,6 +106,7 @@ SOURCES = {
     "spmv_pull_min": "src/repro_torch/kernels/csrc/spmv.cu",
     "spmv_pull_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
     "gspmm_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
+    "quantize": "src/repro_torch/kernels/csrc/quant.cu",
 }
 #: the kernels each main path must launch
 GRAPH500_PATH = ("pack", "popcount_planes", "spmv_min_planes", "spmv_pull_min_planes")
@@ -106,6 +119,20 @@ PAGERANK_PATH = ("pack", "popcount_planes")
 #: PageRank on the grid against one device: float32 sums over a vertex's
 #: in-edges in another order, a few ulp of relative error per vertex
 PAGERANK_GRID_L1 = 1e-5
+GNN_PATH = ("quantize",)
+#: fp32 2D against single-device GraphCast: the same float32 products, the
+#: aggregates summed in another order (per block, then over the grid's
+#: columns) through 16 residual layers whose outputs reach ~1e12 (random
+#: weights, no normalisation, as in the reference): the max abs gap over the
+#: output's max abs (~2e-6 at refinement 4 on the CPU, 3.361e-6 and
+#: 3.465e-6 on the H100 at refinement 6), held to the fp32 bar of the tests
+GNN_FP32_REL = 1e-5
+#: int8 payloads against fp32: the reference's own bar (tests/test_dist.py,
+#: on the loss), here on the outputs' relative L2
+GNN_INT8_L2 = 0.05
+#: device operations per quantized value (abs, max, divide, rint, two
+#: clamps, convert), for the bound; the bytes bound it
+QUANT_OPS_PER_VALUE = 7
 
 
 def card_line() -> str:
@@ -134,6 +161,18 @@ def time_ms(fn, reps: int) -> float:
 
 def same(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+
+
+def same_quant(q, s, qr, sr) -> bool:
+    """Codes equal; scales and dequantized values equal, with NaN at the
+    same places (a group with a NaN or an inf dequantizes to NaN)."""
+    from repro_torch.kernels.quant import ref as q_ref
+
+    def same_nan(a, b):
+        return same(a.isnan(), b.isnan()) and same(a.nan_to_num(), b.nan_to_num())
+
+    return (same(q, qr) and same_nan(s, sr)
+            and same_nan(q_ref.dequantize(q, s), q_ref.dequantize(qr, sr)))
 
 
 def expect(ok: bool, what) -> None:
@@ -769,6 +808,161 @@ def algebra_step(setup, roots, st, card) -> tuple[dict, dict]:
     return launches, main
 
 
+def check_quantize_ragged() -> None:
+    """The quantize kernel against its plain version exactly on ragged
+    inputs: N = 128, N not a multiple of 1024, an all-zero group, scales
+    1e-3 to 1e3, groups with a NaN, a +inf and a -inf (each dequantizes to
+    NaN, as in the reference), and half-way values (a group with max 127,
+    so scale 1.0: 0.5, 1.5, 2.5 give 0, 2, 2); a misaligned input raises."""
+    import torch
+    from repro_torch.kernels.quant import ops as q_ops, ref as q_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for n, scale in ((128, 1.0), (128 * 13, 1e-3), (1024 * 5 + 128 * 3, 1e3), (1024, 7.0)):
+        cases.append(torch.randn(n, generator=gen, device="cuda") * scale)
+    cases[-1][256:384] = 0.0  # an all-zero group
+    bad = torch.randn(384, generator=gen, device="cuda")
+    bad[5], bad[130], bad[300] = float("nan"), float("inf"), -float("inf")
+    cases.append(bad)
+    ties = torch.zeros(256, device="cuda")
+    ties[:7] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5])
+    ties[128:131] = torch.tensor([-127.0, 63.5, 64.5])
+    cases.append(ties)
+    for x in cases:
+        (q, s), (qr, sr) = q_ops.quantize(x), q_ref.quantize(x)
+        expect(same_quant(q, s, qr, sr), ("quantize", x.numel()))
+    q, s = q_ops.quantize(bad)  # the reference's answer, independently of the plain version
+    expect(bool(s[0].isnan() and s[1:].isinf().all()
+                and q_ops.dequantize(q, s).isnan().all()),
+           ("quantize non-finite", s.tolist()))
+    q, s = q_ops.quantize(ties)
+    expect(q[:7].tolist() == [127, 0, 2, 2, 0, -2, -2] and q[128:131].tolist() == [-127, 64, 64]
+           and s.tolist() == [1.0, 1.0], ("quantize ties", q[:7].tolist()))
+    try:
+        q_ops.quantize(cases[1][1:129])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("quantize took a misaligned input")
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def capture_quantize():
+    """While active, keep the last input of each distinct size that the
+    path gives ``quantize``."""
+    from repro_torch.kernels.quant import ops as q_ops
+
+    kept = {}
+    real = q_ops.quantize
+
+    def run(x):
+        kept[x.numel()] = x
+        return real(x)
+
+    q_ops.quantize = run
+    try:
+        yield kept
+    finally:
+        q_ops.quantize = real
+
+
+def _quant_row(x, shape, reps=50) -> dict:
+    """The quantize kernel against its plain version on ``x``: codes and
+    scales equal, both timed, beside the byte bound (each value read once
+    as float32 and written once as int8, one float32 scale per group)."""
+    import torch
+    from repro_torch.kernels.quant import ops as q_ops, ref as q_ref
+
+    (q, s), (qr, sr) = q_ops.quantize(x), q_ref.quantize(x)
+    torch.cuda.synchronize()
+    expect(same_quant(q, s, qr, sr), ("quantize", shape))
+    n = x.numel()
+    bytes_ms = (4 * n + n + 4 * (n // q_ref.GROUP)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = QUANT_OPS_PER_VALUE * n / ALU_OPS_PER_S * 1e3
+    err = max(int((q.to(torch.int32) - qr.to(torch.int32)).abs().max()),
+              float((s - sr).abs().max()))
+    return {
+        "name": "quantize", "route": "cuda", "source": SOURCES["quantize"],
+        "replaces": REPLACES["quantize"], "launches": None, "max_abs_err": err,
+        "ms": time_ms(lambda: q_ops.quantize(x), reps),
+        "plain_ms": time_ms(lambda: q_ref.quantize(x), 5),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "shape": shape,
+    }
+
+
+def gnn_step(card) -> tuple[dict, dict]:
+    """The 2D GNN forward at full width on the refinement-6 multimesh over a
+    simulated 2x2 grid: the quantize kernel at the path's own inputs, then
+    the counted requests and their checks.  Returns the path's launch counts
+    and the kernel's JSON row."""
+    from repro_torch import kernels
+    from repro_torch.bench import gnn as gnn_bench
+
+    t0 = time.perf_counter()
+    st = gnn_bench.setup(device="cuda")
+    part = st.bg.part
+    print(f"gnn: {st.cfg.name} {st.cfg.n_layers} layers d_hidden {st.cfg.d_hidden} "
+          f"d_in/out {st.cfg.d_in}/{st.cfg.d_out} on the refinement-{st.refine} multimesh "
+          f"(n={st.n:,}, m={st.edges.shape[0]:,}) over a {GRID[0]}x{GRID[1]} grid: chunk "
+          f"{part.chunk:,}, n_pad {part.n:,}, e_cap {st.bg.e_cap:,}, block edges "
+          f"{st.bg.e_counts.ravel().tolist()}; multimesh + partition {st.mesh_s:.3f}s")
+    with capture_quantize() as kept:
+        gnn_bench.forward_2d(st, True)
+    if not kept:
+        raise AssertionError("the GNN path gave the quantize kernel no input")
+    rows = []
+    for n, x in sorted(kept.items()):
+        what = ("owned chunk" if n == part.chunk * st.cfg.d_hidden else
+                "all-to-all chunks" if n == part.chunk * part.cols * st.cfg.d_hidden else
+                "payload")
+        rows.append(_quant_row(x, {"n": n, "input": what}))
+    del kept
+    check_quantize_ragged()
+    for r in rows:
+        print(f"kernel quantize: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us vs plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}) on {card}")
+    print("ragged shapes: quantize (N = 128, 1,664, 5,504, 1,024 with a zero group, "
+          "384 with NaN/+inf/-inf groups, half-way values): exact")
+
+    kernels.reset_launches()
+    res = gnn_bench.run(st, requests=4)
+    counts = dict(kernels.LAUNCHES)
+    print(f"launches on the GNN path (1 warm-up + 4 int8 forwards, 1 fp32, single-device): "
+          f"{counts}; per int8 forward {res['launches_per_forward']}")
+    require_launched(counts, GNN_PATH, "GNN")
+    if not res["finite"]:
+        raise AssertionError("gnn: non-finite outputs")
+    gap = res["fp32_vs_single_max_abs"] / res["single_max_abs"]
+    if not gap <= GNN_FP32_REL:
+        raise AssertionError(f"gnn: fp32 2D vs single-device max abs gap "
+                             f"{res['fp32_vs_single_max_abs']} over max |out| "
+                             f"{res['single_max_abs']} = {gap} > {GNN_FP32_REL}")
+    if not res["int8_rel_l2"] < GNN_INT8_L2:
+        raise AssertionError(f"gnn: int8 vs fp32 relative L2 {res['int8_rel_l2']} >= "
+                             f"{GNN_INT8_L2}")
+    print(f"gnn forwards: int8 {[round(t, 4) for t in res['int8_s']]} s, fp32 "
+          f"{res['fp32_s']:.4f} s, single-device {res['single_s']:.4f} s "
+          f"({GRID[0] * GRID[1]} ranks simulated on one card) on {card}")
+    print(f"gnn payload bytes per forward (every rank's share of every exchange): int8 "
+          f"{res['int8_payload_bytes']:,} vs fp32 {res['fp32_payload_bytes']:,} "
+          f"({res['fp32_payload_bytes'] / res['int8_payload_bytes']:.3f}x)")
+    print(f"gnn checks: int8 vs fp32 relative L2 {res['int8_rel_l2']:.6e} (bound "
+          f"{GNN_INT8_L2}); fp32 2D vs single-device max abs {res['fp32_vs_single_max_abs']:.6e}"
+          f" of max |out| {res['single_max_abs']:.6e} ({gap:.3e}, bound {GNN_FP32_REL})")
+    print(f"gnn step: {time.perf_counter() - t0:.1f}s")
+    main = rows[0]
+    main["other_shapes"] = [{key: r[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by")}
+                            for r in rows[1:]]
+    main["launches_per_forward"] = res["launches_per_forward"]
+    return counts, main
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -835,6 +1029,8 @@ def main() -> int:
     cross_check(card)
     alg_launches, rows["gspmm_min_planes"] = algebra_step(setup, roots, st, card)
     launches.update(alg_launches)
+    del setup, st, single
+    launches["gnn"], rows["quantize"] = gnn_step(card)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of :mod:`repro`: the Graph500 BFS on one device and
-on a simulated 2D grid, and the frontier algebras (SSSP, CC, PageRank).
+on a simulated 2D grid, the frontier algebras (SSSP, CC, PageRank), and
+the 2D-partitioned GNN forward (GraphCast, GAT) with int8 payloads.
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:
 no JAX and no ``repro`` module, not even the numpy-only ones — it keeps its
-own copies (``graphgen``, ``core.validate``).
+own copies (``graphgen``, ``core.validate``, ``models.icosahedron``,
+``configs``).
 
 Entry points take ``device=None``, which means the first CUDA card; they
 raise when no card is present instead of carrying on on the CPU.  Tests

@@ -15,10 +15,14 @@ expansion, each as a share of the busy time.  The last two come from
 profiler ranges around ``compact_ids`` and the backend's push/pull, set
 only for the trace.  A range's device span (its first kernel's start to its
 last kernel's end, idle gaps included) is printed apart, as a share of
-the wall time.
+the wall time.  With ``--gnn`` the traced call is one int8 2D GraphCast
+forward of :mod:`repro_torch.bench.gnn` at ``--refine`` (after one
+warm-up forward), with the quantize kernel's and the matrix products'
+device time apart.
 
     python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
     python -m repro_torch.bench.trace --scale 22 --algebra sssp cc pagerank [--grid 2x2]
+    python -m repro_torch.bench.trace --gnn [--refine 6]
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import time
 import torch
 
 from repro_torch.bench import algebras, distributed, graph500, teps
+from repro_torch.bench import gnn as gnn_bench
 from repro_torch.comm import SimGrid
 from repro_torch.core import bfs as bfsmod
 from repro_torch.core import distributed_bfs as dbfs
@@ -83,8 +88,13 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--algebra", nargs="+", default=["bfs"],
                     choices=["bfs", "sssp", "cc", "pagerank"])
     ap.add_argument("--out", default=None, help="chrome trace output path (last algebra)")
+    ap.add_argument("--gnn", action="store_true",
+                    help="trace one int8 2D GraphCast forward instead (bench.gnn)")
+    ap.add_argument("--refine", type=int, default=6, help="--gnn: multimesh refinement")
     args = ap.parse_args(argv)
 
+    if args.gnn:
+        return [_trace_gnn(args)]
     if args.grid:
         g, _, _ = graph500.generate(args.scale)
         st = distributed.setup(g, SimGrid(*distributed.parse_grid(args.grid)), "hybrid")
@@ -93,6 +103,23 @@ def main(argv=None) -> list[dict]:
         g = setup.g
     roots = teps.valid_roots(g, 2 * max(args.batch, *algebras.BATCH.values()), seed=2)
     return [_trace(args, alg, st if args.grid else setup, roots) for alg in args.algebra]
+
+
+def _trace_gnn(args) -> dict:
+    """Warm up on one int8 2D forward of :mod:`repro_torch.bench.gnn`'s
+    default model (``--grid``, default 2x2), trace the next; the quantize
+    kernel's and the matrix products' device time are printed apart."""
+    rows, cols = distributed.parse_grid(args.grid or "2x2")
+    st = gnn_bench.setup(refine=args.refine, grid=(rows, cols))
+    gnn_bench.forward_2d(st, True)
+    prof, wall_us, _ = _profiled(lambda: gnn_bench.forward_2d(st, True))
+    title = (f"{st.cfg.name} 2D forward (int8 payload) refinement {args.refine}, grid "
+             f"{rows}x{cols}, ranks simulated on one card")
+    classes = {"quantize": lambda k: "quantize_kernel" in k,
+               "gemm": lambda k: "gemm" in k}
+    return _report(prof, wall_us, title,
+                   {"gnn": st.cfg.name, "refine": args.refine, "grid": f"{rows}x{cols}"},
+                   phases=False, trace_out=args.out, classes=classes)
 
 
 def _trace(args, alg: str, where, roots) -> dict:
@@ -116,14 +143,35 @@ def _trace(args, alg: str, where, roots) -> dict:
                               max_levels=max_levels).n_levels
 
     batch(roots[:b])
+    ranges = _phase_ranges() if args.grid else contextlib.nullcontext()
+    with ranges:
+        prof, wall_us, levels = _profiled(lambda: batch(roots[b:2 * b]))
+    what = f"grid {args.grid} ({args.mode}), ranks simulated on one card" if args.grid \
+        else "one device"
+    title = f"{alg} ({policy}) scale {args.scale} batch {b} levels {levels} {what}"
+    out = {"scale": args.scale, "algebra": alg, "policy": policy, "batch": b,
+           "grid": args.grid, "levels": levels}
+    return _report(prof, wall_us, title, out, phases=bool(args.grid), trace_out=args.out)
+
+
+def _profiled(fn):
+    """Trace one call of ``fn`` -> (profiler, wall us, its result)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ranges = _phase_ranges() if args.grid else contextlib.nullcontext()
-    with ranges, torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        levels = batch(roots[b:2 * b])
+        res = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us, res
+
+
+def _report(prof, wall_us: float, title: str, out: dict, phases: bool,
+            trace_out: str | None, classes=None) -> dict:
+    """Print and return the traced call's device time by kernel and by op,
+    its busy time and idle share, the grid BFS's phases (``phases``), and
+    the device time of each kernel class (``classes``: name -> predicate on
+    the lowercased kernel name); write the chrome trace to ``trace_out``."""
     events = prof.key_averages()
     # kernels are the device-side entries; a CPU op's device time repeats
     # its kernels', so only kernels are summed into the busy time (the
@@ -140,11 +188,8 @@ def _trace(args, alg: str, where, roots) -> dict:
     ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
                   and not e.key.startswith("range/")), key=_device_us, reverse=True)
     busy_us = sum(_device_us(e) for e in kernels)
-    what = f"grid {args.grid} ({args.mode}), ranks simulated on one card" if args.grid \
-        else "one device"
-    print(f"# {alg} ({policy}) scale {args.scale} batch {b} levels {levels} {what} on "
-          f"{torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
+    print(f"# {title} on {torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
     table = {}
     for kind, evts in (("kernels", kernels), ("ops", ops)):
         print(f"## {kind} by device time")
@@ -154,11 +199,9 @@ def _trace(args, alg: str, where, roots) -> dict:
                                 "device_ms": _device_us(e) / 1e3,
                                 "share": _device_us(e) / busy_us if busy_us else 0.0})
             print(f"{_device_us(e) / 1e3:10.3f} ms {e.count:6d} x  {e.key[:100]}")
-    out = {"scale": args.scale, "algebra": alg, "policy": policy, "batch": b,
-           "grid": args.grid, "levels": levels, "wall_ms": wall_us / 1e3,
-           "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / wall_us,
-           "top": table}
-    if args.grid:
+    out.update(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               idle_share=1 - busy_us / wall_us, top=table)
+    if phases:
         def kernel_ms(pred):
             return sum(_device_us(e) for e in kernels if pred(e.key)) / 1e3
 
@@ -174,8 +217,14 @@ def _trace(args, alg: str, where, roots) -> dict:
             f"{k[6:]} {v:.3f} ({v * 1e3 / wall_us:.4f})" for k, v in sorted(spans.items())))
         out["phases_ms"] = shares
         out["span_ms"] = {k[6:]: v for k, v in spans.items()}
-    if args.out:
-        prof.export_chrome_trace(args.out)
+    if classes:
+        cls = {name: sum(_device_us(e) for e in kernels if pred(e.key.lower())) / 1e3
+               for name, pred in classes.items()}
+        print("## kernel classes (device ms, share of busy): " + ", ".join(
+            f"{k} {v:.3f} ({v * 1e3 / busy_us:.4f})" for k, v in cls.items()))
+        out["classes_ms"] = cls
+    if trace_out:
+        prof.export_chrome_trace(trace_out)
     print(json.dumps(out))
     return out
 

@@ -2,7 +2,7 @@
 adaptive exchange engine and its byte ledger, over a simulated grid.
 
 * :mod:`.formats`     — wire-format geometry + pack/unpack (bitmap, PFOR16
-  id stream, found-bitmap + parents, raw ids, dense).
+  id stream, found-bitmap + parents, raw ids, dense, int8).
 * :mod:`.ladder`      — bucket ladders pruned by word count and the
   :mod:`.threshold` break-even (paper §5.4.3).
 * :mod:`.grid`        — :class:`SimGrid`, R x C ranks in one process.
@@ -23,6 +23,7 @@ from repro_torch.comm.formats import (  # noqa: F401
     DenseFormat,
     IdStreamFormat,
     IdStreamSpec,
+    Int8Format,
     RawIdFormat,
     WireFormat,
     pack_bitmap,

@@ -1,10 +1,9 @@
 """Wire formats: every fixed-geometry representation a collective carries.
 
-The port's counterpart of ``repro/comm/formats.py`` (``Int8Format`` comes
-with the quantization slice).  Collectives move tensors of static shape,
-so the paper's variable-length compressed exchange becomes a set of wire
-formats, each knowing its word count up front and packing/unpacking
-losslessly:
+The port's counterpart of ``repro/comm/formats.py``.  Collectives move
+tensors of static shape, so the paper's variable-length compressed
+exchange becomes a set of wire formats, each knowing its word count up
+front and, all but the int8 payload, packing/unpacking losslessly:
 
 * :class:`IdStreamFormat` — delta (gap) coding + vertical 16-bit packing
   with patched exceptions (PFOR with a static exception capacity),
@@ -18,6 +17,8 @@ losslessly:
   fallback).
 * :class:`BitmapParentFormat` — found-bitmap + bit-packed parents, the
   bottom-up (pull) row exchange.
+* :class:`Int8Format` — block-quantized int8 float payload with one f32
+  scale per 128 values (lossy; the 2D GNN's feature exchanges).
 
 Words are int32 tensors holding the uint32 bit patterns; the codecs do
 their arithmetic in int64 masked to 32 bits.  Every pack/unpack here takes
@@ -35,6 +36,7 @@ import torch
 from repro_torch.core.algebra import INF
 from repro_torch.kernels.bitpack import ops as bp
 from repro_torch.kernels.bitpack import ref as bpref
+from repro_torch.kernels.quant import ops as quant
 
 _MASK32 = 0xFFFFFFFF
 
@@ -371,3 +373,33 @@ class DenseFormat:
     @property
     def wire_bytes(self) -> int:
         return 4 * self.s
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Format:
+    """Block-quantized int8 payload + one f32 scale per ``group`` values."""
+
+    n: int  # values per participant
+    group: int = quant.ref.GROUP
+
+    @property
+    def name(self) -> str:
+        return "int8"
+
+    @property
+    def data_words(self) -> int:
+        return self.n // 4  # int8 payload measured in u32-word equivalents
+
+    @property
+    def meta_words(self) -> int:
+        return self.n // self.group  # f32 scales
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.n + 4 * (self.n // self.group)
+
+    def pack(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return quant.quantize(x)
+
+    def unpack(self, q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+        return quant.dequantize(q, scales)

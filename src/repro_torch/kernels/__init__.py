@@ -8,11 +8,11 @@ root (git-ignored), keyed by a hash of the sources and flags, so a second
 process reuses it.  Nothing builds at import time: the CPU tests import
 every module on a machine without ``nvcc``.
 
-Each kernel module (``bitpack``, ``popcount``, ``spmv``) has a plain
-PyTorch version in ``ref.py`` and a wrapper in ``ops.py``.  The wrapper
-takes the plain version only for tensors that lie on the CPU; for CUDA
-tensors it launches the kernel through :func:`launch` or raises.  There is
-no fallback from one to the other.
+Each kernel module (``bitpack``, ``popcount``, ``spmv``, ``quant``) has a
+plain PyTorch version in ``ref.py`` and a wrapper in ``ops.py``.  The
+wrapper takes the plain version only for tensors that lie on the CPU; for
+CUDA tensors it launches the kernel through :func:`launch` or raises.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations

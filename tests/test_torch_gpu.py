@@ -134,3 +134,81 @@ def test_algebras_on_card_match_cpu(cuda, alg):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
         elif alg != "pagerank":
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_quantize_kernel_matches_plain_on_card(cuda):
+    """The int8 block-quantize kernel against its plain version exactly on
+    the smoke script's ragged and half-way inputs (N = 128, N off 1024, an
+    all-zero group, NaN and +/-inf groups, 0.5 / 1.5 / 2.5 at scale 1.0); a
+    misaligned input raises; each call on a CUDA tensor launches the kernel."""
+    import chip_smoke
+    from repro_torch.kernels.quant import ops as q_ops
+
+    kernels.reset_launches()
+    chip_smoke.check_quantize_ragged()
+    # 6 inputs, then the non-finite and the ties again; the misaligned one raises
+    assert kernels.LAUNCHES["quantize"] == 8
+    x = torch.zeros(256, device=cuda)
+    with pytest.raises(ValueError):  # not a multiple of 128: raises, no fallback
+        q_ops.quantize(x[:200])
+    with pytest.raises(TypeError):  # float64 is not taken
+        q_ops.quantize(x.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", [2, 4])
+@pytest.mark.parametrize("arch", ["graphcast", "gat-cora"])
+def test_gnn_forward_on_card_matches_cpu(cuda, arch, refine):
+    """The smoke widths on the multimesh over a 2x2 grid (refinement 2: one
+    block holds every edge; 4: all four blocks do): the card's fp32 2D and
+    single-device forwards equal the CPU's within float32 reassociation
+    (1e-5 of the output's peak); the int8 forward launches the quantize
+    kernel on the card."""
+    from repro_torch.bench import gnn as gnn_bench
+
+    runs = {}
+    for dev in (cuda, "cpu"):
+        st = gnn_bench.setup(arch, refine=refine, smoke=True, device=dev)
+        kernels.reset_launches()
+        q = gnn_bench.forward_2d(st, True)
+        launched = kernels.LAUNCHES["quantize"]
+        runs[str(dev)] = (gnn_bench.forward_2d(st, False).cpu(),
+                          gnn_bench.forward_single(st).cpu(), q.cpu(), launched)
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    for a, b in zip(card[:2], cpu[:2]):
+        peak = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * peak)
+    assert torch.isfinite(card[2]).all() or arch == "gat-cora"
+    assert card[3] > 0 and cpu[3] == 0
+
+
+@pytest.mark.gpu
+def test_gat_int8_nonfinite_on_card_matches_cpu(cuda):
+    """GAT's int8 2D forward on the scale-9 Kronecker graph of the CPU tests
+    (2 layers, 2 heads, parameters from seed 0) has NaN outputs, as the
+    reference's has (ROADMAP Queue 3): the quantize kernel meets NaN and inf
+    payloads on the way.  The card's outputs are NaN and inf exactly where
+    the CPU's are, and the others agree within 1e-3 of the peak (one int8
+    step moved by a float-order flip upstream)."""
+    from repro_torch.models import gnn, gnn_dist
+
+    g = builder.build_csr(kronecker.kronecker_edges(9, seed=5), n=1 << 9)
+    bg = csr.partition_2d(g, 2, 2, chunk_multiple=256)
+    cfg = gnn.GATConfig(n_layers=2, d_hidden=8, n_heads=2, d_in=12, d_out=16)
+    nf = np.random.default_rng(0).normal(size=(bg.part.n, 12)).astype(np.float32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        grid = SimGrid(2, 2, dev)
+        params = gnn.init(cfg, torch.Generator().manual_seed(0), dev)
+        out = gnn_dist.forward_2d(grid, cfg, params, gnn_dist.shard_nodes(grid, nf, bg.part),
+                                  gnn_dist.shard_edges(grid, bg.src_local),
+                                  gnn_dist.shard_edges(grid, bg.dst_local), bg.part,
+                                  gnn_dist.Dist2DConfig(quantize_payload=True))
+        outs.append(torch.stack(out).cpu())
+    card, cpu = outs
+    finite = cpu.isfinite()
+    assert not finite.all()
+    assert torch.equal(card.isnan(), cpu.isnan()) and torch.equal(card.isinf(), cpu.isinf())
+    peak = float(cpu[finite].abs().max())
+    torch.testing.assert_close(card[finite], cpu[finite], rtol=0, atol=1e-3 * peak)
