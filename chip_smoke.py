@@ -8,9 +8,12 @@ both, and the 2D GNN forward with int8 payloads:
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
 3. holds every kernel against its plain PyTorch version on the card, for
-   exact equality, at ragged small shapes and at the single-device path's
+   exact equality, at ragged small shapes (the SpMV kernels on SPMV_CASES:
+   1 to 17 planes, K from 1 to 64, unsorted and all-sentinel rows, empty
+   and full frontiers, offset slab views) and at the single-device path's
    shapes (B=8 planes of the scale-S graph, its hybrid slab, a real
-   frontier and unreached plane), and times kernel and plain version;
+   frontier and unreached plane), and times kernel (CUDA events, and the
+   profiler's device time) and plain version;
 4. runs the Graph500 harness (scale S, edgefactor 16, seed 1, 64 valid
    roots in batches of 8, ``direction_opt`` + ``hybrid``, every tree
    validated) with the launch counts zeroed just before and read just
@@ -33,10 +36,10 @@ both, and the 2D GNN forward with int8 payloads:
    ``cc`` under every policy on the card, single-device and on the grid
    under every plan, against ``top_down`` on the CPU;
 7. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
-   kernel ``gspmm_min_planes`` against its plain version at the path's own
-   inputs (a real SSSP level of 8 planes, push and pull, both ops; one
-   rank's slab of the 2x2 grid with its bases; CC's single plane), timed
-   beside its bound; then ``sssp`` (8 roots), ``cc`` and ``pagerank`` (one
+   kernel ``gspmm_min_planes`` and its ``interleave_values`` helper against
+   their plain versions at the path's own inputs (a real SSSP level of 8
+   planes, push and pull, both ops; one rank's slab of the 2x2 grid with its
+   bases; CC's single plane), timed beside their bounds; then ``sssp`` (8 roots), ``cc`` and ``pagerank`` (one
    plane each) on one device, counts zeroed before each run and read
    after, checked on the card (SSSP shortest-path certificates, CC labels,
    PageRank against a float64 power iteration) and against scipy (one
@@ -95,6 +98,14 @@ REPLACES = {
     "spmv_pull_min_planes": "src/repro/kernels/spmv/pull.py:89",
     "gspmm_min_planes": "src/repro/kernels/spmv/spmv.py:127",
     "quantize": "src/repro/kernels/quant/quant.py:31",
+    # no Pallas entry of its own: it takes the place of the frontier-bit
+    # reads inside the ELL kernels (rows 5-9; the push body's first)
+    "frontier_mask": "src/repro/kernels/spmv/spmv.py:59 (helper of the ELL kernels, no "
+                     "Pallas entry)",
+    # the value gather's plane-interleaved copy of x (the Pallas kernel
+    # keeps each plane's values resident in VMEM instead)
+    "interleave_values": "src/repro/kernels/spmv/spmv.py:80 (helper of the value gather, no "
+                         "Pallas entry)",
 }
 SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/bitpack.cu",
@@ -107,15 +118,21 @@ SOURCES = {
     "spmv_pull_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
     "gspmm_min_planes": "src/repro_torch/kernels/csrc/spmv.cu",
     "quantize": "src/repro_torch/kernels/csrc/quant.cu",
+    "frontier_mask": "src/repro_torch/kernels/csrc/spmv.cu",
+    "interleave_values": "src/repro_torch/kernels/csrc/spmv.cu",
 }
 #: the kernels each main path must launch
-GRAPH500_PATH = ("pack", "popcount_planes", "spmv_min_planes", "spmv_pull_min_planes")
+GRAPH500_PATH = ("pack", "popcount_planes", "frontier_mask", "spmv_min_planes",
+                 "spmv_pull_min_planes")
 DIST_PATH = GRAPH500_PATH + ("unpack",)
-#: the min algebras' path; PageRank's sum reduce runs the plain gspmm by
-#: design (as the reference on every platform), so it needs pack and
-#: popcount only
-ALGEBRA_PATH = ("gspmm_min_planes", "pack", "popcount_planes")
-PAGERANK_PATH = ("pack", "popcount_planes")
+#: the min algebras' paths (SSSP's 8 planes go through the frontier mask and
+#: the interleaved values, CC's one plane probes its bitmap); PageRank's sum
+#: reduce runs the plain gspmm by design (as the reference on every
+#: platform), so it needs pack and popcount only
+ALGEBRA_PATHS = {"sssp": ("gspmm_min_planes", "frontier_mask", "interleave_values", "pack",
+                          "popcount_planes"),
+                 "cc": ("gspmm_min_planes", "pack", "popcount_planes"),
+                 "pagerank": ("pack", "popcount_planes")}
 #: PageRank on the grid against one device: float32 sums over a vertex's
 #: in-edges in another order, a few ulp of relative error per vertex
 PAGERANK_GRID_L1 = 1e-5
@@ -189,11 +206,11 @@ def _min_algebra(op: str, max_weight: int):
 
 
 def check_ragged() -> None:
-    """Exact kernel-vs-plain agreement on small ragged shapes."""
+    """Exact kernel-vs-plain agreement on small ragged shapes (the SpMV
+    kernels on SPMV_CASES)."""
     import torch
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
     from repro_torch.kernels.popcount import ops as pc_ops, ref as pc_ref
-    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -220,57 +237,156 @@ def check_ragged() -> None:
     for w in (7, 1024, 1500, 5000):
         expect(same(pc_ops.popcount_blocks(words.reshape(-1)[:w]),
                     pc_ref.popcount_blocks(words.reshape(-1)[:w])), ('popcount_blocks', w))
-    for n_rows, k, planes in ((3001, 13, 11), (1024, 8, 8), (77, 1, 3)):
-        n_real = 4500
-        n_cols = n_real + (-n_real) % 1024
-        nbr = torch.randint(0, n_real, (n_rows, k), generator=gen, device=dev,
-                            dtype=torch.int32)
-        nbr[torch.rand((n_rows, k), generator=gen, device=dev) < 0.3] = n_real
-        f = bp_ops.pack_planes(torch.rand((planes, n_real), generator=gen, device=dev) < 0.2, 1)
-        u = bp_ops.pack_planes(torch.rand((planes, n_rows), generator=gen, device=dev) < 0.5, 1)
+    check_spmv_cases("cuda")
+
+
+#: the ELL kernels' ragged inputs: (label, planes, K, rows, frontier density,
+#: unreached share, slab handed over 4 bytes into its buffer).  Planes 1, 3,
+#: 8, 9, 17 cross the mask's byte and pass boundaries; K = 8 and 64 take the
+#: 16-byte slab loads, K = 1 and 13 and the offset views the scalar ones.
+SPMV_CASES = [
+    *((f"B={b} K={k}", b, k, 1000 + 97 * b + k, 0.2, 0.5, False)
+      for b in (1, 3, 8, 9, 17) for k in (1, 8, 13, 64)),
+    ("empty frontier", 8, 8, 3001, 0.0, 0.5, False),
+    ("full frontier", 8, 8, 3001, 1.0, 0.5, False),
+    ("pull: every row reached", 8, 8, 3001, 0.2, 0.0, False),
+    ("pull: no row reached", 9, 8, 3001, 0.2, 1.0, False),
+    ("offset view B=8 K=8", 8, 8, 2000, 0.2, 0.5, True),
+    ("offset view B=3 K=64", 3, 64, 500, 0.2, 0.5, True),
+    ("offset view B=1 K=8", 1, 8, 2000, 0.2, 0.5, True),
+    ("B=11 K=13", 11, 13, 3001, 0.2, 0.5, False),
+    ("77 rows, fewer than a block", 3, 1, 77, 0.2, 0.5, False),
+]
+SPMV_N_REAL = 4500  # columns; the slab's sentinel, n_cols pads it to 5,120
+SPMV_BASES = ((0, 0), (123457, 98765))
+SPMV_MAX_WEIGHT = 29
+
+
+def spmv_case(i: int) -> dict:
+    """Case ``i`` of SPMV_CASES as numpy arrays from seed ``i``: a slab with
+    30% sentinel slots, its first third of rows sorted and the rest not,
+    every 7th row of the rest all sentinels; frontier and unreached bits;
+    values (n_x = SPMV_N_REAL - 10 < n_cols, so the tail reads INF) with
+    every 7th column at INF - 0..39 (minplus saturation at INF - w)."""
+    label, planes, k, n_rows, density, unreached, offset = SPMV_CASES[i]
+    rng = np.random.default_rng(i)
+    n = SPMV_N_REAL
+    nbr = rng.integers(0, n, size=(n_rows, k)).astype(np.int32)
+    nbr[rng.random((n_rows, k)) < 0.3] = n
+    nbr[:n_rows // 3].sort(axis=1)
+    nbr[n_rows // 3::7] = n
+    x = rng.integers(0, INF, size=(planes, n - 10)).astype(np.int32)
+    x[:, ::7] = INF - rng.integers(0, 40, size=x[:, ::7].shape)
+    return {"label": label, "nbr": nbr, "offset": offset,
+            "f_bits": rng.random((planes, n)) < density,
+            "u_bits": rng.random((planes, n_rows)) < unreached, "x": x}
+
+
+def spmv_case_tensors(case: dict, dev):
+    """(nbr, f_words, u_words, x, n_cols) on ``dev``; an offset case's slab
+    is a contiguous view 4 bytes into a larger buffer."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
+
+    nbr = torch.from_numpy(case["nbr"]).to(dev)
+    if case["offset"]:
+        buf = torch.empty(nbr.numel() + 1, dtype=torch.int32, device=dev)
+        buf[1:] = nbr.reshape(-1)
+        nbr = buf[1:].view(nbr.shape)
+    f = bp_ops.pack_planes(torch.from_numpy(case["f_bits"]).to(dev), 1)
+    u = bp_ops.pack_planes(torch.from_numpy(case["u_bits"]).to(dev), 1)
+    return nbr, f, u, torch.from_numpy(case["x"]).to(dev), bp_ref.chunk_pad(SPMV_N_REAL)
+
+
+def interleaved_columns(mask, n_x: int):
+    """(groups, n_x) int32 set-bit counts of the mask bytes of the columns
+    that hold values: ``interleave_values`` writes the columns whose count
+    is nonzero (the value gather reads the copy of no other)."""
+    import torch
+
+    m = mask[:, :n_x].to(torch.int32)
+    bits = sum((m >> q) & 1 for q in range(8))
+    return torch.nn.functional.pad(bits, (0, n_x - bits.shape[1]))
+
+
+def check_spmv_cases(dev) -> None:
+    """Every SpMV wrapper on ``dev`` against its plain version, exactly, on
+    every SPMV_CASES input: the frontier mask, push and pull over B planes
+    and over plane 0, and the value gather (both ops, zero and nonzero
+    bases, push and pull)."""
+    import torch
+    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
+
+    for i in range(len(SPMV_CASES)):
+        case = spmv_case(i)
+        nbr, f, u, x, n_cols = spmv_case_tensors(case, dev)
+        tag = (case["label"], tuple(nbr.shape), f.shape[0])
+        expect(same(sp_ops.frontier_mask(f), sp_ref.frontier_mask(f)), ("mask", tag))
+        mask = sp_ref.frontier_mask(f)
+        written = interleaved_columns(mask, x.shape[1]) > 0
+        expect(same(sp_ops.interleave_values(x, mask)[written],
+                    sp_ref.interleave_values(x, mask)[written]), ("interleave", tag))
         expect(same(sp_ops.spmv_min_planes(nbr, f, n_cols),
-                    sp_ref.spmv_min_planes(nbr, f, n_cols)), ("push", n_rows, k, planes))
+                    sp_ref.spmv_min_planes(nbr, f, n_cols)), ("push", tag))
         expect(same(sp_ops.spmv_pull_min_planes(nbr, f, u, n_cols),
-                    sp_ref.spmv_pull_min_planes(nbr, f, u, n_cols)), ("pull", n_rows, k, planes))
+                    sp_ref.spmv_pull_min_planes(nbr, f, u, n_cols)), ("pull", tag))
         expect(same(sp_ops.spmv_min(nbr, f[0], n_cols), sp_ref.spmv_min(nbr, f[0], n_cols)),
-               ("push one plane", n_rows, k))
+               ("push one plane", tag))
         expect(same(sp_ops.spmv_pull_min(nbr, f[0], u[0], n_cols),
-                    sp_ref.spmv_pull_min(nbr, f[0], u[0], n_cols)), ("pull one plane", n_rows, k))
-        # values near INF exercise minplus saturation; n_x < n_cols reads INF
-        x = torch.randint(0, 2**31 - 1, (planes, n_real), generator=gen, device=dev,
-                          dtype=torch.int64).to(torch.int32)
-        x[:, ::7] = INF - torch.randint(0, 40, (1,), generator=gen, device=dev).to(torch.int32)
+                    sp_ref.spmv_pull_min(nbr, f[0], u[0], n_cols)), ("pull one plane", tag))
         for op in ("copy", "minplus"):
-            alg = _min_algebra(op, 29)
-            for base in ((0, 0), (123457, 98765)):
+            alg = _min_algebra(op, SPMV_MAX_WEIGHT)
+            for base in SPMV_BASES:
                 for uw in (None, u):
                     got = sp_ops.gspmm_planes(nbr, f, x, n_cols, alg, row_base=base[0],
                                               col_base=base[1], u_words=uw)
-                    want = sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op, 29, *base, uw)
-                    expect(same(got, want), ("gspmm", op, base, uw is None, n_rows, k, planes))
-    torch.cuda.synchronize()
+                    want = sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op, SPMV_MAX_WEIGHT,
+                                                   *base, uw)
+                    expect(same(got, want), ("gspmm", op, base, uw is None, tag))
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
-def _row(name, kern, plain, nbytes, ops_n, shape, reps=50) -> dict:
-    """Check ``kern`` against ``plain`` exactly, time both and bound the
-    work: the larger of the bytes over the memory rate and the integer
-    operations over the 32-bit scalar rate."""
+def _row(name, kern, plain, nbytes, ops_n, shape, reps=50, view=None) -> dict:
+    """Check ``kern`` against ``plain`` exactly (on ``view`` of both, where
+    given), time both (CUDA events, and the profiler's device time over as
+    many calls) and bound the work: the larger of the bytes over the memory
+    rate and the integer operations over the 32-bit scalar rate."""
     import torch
+    from repro_torch import kernels
 
     a, b = kern(), plain()
+    if view is not None:
+        a, b = view(a), view(b)
     torch.cuda.synchronize()
     expect(same(a, b), (name, shape))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_n / ALU_OPS_PER_S * 1e3
+    ms = time_ms(kern, reps)
+    dev_ms, by_kernel = kernels.device_ms(kern, reps)
     return {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": None,
         "max_abs_err": int((a.to(torch.int64) - b.to(torch.int64)).abs().max()),
-        "ms": time_ms(kern, reps), "plain_ms": time_ms(plain, 5),
-        "bound_ms": max(bytes_ms, ops_ms),
+        "ms": ms, "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+        "plain_ms": time_ms(plain, 5), "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "shape": shape,
     }
+
+
+#: the keys a kernel's other inputs keep in its JSON row
+SUB_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def brief(r: dict) -> dict:
+    return {key: r[key] for key in SUB_KEYS}
+
+
+def describe(r: dict, card: str, where: str = "") -> str:
+    return (f"kernel {r['name']}{where}: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us "
+            f"(device {r['device_ms'] * 1e3:.2f} us) vs plain {r['plain_ms'] * 1e3:.2f} us, "
+            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) on {card}")
 
 
 def main_shape_rows(setup, roots):
@@ -330,6 +446,9 @@ def main_shape_rows(setup, roots):
             "spmv_pull_min": (lambda: sp_ops.spmv_pull_min(nbr, f[0], u[0], n_cp),
                               lambda: sp_ref.spmv_pull_min(nbr, f[0], u[0], n_cp),
                               live0 * k * 4 + (wf + wu) * 4 + r * 4, 4 * live0 * k),
+            # the words in, one byte per column out; shift, and, or per bit
+            "frontier_mask": (lambda: sp_ops.frontier_mask(f), lambda: sp_ref.frontier_mask(f),
+                              planes * wf * 4 + -(-planes // 8) * n_cp, 3 * planes * n_cp),
         }
         for name, (kern, plain, nbytes, ops_n) in checks.items():
             row = _row(name, kern, plain, nbytes, ops_n, shape)
@@ -469,16 +588,15 @@ def distributed_step(setup, roots, single, card) -> dict:
     with capture_path_inputs() as kept:
         distributed.search(st, droots[:8], batch=8, mode="auto", policy="direction_opt",
                            validate_trees=False)
-    missing = sorted(set(DIST_PATH) - {name for name, _, _ in kept})
+    # the mask kernel runs inside the ELL wrappers, on their frontier words
+    missing = sorted(set(DIST_PATH) - {"frontier_mask"} - {name for name, _, _ in kept})
     if missing:
         raise AssertionError(f"the distributed path gave no input to {missing}")
     rows = dist_shape_rows(kept, single.level, st.bg.part.chunk)
     del kept
     for name, rs in rows.items():
         for r in rs:
-            print(f"kernel {name} (distributed, rank inputs): exact at {r['shape']}; "
-                  f"{r['ms'] * 1e3:.2f} us vs plain {r['plain_ms'] * 1e3:.2f} us, bound "
-                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) on {card}")
+            print(describe(r, card, " (distributed, rank inputs)"))
     kernels.reset_launches()
     out = distributed.search(st, droots, batch=8, mode="auto", policy="direction_opt")
     counts = dict(kernels.LAUNCHES)
@@ -580,18 +698,24 @@ def cross_check(card) -> None:
 
 @contextlib.contextmanager
 def capture_gspmm():
-    """While active, keep the arguments of the ``gspmm_planes`` call with
-    the most frontier bits set (the densest level the path gave it)."""
+    """While active, keep a copy of the arguments of every min-reduce
+    ``gspmm_planes`` call, one a level, under ``levels``; and the one with
+    the most frontier bits set (the densest level the path gave it) as
+    ``weight`` / ``args`` / ``kw``."""
     from repro_torch.kernels.popcount import ref as pc_ref
     from repro_torch.kernels.spmv import ops as sp_ops
 
-    kept = {}
+    kept = {"levels": []}
     real = sp_ops.gspmm_planes
 
     def run(nbr, f_words, x, n_cols, alg, **kw):
         w = int(pc_ref.popcount_planes(f_words).sum())
-        if alg.reduce == "min" and w >= kept.get("weight", -1):
-            kept.update(weight=w, args=(nbr, f_words, x, n_cols, alg), kw=kw)
+        if alg.reduce == "min":
+            call = {"weight": w, "args": (nbr, f_words.clone(), x.clone(), n_cols, alg),
+                    "kw": kw}
+            kept["levels"].append(call)
+            if w >= kept.get("weight", -1):
+                kept.update(call)
         return real(nbr, f_words, x, n_cols, alg, **kw)
 
     sp_ops.gspmm_planes = run
@@ -626,7 +750,8 @@ def gspmm_rows(kept, setup, st, kept_cc) -> tuple[dict, list, list]:
     ``copy``), the pull with the level's unreached vertices, and the same
     level cut to one rank's column slice and slab on the grid (rank (1, 1),
     nonzero bases); and on CC's own single plane at its densest level.
-    Returns the main row, the other single-device rows and the rank rows."""
+    Returns the main row, the other single-device rows, the rank rows and
+    the row of the values' interleaving kernel on the main input."""
     import torch
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
     from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
@@ -655,6 +780,16 @@ def gspmm_rows(kept, setup, st, kept_cc) -> tuple[dict, list, list]:
 
     u = bp_ops.pack_planes(unreached, 1)
     main = row(nbr, f, x, n_cols, "minplus", shape=level_shape)
+    mask = sp_ops.frontier_mask(f)
+    copied = interleaved_columns(mask, x.shape[1])
+    written = copied > 0
+    # the mask read once, the set bits of the columns it copies read once
+    # and their 32 bytes written once; no arithmetic
+    interleave = _row("interleave_values", lambda: sp_ops.interleave_values(x, mask),
+                      lambda: sp_ref.interleave_values(x, mask),
+                      mask.numel() + int(copied.sum()) * 4 + int(written.sum()) * 32, 0,
+                      {**level_shape, "x": list(x.shape), "columns": int(written.sum())},
+                      view=lambda t: t[written])
     others = [row(nbr, f, x, n_cols, "copy", shape=level_shape),
               row(nbr, f, x, n_cols, "minplus", u, shape=level_shape),
               row(nbr, f, x, n_cols, "copy", u, shape=level_shape)]
@@ -677,7 +812,39 @@ def gspmm_rows(kept, setup, st, kept_cc) -> tuple[dict, list, list]:
     rank_shape = {**level_shape, "rank": [i, j]}
     rank = [row(slab, f_col, x_col, part.n_c, op, uw, bases, rank_shape)
             for op in ("minplus", "copy") for uw in (None, u_row)]
-    return main, others, rank
+    main["levels"] = layout_levels(kept["levels"])
+    return main, others, rank, interleave
+
+
+def layout_levels(calls) -> list[dict]:
+    """The value gather at every level of the captured batch in both value
+    layouts, each exact against the plain version: the wrapper's (in push
+    at B > 1 the plane-interleaved copy, its time included) and the values
+    read as they are.  Times by CUDA events and profiler device time."""
+    from repro_torch import kernels
+    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
+
+    levels = []
+    for i, call in enumerate(calls):
+        nbr, f, x, n_cols, alg = call["args"]
+        rb, cb = call["kw"].get("row_base", 0), call["kw"].get("col_base", 0)
+        op, mw = ("minplus", alg.max_weight) if alg.uses_weights else ("copy", 31)
+        want = sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op, mw, rb, cb)
+        layouts = {
+            "wrapper": lambda: sp_ops.gspmm_planes(nbr, f, x, n_cols, alg, row_base=rb,
+                                                   col_base=cb),
+            "as_is": lambda: sp_ops._gather(nbr, f, x, None, n_cols, op, mw, rb, cb,
+                                            interleaved=False),
+        }
+        columns = int((interleaved_columns(sp_ops.frontier_mask(f), x.shape[1]) > 0).sum())
+        entry = {"level": i + 1, "frontier": call["weight"], "columns": columns}
+        for name, fn in layouts.items():
+            expect(same(fn(), want), ("gspmm_min_planes layout", name, i + 1))
+            entry[f"{name}_ms"] = time_ms(fn, 20)
+            entry[f"{name}_device_ms"], entry[f"{name}_device_ms_by_kernel"] = \
+                kernels.device_ms(fn, 20)
+        levels.append(entry)
+    return levels
 
 
 def _scipy_graph(g):
@@ -690,11 +857,12 @@ def _scipy_graph(g):
     return sp.csr_matrix((w, (g.src, g.dst)), shape=(g.n, g.n))
 
 
-def algebra_step(setup, roots, st, card) -> tuple[dict, dict]:
+def algebra_step(setup, roots, st, card) -> tuple[dict, dict, dict]:
     """The frontier algebras at the smoke's scale (hybrid + top_down): the
     value kernel at the path's own inputs, then sssp / cc / pagerank on one
     device and on the 2x2 grid with their checks.  Returns the launch counts
-    per path and the kernel's JSON row."""
+    per path and the JSON rows of the value kernel and of its interleaving
+    helper."""
     import torch
     from scipy.sparse import csgraph
 
@@ -711,18 +879,24 @@ def algebra_step(setup, roots, st, card) -> tuple[dict, dict]:
         algebras.run_single(setup, "sssp", aroots["sssp"])
     with capture_gspmm() as kept_cc:
         algebras.run_single(setup, "cc", aroots["cc"])
-    main, others, rank = gspmm_rows(kept, setup, st, kept_cc)
+    main, others, rank, interleave = gspmm_rows(kept, setup, st, kept_cc)
     del kept, kept_cc
-    for r in [main, *others, *rank]:
-        print(f"kernel gspmm_min_planes: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us vs "
-              f"plain {r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}) on {card}")
-    main["other_shapes"] = [{key: r[key] for key in ("shape", "max_abs_err", "ms",
-                                                      "plain_ms", "bound_ms", "bound_by")}
-                            for r in others]
-    main["distributed_shapes"] = [{key: r[key] for key in ("shape", "max_abs_err", "ms",
-                                                            "plain_ms", "bound_ms",
-                                                            "bound_by")} for r in rank]
+    for r in [main, *others, *rank, interleave]:
+        print(describe(r, card))
+    for e in main["levels"]:
+        copy = e["wrapper_device_ms_by_kernel"].get("interleave_values_kernel", 0.0)
+        print(f"gspmm_min_planes sssp level {e['level']} ({e['frontier']} frontier bits in "
+              f"{e['columns']} columns): "
+              f"wrapper {e['wrapper_ms'] * 1e3:.2f} us (device "
+              f"{e['wrapper_device_ms'] * 1e3:.2f}, copy {copy * 1e3:.2f}), values as they are "
+              f"{e['as_is_ms'] * 1e3:.2f} us (device {e['as_is_device_ms'] * 1e3:.2f})")
+    sums = {key: sum(e[key] for e in main["levels"]) * 1e3
+            for key in ("wrapper_ms", "wrapper_device_ms", "as_is_ms", "as_is_device_ms")}
+    print(f"gspmm_min_planes sssp batch, sum over levels: wrapper {sums['wrapper_ms']:.2f} us "
+          f"(device {sums['wrapper_device_ms']:.2f}), values as they are "
+          f"{sums['as_is_ms']:.2f} us (device {sums['as_is_device_ms']:.2f}) on {card}")
+    main["other_shapes"] = [brief(r) for r in others]
+    main["distributed_shapes"] = [brief(r) for r in rank]
 
     launches = {"algebras": {}, "algebras_grid": {}}
     single, grid = {}, {}
@@ -732,7 +906,7 @@ def algebra_step(setup, roots, st, card) -> tuple[dict, dict]:
             kernels.reset_launches()
             runs[alg] = fn(alg, aroots[alg])
             counts = dict(kernels.LAUNCHES)
-            need = PAGERANK_PATH if alg == "pagerank" else ALGEBRA_PATH
+            need = ALGEBRA_PATHS[alg]
             if where == "algebras_grid":
                 need = need + ("unpack",)
             require_launched(counts, need, f"{alg} ({where})")
@@ -805,7 +979,7 @@ def algebra_step(setup, roots, st, card) -> tuple[dict, dict]:
         print(f"{alg} bytes over links, all ranks (auto): "
               f"{ {k: sum(v.values()) for k, v in sorted(z.items())} }")
     print(f"algebra step: {time.perf_counter() - t0:.1f}s")
-    return launches, main
+    return launches, main, interleave
 
 
 def check_quantize_ragged() -> None:
@@ -873,6 +1047,7 @@ def _quant_row(x, shape, reps=50) -> dict:
     scales equal, both timed, beside the byte bound (each value read once
     as float32 and written once as int8, one float32 scale per group)."""
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels.quant import ops as q_ops, ref as q_ref
 
     (q, s), (qr, sr) = q_ops.quantize(x), q_ref.quantize(x)
@@ -883,10 +1058,12 @@ def _quant_row(x, shape, reps=50) -> dict:
     ops_ms = QUANT_OPS_PER_VALUE * n / ALU_OPS_PER_S * 1e3
     err = max(int((q.to(torch.int32) - qr.to(torch.int32)).abs().max()),
               float((s - sr).abs().max()))
+    ms = time_ms(lambda: q_ops.quantize(x), reps)
+    dev_ms, by_kernel = kernels.device_ms(lambda: q_ops.quantize(x), reps)
     return {
         "name": "quantize", "route": "cuda", "source": SOURCES["quantize"],
         "replaces": REPLACES["quantize"], "launches": None, "max_abs_err": err,
-        "ms": time_ms(lambda: q_ops.quantize(x), reps),
+        "ms": ms, "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
         "plain_ms": time_ms(lambda: q_ref.quantize(x), 5),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -923,9 +1100,7 @@ def gnn_step(card) -> tuple[dict, dict]:
     del kept
     check_quantize_ragged()
     for r in rows:
-        print(f"kernel quantize: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us vs plain "
-              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}) on {card}")
+        print(describe(r, card))
     print("ragged shapes: quantize (N = 128, 1,664, 5,504, 1,024 with a zero group, "
           "384 with NaN/+inf/-inf groups, half-way values): exact")
 
@@ -956,9 +1131,7 @@ def gnn_step(card) -> tuple[dict, dict]:
           f" of max |out| {res['single_max_abs']:.6e} ({gap:.3e}, bound {GNN_FP32_REL})")
     print(f"gnn step: {time.perf_counter() - t0:.1f}s")
     main = rows[0]
-    main["other_shapes"] = [{key: r[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                     "bound_ms", "bound_by")}
-                            for r in rows[1:]]
+    main["other_shapes"] = [brief(r) for r in rows[1:]]
     main["launches_per_forward"] = res["launches_per_forward"]
     return counts, main
 
@@ -1007,9 +1180,7 @@ def main() -> int:
 
     rows, single = main_shape_rows(setup, roots[:8])
     for r in rows.values():
-        print(f"kernel {r['name']}: exact at {r['shape']}; {r['ms'] * 1e3:.2f} us vs plain "
-              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}) on {card}")
+        print(describe(r, card))
 
     kernels.reset_launches()
     out = graph500.search(setup, roots, batch=8, policy="direction_opt")
@@ -1027,7 +1198,8 @@ def main() -> int:
 
     launches["distributed"], dist_rows, st = distributed_step(setup, roots, single, card)
     cross_check(card)
-    alg_launches, rows["gspmm_min_planes"] = algebra_step(setup, roots, st, card)
+    alg_launches, rows["gspmm_min_planes"], rows["interleave_values"] = algebra_step(
+        setup, roots, st, card)
     launches.update(alg_launches)
     del setup, st, single
     launches["gnn"], rows["quantize"] = gnn_step(card)
@@ -1036,9 +1208,7 @@ def main() -> int:
     # moves the most bytes; every kernel lists its distributed inputs
     rows["unpack"] = dict(dist_rows["unpack"][0])
     for name, rs in dist_rows.items():
-        rows[name]["distributed_shapes"] = [
-            {key: r[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "bound_by")} for r in rs]
+        rows[name]["distributed_shapes"] = [brief(r) for r in rs]
     for name, r in rows.items():
         per_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         r["launches"] = sum(per_path.values())

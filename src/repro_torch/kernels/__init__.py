@@ -21,6 +21,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -139,6 +140,39 @@ def launch(kernel: str, name: str, argtypes, *args) -> None:
         msg = library().rt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
     LAUNCHES[kernel] += 1
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key (a demangled signature) cut to the name."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return re.split(r"[<(]", key)[0].split("::")[-1]
+
+
+def device_ms(fn, reps: int, tries: int = 3) -> tuple[float, dict[str, float]]:
+    """``torch.profiler``'s device time of one call of ``fn`` over ``reps``
+    calls (ms): in all, and by kernel name (a wrapper may launch more than
+    one kernel).  Each kernel's time is its mean per recorded launch times
+    its launches per call, so a launch the profiler did not record does not
+    lower it; a trace that recorded no kernel at all is taken again, up to
+    ``tries`` times, and then raises."""
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        totals: dict[str, list[float]] = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+                t = totals.setdefault(kernel_name(e.key), [0.0, 0])
+                t[0] += e.self_device_time_total / 1e3
+                t[1] += e.count
+        by_kernel = {name: total / count * max(1, round(count / reps))
+                     for name, (total, count) in totals.items()}
+        if by_kernel:
+            return sum(by_kernel.values()), by_kernel
+    raise RuntimeError(f"the profiler recorded no kernel in {tries} traces of {reps} calls")
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -1,4 +1,5 @@
-// ELL frontier expansion, push and pull, over B frontier planes.
+// ELL frontier expansion, push and pull, over B frontier planes, and the
+// plane-interleaved frontier mask both ELL kernels probe.
 //
 // Replaces the Pallas kernels spmv_min_planes_pallas / _spmv_planes_kernel
 // (src/repro/kernels/spmv/spmv.py:171 and :59) and
@@ -16,89 +17,230 @@
 // Bound: bytes.  The slab is read once (R*K*4 bytes; in pull only the rows
 // still unreached in some plane), each plane's frontier bitmap once
 // (n_cols/8 bytes), the unreached bitmaps once, and the (B, R) int32 output
-// written once.  The work is a handful of integer operations per slot.
+// written once.  The work is a handful of integer operations per slot.  At
+// scale 22 the slab and the output are 134 MB each and the bitmaps 4 MB, so
+// the card's floor is the slab stream plus the output stream.
 //
-// Design: one thread per row.  The TPU kernel re-streams the slab once per
-// plane (spmv.py:176-181) and carries the min across its sequential
-// degree-chunk grid axis by output revisiting (spmv.py:50-56); here the
-// thread loads each of its row's K slots once and probes it against up to
-// kPlanesPerPass planes, keeping the per-plane mins in registers, so at the
-// main path's B = 8 the slab is read exactly once.  A slot is probed for a
-// plane only while it could still lower that plane's min (slab rows are
-// ascending on the graphs the builder makes, so a row stops probing at its
-// first hit).  Pull reads the row's unreached bits first and skips the
-// probe, and the slab row, for planes where the row is already reached.
-// The frontier bitmap is n_cols/8 bytes per plane (512 KB at scale 22), more
-// than the 227 KB of shared memory a block may use, so it is not staged as
-// the TPU kernel kept it in VMEM (spmv.py:4-7): the probes gather it through
-// the read-only path from L2, which holds all B planes.  No ROW_TILE /
-// DEG_CHUNK padding is needed: the grid masks its ragged edge.
+// What held the first one-thread-per-row design at 2.8x that floor: each
+// real slot probed bit c of every plane, up to B = 8 words lying n_cols/32
+// words apart (8 L2 sectors for 8 bits).  In stages at the densest level of a
+// scale-22 batch (B = 8; throw-away stage builds, PERF.md): slab loads and
+// output stores 93 us, the probes +129 us.
+//
+// Design.  (1) frontier_mask_kernel transposes the packed (B, n_cols/32)
+// words into a (ceil(B/8), n_cols) byte mask, bit q of byte [g, c] = plane
+// 8g + q's bit c: one byte per column holds all 8 planes of a pass, 4 MB at
+// scale 22 and B = 8, which stays in L2.  The bitmaps are in the vertical
+// layout (value i of a 1024-value chunk in word i % 32, bit (i % 1024) / 32),
+// so one source word holds 32 columns lying 32 apart: a block stages its
+// chunks' 32 x 8 words in shared memory and writes each chunk's 1024 mask
+// bytes as coalesced 4-byte stores.  (2) One thread per row loads its slots
+// 4 at a time, as one 16-byte evict-first vector when K % 4 == 0 and the slab
+// is 16-byte aligned, as scalars otherwise (kVec); the state fits 38
+// registers at B > 1 with vector loads (ptxas -v), 48 of an SM's 64 warp
+// slots.  A sentinel slot is dropped by one compare; a real slot costs one
+// mask byte ANDed with the live planes (every plane of the pass in push; in
+// pull, those where the row is unreached), and a zero byte skips it.  The per-plane mins stay in
+// registers; the (B, R) output is written coalesced per plane with
+// evict-first stores.  Passes of 8 planes (one mask byte) re-read the slab
+// for B > 8.  There is no early exit.  The per-plane check c < best[q] can
+// skip a slot's byte load only when it fails for every live plane, that is
+// when c >= the live planes' largest min; past that it only drops min
+// updates that change nothing.  That check measured slower (ELL 160 against
+// 136 us at the densest level, a throw-away variant, PERF.md): with one byte
+// per slot for all planes a slot costs too little to skip.  (3) At B = 1 the mask
+// would be 8x the bitmap and cost a launch for one bit per column, while the
+// bitmap probe is one word from a 512 KB array: the wrappers pass no mask
+// there and the kernel probes the bitmap (kMask = false; 70 us against 99
+// us plus the mask's 7 us at scale 22).  No ROW_TILE / DEG_CHUNK padding is
+// needed: the grid masks its ragged edge.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPlanesPerPass = 8;
+constexpr int kThreads = 128;      // rows per block of the ELL kernels
+constexpr int kTileThreads = 256;  // the mask and interleave kernels' blocks
+constexpr int kInterleaveCols = 8;  // columns per thread of the interleave kernel
+constexpr int kPlanesPerPass = 8;  // the bits of one mask byte
+constexpr int kMaskChunks = 4;     // 1024-column chunks per mask block
+constexpr int kEllSlots = 4;       // slab slots per step (one int4)
+constexpr int kGatherSlots = 8;    // in the value gather (two int4)
 
-template <bool kPull>
-__global__ void ell_min_planes_kernel(const int* __restrict__ nbr,
-                                      const uint32_t* __restrict__ f,
-                                      const uint32_t* __restrict__ u,
-                                      int* __restrict__ out, int n_rows, int k,
-                                      int n_cols, int planes, int64_t wf, int64_t wu) {
+// f: (planes, wf) vertical words, wf = n_cols / 32; mask: (groups, n_cols)
+// bytes viewed as uint32.  Block (kMaskChunks chunks, group): all their 8
+// planes x 32 words loaded at once, then each chunk's 1024 bytes out, 4 per
+// thread.
+__global__ void __launch_bounds__(kTileThreads)
+    frontier_mask_kernel(const uint32_t* __restrict__ f, uint32_t* __restrict__ mask,
+                         int planes, int64_t wf, int64_t n_cols) {
+  __shared__ uint32_t words[kMaskChunks][kPlanesPerPass][32];
+  const int64_t n_chunks = n_cols / rt::kChunk;
+  const int64_t chunk0 = static_cast<int64_t>(blockIdx.x) * kMaskChunks;
+  const int g = blockIdx.y;
+  const int t = threadIdx.x;
+  const int p = g * kPlanesPerPass + (t >> 5);
+#pragma unroll
+  for (int i = 0; i < kMaskChunks; ++i) {
+    const int64_t chunk = chunk0 + i;
+    words[i][t >> 5][t & 31] =
+        p < planes && chunk < n_chunks ? __ldg(f + p * wf + chunk * 32 + (t & 31)) : 0u;
+  }
+  __syncthreads();
+  // values 4t .. 4t+3 of a chunk: words (4t % 32) + j, bit 4t / 32
+  const int w0 = (4 * t) & 31;
+  const int shift = t >> 3;
+#pragma unroll
+  for (int i = 0; i < kMaskChunks; ++i) {
+    const int64_t chunk = chunk0 + i;
+    if (chunk >= n_chunks) break;
+    uint32_t packed = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t byte = 0;
+#pragma unroll
+      for (int q = 0; q < kPlanesPerPass; ++q)
+        byte |= ((words[i][q][w0 + j] >> shift) & 1u) << q;
+      packed |= byte << (8 * j);
+    }
+    mask[(g * n_cols + chunk * rt::kChunk) / 4 + t] = packed;
+  }
+}
+
+// Slots d .. d + kN - 1 of a row; -1 (dropped by the unsigned column
+// compare) past its end.  The slab is read once: evict-first loads keep it
+// from pushing the mask (and the values) out of L2.
+template <int kN, bool kVec>
+__device__ __forceinline__ void load_slots(const int* __restrict__ row, int d, int k,
+                                           int (&c)[kN]) {
+  if (kVec) {
+#pragma unroll
+    for (int v = 0; v < kN; v += 4) {
+      if (v == 0 || d + v < k) {
+        const int4 a = __ldcs(reinterpret_cast<const int4*>(row + d + v));
+        c[v] = a.x; c[v + 1] = a.y; c[v + 2] = a.z; c[v + 3] = a.w;
+      } else {
+        c[v] = c[v + 1] = c[v + 2] = c[v + 3] = -1;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) c[j] = d + j < k ? __ldcs(row + d + j) : -1;
+  }
+}
+
+// The planes of this pass whose frontier holds column c: the mask byte, or
+// (one plane, no mask) the bitmap bit.
+template <bool kMask>
+__device__ __forceinline__ uint32_t slot_planes(const uint8_t* __restrict__ mask,
+                                                const uint32_t* __restrict__ f, int c) {
+  if (kMask) return __ldg(mask + c);
+  return rt::bitmap_bit(f, c);
+}
+
+// Bit q: plane p0 + q reads this row (every plane of the pass in push; in
+// pull, those where the row is unreached).
+__device__ __forceinline__ uint32_t live_planes(const uint32_t* __restrict__ u, int64_t wu,
+                                                int p0, int np, int r) {
+  uint32_t live = 0;
+#pragma unroll
+  for (int q = 0; q < kPlanesPerPass; ++q)
+    if (q < np && (u == nullptr || rt::bitmap_bit(u + (p0 + q) * wu, r))) live |= 1u << q;
+  return live;
+}
+
+template <bool kVec, bool kMask>
+__global__ void __launch_bounds__(kThreads)
+    ell_min_planes_kernel(const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
+                          const uint32_t* __restrict__ f, const uint32_t* __restrict__ u,
+                          int* __restrict__ out, int n_rows, int k, int n_cols, int planes,
+                          int64_t wu) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
   const int* row = nbr + static_cast<int64_t>(r) * k;
   for (int p0 = 0; p0 < planes; p0 += kPlanesPerPass) {
     const int np = min(kPlanesPerPass, planes - p0);
-    const uint32_t* fp = f + static_cast<int64_t>(p0) * wf;
-    uint32_t probe = 0;  // bit q: plane p0 + q probes this row
+    const uint8_t* m = mask + static_cast<int64_t>(p0 / kPlanesPerPass) * n_cols;
+    const uint32_t live = live_planes(u, wu, p0, np, r);
     int best[kPlanesPerPass];
 #pragma unroll
-    for (int q = 0; q < kPlanesPerPass; ++q) {
-      best[q] = rt::kInf;
-      if (q < np && (!kPull || rt::bitmap_bit(u + static_cast<int64_t>(p0 + q) * wu, r)))
-        probe |= 1u << q;
-    }
-    for (int d = 0; probe != 0 && d < k; ++d) {
-      const int c = __ldg(row + d);
-      if (static_cast<unsigned>(c) >= static_cast<unsigned>(n_cols)) continue;
+    for (int q = 0; q < kPlanesPerPass; ++q) best[q] = rt::kInf;
+    for (int d = 0; live != 0 && d < k; d += kEllSlots) {
+      int c[kEllSlots];
+      load_slots<kEllSlots, kVec>(row, d, k, c);
+      // every probe of the step in flight at once
+      uint32_t hit[kEllSlots];
 #pragma unroll
-      for (int q = 0; q < kPlanesPerPass; ++q) {
-        if (((probe >> q) & 1u) && c < best[q] && rt::bitmap_bit(fp + q * wf, c))
-          best[q] = c;
+      for (int j = 0; j < kEllSlots; ++j)
+        hit[j] = static_cast<unsigned>(c[j]) < static_cast<unsigned>(n_cols)
+                     ? slot_planes<kMask>(m, f, c[j]) & live
+                     : 0u;
+#pragma unroll
+      for (int j = 0; j < kEllSlots; ++j) {
+        if (hit[j] == 0) continue;
+#pragma unroll
+        for (int q = 0; q < kPlanesPerPass; ++q)
+          if ((hit[j] >> q) & 1u) best[q] = min(best[q], c[j]);
       }
     }
 #pragma unroll
     for (int q = 0; q < kPlanesPerPass; ++q)
-      if (q < np) out[static_cast<int64_t>(p0 + q) * n_rows + r] = best[q];
+      if (q < np) __stcs(out + static_cast<int64_t>(p0 + q) * n_rows + r, best[q]);
   }
 }
 
-template <bool kPull>
-int launch_ell(const void* nbr, const void* f, const void* u, void* out, int n_rows, int k,
-               int n_cols, int planes, long long wf, long long wu, void* stream) {
-  const unsigned blocks = static_cast<unsigned>((n_rows + kThreads - 1) / kThreads);
-  ell_min_planes_kernel<kPull><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(nbr), static_cast<const uint32_t*>(f),
-      static_cast<const uint32_t*>(u), static_cast<int*>(out), n_rows, k, n_cols, planes,
-      wf, wu);
-  return rt::launch_status();
+struct EllArgs {
+  const int* nbr;
+  const uint8_t* mask;
+  const uint32_t* f;
+  const uint32_t* u;
+  int* out;
+  int n_rows, k, n_cols, planes;
+  int64_t wu;
+};
+
+template <bool kVec, bool kMask>
+void launch_ell(const EllArgs& a, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((a.n_rows + kThreads - 1) / kThreads);
+  ell_min_planes_kernel<kVec, kMask><<<blocks, kThreads, 0, s>>>(
+      a.nbr, a.mask, a.f, a.u, a.out, a.n_rows, a.k, a.n_cols, a.planes, a.wu);
 }
 
 }  // namespace
 
-// nbr: (n_rows, k) int32; f: (planes, wf) uint32; out: (planes, n_rows) int32.
-RT_API int rt_spmv_min_planes(const void* nbr, const void* f, void* out, int n_rows, int k,
-                              int n_cols, int planes, long long wf, void* stream) {
-  return launch_ell<false>(nbr, f, nullptr, out, n_rows, k, n_cols, planes, wf, 0, stream);
+// f: (planes, wf) uint32 vertical words, n_cols = 32 * wf a multiple of
+// 1024; mask: (ceil(planes / 8), n_cols) uint8.
+RT_API int rt_frontier_mask(const void* f, void* mask, long long n_cols, int planes,
+                            long long wf, void* stream) {
+  const dim3 grid(static_cast<unsigned>((n_cols / rt::kChunk + kMaskChunks - 1) / kMaskChunks),
+                  static_cast<unsigned>((planes + kPlanesPerPass - 1) / kPlanesPerPass));
+  frontier_mask_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(f), static_cast<uint32_t*>(mask), planes, wf, n_cols);
+  return rt::launch_status();
 }
 
-// As above, plus u: (planes, wu) uint32 unreached-row bitmaps.
-RT_API int rt_spmv_pull_min_planes(const void* nbr, const void* f, const void* u, void* out,
-                                   int n_rows, int k, int n_cols, int planes, long long wf,
-                                   long long wu, void* stream) {
-  return launch_ell<true>(nbr, f, u, out, n_rows, k, n_cols, planes, wf, wu, stream);
+// nbr: (n_rows, k) int32; mask: the frontier mask of f, or null when
+// planes == 1 (the kernel probes f: (1, n_cols/32) uint32); u: (planes, wu)
+// uint32 unreached-row bitmaps, or null (push); out: (planes, n_rows) int32.
+// vec != 0: k % 4 == 0 and nbr 16-byte aligned.
+RT_API int rt_spmv_min_planes(const void* nbr, const void* mask, const void* f, const void* u,
+                              void* out, int n_rows, int k, int n_cols, int planes,
+                              long long wu, int vec, void* stream) {
+  // (with no columns no slot is probed, and the empty mask may be null)
+  if (mask == nullptr && planes != 1 && n_cols > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EllArgs a{static_cast<const int*>(nbr), static_cast<const uint8_t*>(mask),
+                  static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(u),
+                  static_cast<int*>(out), n_rows, k, n_cols, planes, wu};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec && mask != nullptr)
+    launch_ell<true, true>(a, s);
+  else if (vec)
+    launch_ell<true, false>(a, s);
+  else if (mask != nullptr)
+    launch_ell<false, true>(a, s);
+  else
+    launch_ell<false, false>(a, s);
+  return rt::launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -118,19 +260,39 @@ RT_API int rt_spmv_pull_min_planes(const void* nbr, const void* f, const void* u
 // bit in plane p's unreached bitmap is clear gives INF.
 //
 // Bound: bytes.  The slab once (R*K*4 bytes), each plane's frontier
-// bitmap once (n_cols/8 bytes), each plane's value row once (n_cols*4
-// bytes, gathered), the unreached bitmaps once, the (B, R) output once.
+// bitmap once (n_cols/8 bytes), the x[p, c] the hits need once (4 bytes
+// each), the unreached bitmaps once, the (B, R) output once.
 //
-// Design: one thread per row, as the ELL kernels above.  The TPU kernel
-// streams a (1024, 8) slab tile per plane and keeps the plane's value
-// vector resident in VMEM (spmv.py:155-156); at scale 22 one plane's values
-// are 16 MB, past shared memory, so here x is gathered through the
-// read-only path and L2.  The thread loads each of its K slots once per
-// pass of up to kPlanesPerPass planes, derives the edge weight once per
-// slot (it depends on the pair, not the plane), and keeps each plane's min
-// in registers.  There is no early exit: a value minimum is not monotone
-// in the column id, so every hit slot is probed.  A pull row reached in
-// every plane of the pass writes INF and reads neither slab nor values.
+// What held the first design at 15.3x that bound: as the ELL kernel above,
+// every real slot probed all 8 planes' bitmaps, with no early exit (a value
+// minimum is not monotone in the column id); and every plane hit gathered
+// x[q, c] from the (B, n_x) int32 array, 134 MB at scale 22, past the 50 MB
+// L2: one random 32-byte sector for 4 bytes.  In stages at the densest SSSP
+// level of scale 22 (throw-away stage builds, PERF.md): slab loads and
+// stores 94 us, the probes +252 us, the weights and gathers +521 us.
+//
+// Design: the ELL kernel's, with the value gather, 8 slots a step (two
+// int4) so all of a K = 8 row's value loads are in flight at once.  One mask
+// byte per real slot ANDed with the live planes; a zero byte skips the slot
+// before the edge weight is derived (once per hit slot: it depends on the
+// pair, not the plane) and before any value is read.  The values' layout:
+// - push at B > 1 (kInterleaved): interleave_values_kernel first copies
+//   the frontier's columns into a (ceil(B/8), n_x, 8) int32 copy, and a hit
+//   slot reads the one 32-byte sector holding all 8 planes' values of its
+//   column (two int4 loads).  At the densest SSSP level 4.06 M of the 4.07 M
+//   real slots hit, in 5.5 planes each: as they are, the values cost 22.2 M
+//   random sectors (710 MB); copied, 4.06 M (130 MB) plus the copy's own
+//   streams.  The copy writes only the frontier's columns, so at a sparse
+//   level it costs the mask's stream and little else.  Summed over the 12
+//   levels of an SSSP batch the copy wins; at the levels where it loses
+//   (few planes a hit column) it costs up to 60 us, and neither the
+//   frontier's bit count nor a per-column choice picks the better layout
+//   for less (PERF.md; chip_smoke.py times both layouts at every level).
+// - pull: only the planes where the row is unreached gather, and the copy
+//   would not pay (210 us against 208 + 93 us at the densest level): x is
+//   read as it is.  So is the one plane of B = 1 (kMask = false).
+// A pull row reached in every plane of the pass writes INF and reads neither
+// slab nor values.
 // The hash is the uint32 avalanche of repro/core/algebra.py:edge_weight:
 //   h = (a * 2654435761) ^ (b * 40503 + 2654435769); h ^= h >> 16;
 //   w = h % max_weight + 1,  a = min(row, col), b = max(row, col).
@@ -145,73 +307,191 @@ __device__ __forceinline__ int edge_weight(uint32_t row, uint32_t col, uint32_t 
   return static_cast<int>(h % max_weight) + 1;
 }
 
-template <bool kMinPlus>
-__global__ void gspmm_min_planes_kernel(const int* __restrict__ nbr,
-                                        const uint32_t* __restrict__ f,
-                                        const int* __restrict__ x,
-                                        const uint32_t* __restrict__ u,
-                                        int* __restrict__ out, int n_rows, int k, int n_cols,
-                                        int n_x, int planes, int64_t wf, int64_t wu,
-                                        int row_base, int col_base, int max_weight) {
+template <bool kMinPlus, bool kVec, bool kMask, bool kInterleaved>
+__global__ void __launch_bounds__(kThreads)
+    gspmm_min_planes_kernel(const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
+                            const uint32_t* __restrict__ f, const int* __restrict__ x,
+                            const int4* __restrict__ xi, const uint32_t* __restrict__ u,
+                            int* __restrict__ out, int n_rows, int k, int n_cols, int n_x,
+                            int planes, int64_t wu, int row_base, int col_base,
+                            int max_weight) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
   const int* row = nbr + static_cast<int64_t>(r) * k;
   for (int p0 = 0; p0 < planes; p0 += kPlanesPerPass) {
     const int np = min(kPlanesPerPass, planes - p0);
-    const uint32_t* fp = f + static_cast<int64_t>(p0) * wf;
-    const int* xp = x + static_cast<int64_t>(p0) * n_x;
-    uint32_t probe = 0;  // bit q: plane p0 + q probes this row
+    const uint8_t* m = mask + static_cast<int64_t>(p0 / kPlanesPerPass) * n_cols;
+    // kInterleaved: xi is the (groups, n_x, 8) copy, one int4 pair a column
+    const int4* xg = xi + static_cast<int64_t>(p0 / kPlanesPerPass) * n_x * 2;
+    const uint32_t live = live_planes(u, wu, p0, np, r);
     int best[kPlanesPerPass];
 #pragma unroll
-    for (int q = 0; q < kPlanesPerPass; ++q) {
-      best[q] = rt::kInf;
-      if (q < np && (u == nullptr || rt::bitmap_bit(u + static_cast<int64_t>(p0 + q) * wu, r)))
-        probe |= 1u << q;
-    }
-    for (int d = 0; probe != 0 && d < k; ++d) {
-      const int c = __ldg(row + d);
-      if (static_cast<unsigned>(c) >= static_cast<unsigned>(n_cols)) continue;
-      int w = 0;
-      if (kMinPlus)
-        w = edge_weight(static_cast<uint32_t>(row_base + r), static_cast<uint32_t>(col_base + c),
-                        static_cast<uint32_t>(max_weight));
+    for (int q = 0; q < kPlanesPerPass; ++q) best[q] = rt::kInf;
+    for (int d = 0; live != 0 && d < k; d += kGatherSlots) {
+      int c[kGatherSlots];
+      load_slots<kGatherSlots, kVec>(row, d, k, c);
+      uint32_t hit[kGatherSlots];
 #pragma unroll
-      for (int q = 0; q < kPlanesPerPass; ++q) {
-        if (!((probe >> q) & 1u) || !rt::bitmap_bit(fp + q * wf, c)) continue;
-        int v = c < n_x ? __ldg(xp + static_cast<int64_t>(q) * n_x + c) : rt::kInf;
-        if (kMinPlus) v = v >= rt::kInf - w ? rt::kInf : v + w;
-        best[q] = min(best[q], v);
+      for (int j = 0; j < kGatherSlots; ++j)
+        hit[j] = static_cast<unsigned>(c[j]) < static_cast<unsigned>(n_cols)
+                     ? slot_planes<kMask>(m, f, c[j]) & live
+                     : 0u;
+#pragma unroll
+      for (int j = 0; j < kGatherSlots; ++j) {
+        if (hit[j] == 0) continue;
+        int w = 0;
+        if (kMinPlus)
+          w = edge_weight(static_cast<uint32_t>(row_base + r),
+                          static_cast<uint32_t>(col_base + c[j]),
+                          static_cast<uint32_t>(max_weight));
+        int v[kPlanesPerPass];
+        if (c[j] >= n_x) {
+#pragma unroll
+          for (int q = 0; q < kPlanesPerPass; ++q) v[q] = rt::kInf;
+        } else if (kInterleaved) {
+          const int4 lo = __ldg(xg + 2 * static_cast<int64_t>(c[j]));
+          const int4 hi = __ldg(xg + 2 * static_cast<int64_t>(c[j]) + 1);
+          v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+          v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < kPlanesPerPass; ++q)
+            v[q] = (hit[j] >> q) & 1u ? __ldg(x + static_cast<int64_t>(p0 + q) * n_x + c[j])
+                                      : rt::kInf;
+        }
+#pragma unroll
+        for (int q = 0; q < kPlanesPerPass; ++q) {
+          if (!((hit[j] >> q) & 1u)) continue;
+          int vq = v[q];
+          if (kMinPlus) vq = vq >= rt::kInf - w ? rt::kInf : vq + w;
+          best[q] = min(best[q], vq);
+        }
       }
     }
 #pragma unroll
     for (int q = 0; q < kPlanesPerPass; ++q)
-      if (q < np) out[static_cast<int64_t>(p0 + q) * n_rows + r] = best[q];
+      if (q < np) __stcs(out + static_cast<int64_t>(p0 + q) * n_rows + r, best[q]);
   }
+}
+
+// x: (planes, n_x) int32 and the frontier mask (groups, n_cols) -> xi:
+// (groups, n_x, 8) int32 viewed as int4 pairs.  For each column c < n_x
+// whose mask byte mask[g, c] is nonzero, xi[g, c, q] = x[8g + q, c] where
+// bit q is set, INF where it is clear; no other column is written, and the
+// gather reads no other (it reads a column's pair only when its byte hits,
+// and uses only the set bits).  A block takes 2048 columns of
+// a group, thread t the 8 columns c0 + t + 256 j: the byte loads, the value
+// loads of a plane and the int4 stores of a warp each cover consecutive
+// columns, and a thread's loads are independent of each other, so a sparse
+// copy costs the mask's stream and little else (no shared memory, no
+// barrier).
+__global__ void __launch_bounds__(kTileThreads)
+    interleave_values_kernel(const int* __restrict__ x, const uint8_t* __restrict__ mask,
+                             int4* __restrict__ xi, int n_x, int n_cols) {
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kInterleaveCols * kTileThreads;
+  const int g = blockIdx.y;
+  const int t = threadIdx.x;
+  const int n = min(n_x, n_cols);  // the columns with both a value and a byte
+  uint32_t bits[kInterleaveCols];
+#pragma unroll
+  for (int j = 0; j < kInterleaveCols; ++j) {
+    const int64_t c = c0 + j * kTileThreads + t;
+    bits[j] = c < n ? __ldg(mask + static_cast<int64_t>(g) * n_cols + c) : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < kInterleaveCols; ++j) {
+    if (bits[j] == 0) continue;
+    const int64_t c = c0 + j * kTileThreads + t;
+    int v[kPlanesPerPass];
+#pragma unroll
+    for (int q = 0; q < kPlanesPerPass; ++q)
+      v[q] = (bits[j] >> q) & 1u
+                 ? __ldcs(x + static_cast<int64_t>(g * kPlanesPerPass + q) * n_x + c)
+                 : rt::kInf;
+    int4* dst = xi + (static_cast<int64_t>(g) * n_x + c) * 2;
+    dst[0] = make_int4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_int4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+struct GspmmArgs {
+  const int* nbr;
+  const uint8_t* mask;
+  const uint32_t* f;
+  const int* x;
+  const int4* xi;
+  const uint32_t* u;
+  int* out;
+  int n_rows, k, n_cols, n_x, planes;
+  int64_t wu;
+  int row_base, col_base, max_weight;
+};
+
+template <bool kMinPlus, bool kVec, bool kMask, bool kInterleaved>
+void launch_gspmm(const GspmmArgs& a, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((a.n_rows + kThreads - 1) / kThreads);
+  gspmm_min_planes_kernel<kMinPlus, kVec, kMask, kInterleaved><<<blocks, kThreads, 0, s>>>(
+      a.nbr, a.mask, a.f, a.x, a.xi, a.u, a.out, a.n_rows, a.k, a.n_cols, a.n_x, a.planes,
+      a.wu, a.row_base, a.col_base, a.max_weight);
+}
+
+template <bool kMinPlus, bool kVec>
+void launch_gspmm(const GspmmArgs& a, cudaStream_t s) {
+  if (a.mask == nullptr)
+    launch_gspmm<kMinPlus, kVec, false, false>(a, s);
+  else if (a.xi != nullptr)
+    launch_gspmm<kMinPlus, kVec, true, true>(a, s);
+  else
+    launch_gspmm<kMinPlus, kVec, true, false>(a, s);
+}
+
+template <bool kMinPlus>
+void launch_gspmm(const GspmmArgs& a, bool vec, cudaStream_t s) {
+  if (vec)
+    launch_gspmm<kMinPlus, true>(a, s);
+  else
+    launch_gspmm<kMinPlus, false>(a, s);
 }
 
 }  // namespace
 
-// nbr: (n_rows, k) int32; f: (planes, wf) uint32; x: (planes, n_x) int32;
-// u: (planes, wu) uint32 unreached bitmaps or null (push); out: (planes,
+// x: (planes, n_x) int32, mask: (ceil(planes / 8), n_cols) uint8 -> xi:
+// (ceil(planes / 8), n_x, 8) int32, written for the columns whose byte is
+// nonzero, the others left as they were.
+RT_API int rt_interleave_values(const void* x, const void* mask, void* xi, int planes,
+                                int n_x, int n_cols, void* stream) {
+  const int n = n_x < n_cols ? n_x : n_cols;
+  if (n <= 0) return rt::launch_status();  // no column to write
+  constexpr int kCols = kInterleaveCols * kTileThreads;
+  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
+                  static_cast<unsigned>((planes + kPlanesPerPass - 1) / kPlanesPerPass));
+  interleave_values_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), static_cast<const uint8_t*>(mask), static_cast<int4*>(xi),
+      n_x, n_cols);
+  return rt::launch_status();
+}
+
+// nbr: (n_rows, k) int32; mask / f as for rt_spmv_min_planes; x: the
+// (planes, n_x) int32 values; xi: null, or (with a mask) their
+// rt_interleave_values copy, which the kernel then reads instead; u:
+// (planes, wu) uint32 unreached bitmaps or null (push); out: (planes,
 // n_rows) int32.  minplus != 0 adds the hashed edge weight.
-RT_API int rt_gspmm_min_planes(const void* nbr, const void* f, const void* x, const void* u,
-                               void* out, int n_rows, int k, int n_cols, int n_x, int planes,
-                               long long wf, long long wu, int row_base, int col_base,
-                               int minplus, int max_weight, void* stream) {
-  const unsigned blocks = static_cast<unsigned>((n_rows + kThreads - 1) / kThreads);
+RT_API int rt_gspmm_min_planes(const void* nbr, const void* mask, const void* f, const void* x,
+                               const void* xi, const void* u, void* out, int n_rows, int k,
+                               int n_cols, int n_x, int planes, long long wu, int row_base,
+                               int col_base, int minplus, int max_weight, int vec,
+                               void* stream) {
+  if (mask == nullptr && n_cols > 0 && (planes != 1 || xi != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GspmmArgs a{static_cast<const int*>(nbr), static_cast<const uint8_t*>(mask),
+                    static_cast<const uint32_t*>(f), static_cast<const int*>(x),
+                    static_cast<const int4*>(xi), static_cast<const uint32_t*>(u),
+                    static_cast<int*>(out), n_rows, k, n_cols, n_x, planes, wu, row_base,
+                    col_base, max_weight};
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* nbr_p = static_cast<const int*>(nbr);
-  const auto* f_p = static_cast<const uint32_t*>(f);
-  const auto* x_p = static_cast<const int*>(x);
-  const auto* u_p = static_cast<const uint32_t*>(u);
-  auto* out_p = static_cast<int*>(out);
   if (minplus)
-    gspmm_min_planes_kernel<true><<<blocks, kThreads, 0, s>>>(
-        nbr_p, f_p, x_p, u_p, out_p, n_rows, k, n_cols, n_x, planes, wf, wu, row_base,
-        col_base, max_weight);
+    launch_gspmm<true>(a, vec != 0, s);
   else
-    gspmm_min_planes_kernel<false><<<blocks, kThreads, 0, s>>>(
-        nbr_p, f_p, x_p, u_p, out_p, n_rows, k, n_cols, n_x, planes, wf, wu, row_base,
-        col_base, max_weight);
+    launch_gspmm<false>(a, vec != 0, s);
   return rt::launch_status();
 }

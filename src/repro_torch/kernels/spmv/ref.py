@@ -6,7 +6,10 @@
 ``nbr`` is an (n_rows, K) int32 destination-major neighbor slab padded
 with a sentinel >= the real column count, whose bit is never set.  Frontier
 planes are (B, n_cols/32) int32 words in the vertical width-1 layout of
-:mod:`repro_torch.kernels.bitpack`.  The pull direction adds a (B, W)
+:mod:`repro_torch.kernels.bitpack`; :func:`frontier_mask` is the plain
+version of the kernel that interleaves them into one byte per column, and
+:func:`interleave_values` of the one that interleaves the value gather's
+planes.  The pull direction adds a (B, W)
 unreached-row bitmap: rows whose bit is clear give INF.
 
 :func:`gspmm` is the op x reduce form behind the frontier algebras' value
@@ -39,6 +42,33 @@ def frontier_bit(words: torch.Tensor, idx: torch.Tensor, n_cols: int) -> torch.T
     w = w.reshape(*words.shape[:-1], *idx.shape)
     bit = (w >> (within // 32)) & 1  # arithmetic >> is harmless under & 1
     return (bit == 1) & (idx < n_cols)
+
+
+def frontier_mask(f_words: torch.Tensor) -> torch.Tensor:
+    """Plane-interleaved mask of (B, W) frontier words (W a multiple of 32):
+    (ceil(B/8), 32*W) uint8 whose byte [g, c] holds plane 8g + q's bit c at
+    bit q (planes past B read as clear)."""
+    planes, wf = f_words.shape
+    n_cols = 32 * wf
+    cols = torch.arange(n_cols, dtype=torch.int32, device=f_words.device)
+    bits = frontier_bit(f_words, cols, n_cols).to(torch.int32)  # (B, n_cols)
+    bits = torch.nn.functional.pad(bits, (0, 0, 0, (-planes) % 8))
+    weights = (1 << torch.arange(8, dtype=torch.int32, device=f_words.device))[:, None]
+    return (bits.view(-1, 8, n_cols) * weights).sum(dim=1).to(torch.uint8)
+
+
+def interleave_values(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, n_x) values and their frontier mask (ceil(B/8), n_cols) ->
+    (ceil(B/8), n_x, 8): ``[g, c, q]`` is plane 8g + q's value of column c
+    where bit q of ``mask[g, c]`` is set, INF elsewhere."""
+    planes, n_x = x.shape
+    groups, n_cols = mask.shape
+    m = mask[:, :n_x].to(torch.int32)
+    m = torch.nn.functional.pad(m, (0, n_x - m.shape[1]))  # columns past n_cols: clear
+    bits = (m[:, None, :] >> torch.arange(8, device=x.device)[None, :, None]) & 1
+    padded = torch.nn.functional.pad(x, (0, 0, 0, 8 * groups - planes), value=INF)
+    out = torch.where(bits.view(8 * groups, n_x) == 1, padded, INF)
+    return out.view(groups, 8, n_x).transpose(1, 2).contiguous()
 
 
 def spmv_min_planes(nbr: torch.Tensor, f_words: torch.Tensor, n_cols: int) -> torch.Tensor:

@@ -37,12 +37,70 @@ def test_kernels_match_plain_on_card(cuda):
     kernels.reset_launches()
     chip_smoke.check_ragged()
     for name in ("pack", "unpack", "popcount_planes", "popcount_blocks", "popcount_words",
-                 "spmv_min_planes", "spmv_pull_min_planes", "spmv_min", "spmv_pull_min"):
+                 "frontier_mask", "spmv_min_planes", "spmv_pull_min_planes", "spmv_min",
+                 "spmv_pull_min", "gspmm_min_planes"):
         assert kernels.LAUNCHES[name] > 0, name
     nbr = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
     f = bp_ops.pack_planes(torch.ones((1, 4), dtype=torch.bool, device=cuda), 1)
     with pytest.raises(ValueError):  # a mixed-device call raises, it does not fall back
         sp_ops.spmv_min_planes(nbr.cpu(), f, bp_ref.chunk_pad(4))
+
+
+@pytest.mark.gpu
+def test_spmv_cases_match_plain_on_card(cuda):
+    """The frontier mask, ELL push/pull and value-gather kernels against
+    their plain versions, exactly, on every ``chip_smoke.SPMV_CASES`` input
+    (1 to 17 planes, K from 1 to 64, unsorted and all-sentinel rows, empty
+    and full frontiers, every row reached, offset slab views); the cases
+    take both slab loads (16-byte vectors and scalars); a B-plane call
+    launches the mask kernel and then its ELL kernel, a one-plane call the
+    ELL kernel alone."""
+    import chip_smoke
+
+    chip_smoke.check_spmv_cases(cuda)
+    vec = set()
+    for i in range(len(chip_smoke.SPMV_CASES)):
+        nbr = chip_smoke.spmv_case_tensors(chip_smoke.spmv_case(i), cuda)[0]
+        vec.add(sp_ops._vec(nbr))
+    assert vec == {0, 1}
+    labels = [c[0] for c in chip_smoke.SPMV_CASES]
+    nbr, f, u, _, n_cols = chip_smoke.spmv_case_tensors(
+        chip_smoke.spmv_case(labels.index("B=9 K=8")), cuda)
+    for call, name in ((lambda: sp_ops.spmv_min_planes(nbr, f, n_cols), "spmv_min_planes"),
+                       (lambda: sp_ops.spmv_pull_min_planes(nbr, f, u, n_cols),
+                        "spmv_pull_min_planes")):
+        kernels.reset_launches()
+        call()
+        assert dict(kernels.LAUNCHES) == {"frontier_mask": 1, name: 1}
+    kernels.reset_launches()
+    sp_ops.spmv_min(nbr, f[0], n_cols)
+    sp_ops.spmv_pull_min(nbr, f[0], u[0], n_cols)
+    assert dict(kernels.LAUNCHES) == {"spmv_min": 1, "spmv_pull_min": 1}
+
+
+@pytest.mark.gpu
+def test_gspmm_value_layouts_agree_on_card(cuda):
+    """The value gather reads the same answer from both value layouts, on
+    every ``chip_smoke.SPMV_CASES`` input with more than one plane: push
+    with the plane-interleaved copy (the wrapper's choice, whose helper
+    leaves the columns with a zero mask byte unwritten) and with the values
+    as they are, for both ops and nonzero bases."""
+    import chip_smoke
+    from repro_torch.kernels.spmv import ref as sp_ref
+
+    for i in range(len(chip_smoke.SPMV_CASES)):
+        case = chip_smoke.spmv_case(i)
+        nbr, f, _, x, n_cols = chip_smoke.spmv_case_tensors(case, cuda)
+        if f.shape[0] == 1:
+            continue
+        for op in ("copy", "minplus"):
+            base = chip_smoke.SPMV_BASES[1]
+            mw = chip_smoke.SPMV_MAX_WEIGHT
+            want = sp_ref.gspmm_min_planes(nbr, f, x, n_cols, op, mw, *base)
+            for interleaved in (True, False):
+                got = sp_ops._gather(nbr, f, x, None, n_cols, op, mw, *base,
+                                     interleaved=interleaved)
+                assert torch.equal(got, want), (case["label"], op, interleaved)
 
 
 @pytest.mark.gpu

@@ -8,6 +8,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
+
 from repro.kernels.bitpack import bitpack as jbitpack
 from repro.kernels.bitpack import ops as jbp_ops
 from repro.kernels.bitpack import ref as jbp_ref
@@ -139,6 +141,64 @@ def test_frontier_bit_matches_jax():
     expect = np.asarray(jsp_ref.frontier_bit(jnp.asarray(words), jnp.asarray(idx), 3072))
     got = sp_ref.frontier_bit(_i32(words), torch.from_numpy(idx), 3072)
     np.testing.assert_array_equal(got.numpy(), expect)
+
+
+@pytest.mark.parametrize("planes", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("n_real", [1000, 5000])
+def test_frontier_mask_matches_jax_bitmap(planes, n_real):
+    """The plain frontier mask (what the ELL kernels probe on the card) holds
+    plane 8g + q's bit c at bit q of byte [g, c], as the JAX package reads
+    its packed frontier (``frontier_bit``), across mask-byte boundaries and
+    ragged column counts (bits past n_real clear)."""
+    from repro.kernels.spmv import ref as jsp_ref
+
+    rng = np.random.default_rng(planes * 7919 + n_real)
+    n_cols = n_real + (-n_real) % 1024
+    bits = np.zeros((planes, n_cols), np.uint32)
+    bits[:, :n_real] = rng.random((planes, n_real)) < 0.3
+    words = np.asarray(jbp_ops.pack_planes(jnp.asarray(bits), 1))
+    mask = sp_ops.frontier_mask(_i32(words)).numpy()
+    assert mask.shape == (-(-planes // 8), n_cols) and mask.dtype == np.uint8
+    cols = jnp.arange(n_cols, dtype=jnp.int32)
+    for p in range(planes):
+        want = np.asarray(jsp_ref.frontier_bit(jnp.asarray(words[p]), cols, n_real))
+        np.testing.assert_array_equal((mask[p // 8] >> (p % 8)) & 1, want.astype(np.uint8))
+    if planes % 8:  # the last byte's unused bits stay clear
+        assert not (mask[-1] >> (planes % 8)).any()
+
+
+@pytest.mark.parametrize("i", range(len(chip_smoke.SPMV_CASES)),
+                         ids=[c[0] for c in chip_smoke.SPMV_CASES])
+def test_spmv_cases_match_jax(i):
+    """The SpMV wrappers' plain versions against JAX's ops on the inputs the
+    smoke script holds the CUDA kernels to (``chip_smoke.SPMV_CASES``: 1 to
+    17 planes, K from 1 to 64, unsorted and all-sentinel rows, empty and
+    full frontiers, every row reached, slabs as offset views): push, pull,
+    and the value gather for both ops with nonzero bases, push and pull."""
+    from repro.core import algebra as jalgebra
+    from repro_torch.core import algebra
+
+    case = chip_smoke.spmv_case(i)
+    nbr, f, u, x, n_cols = chip_smoke.spmv_case_tensors(case, "cpu")
+    j_nbr, j_f, j_u, j_x = (jnp.asarray(a) for a in (case["nbr"], _u32(f), _u32(u), case["x"]))
+    np.testing.assert_array_equal(sp_ops.spmv_min_planes(nbr, f, n_cols).numpy(),
+                                  np.asarray(jsp_ops.spmv_min_planes(j_nbr, j_f, n_cols)))
+    np.testing.assert_array_equal(
+        sp_ops.spmv_pull_min_planes(nbr, f, u, n_cols).numpy(),
+        np.asarray(jsp_ops.spmv_pull_min_planes(j_nbr, j_f, j_u, n_cols)))
+    # x has n_x < n_cols columns: the kernel's semantics read INF past n_x,
+    # as the reference's kernel path pads (its plain path would clamp)
+    j_x = jnp.pad(j_x, ((0, 0), (0, n_cols - x.shape[1])), constant_values=chip_smoke.INF)
+    base = chip_smoke.SPMV_BASES[1]
+    mw = chip_smoke.SPMV_MAX_WEIGHT
+    for alg, jalg in ((algebra.SsspAlgebra(max_weight=mw), jalgebra.SsspAlgebra(max_weight=mw)),
+                      (algebra.CcAlgebra(), jalgebra.CcAlgebra())):
+        for uw, j_uw in ((None, None), (u, j_u)):
+            want = jsp_ops.gspmm_planes(j_nbr, j_f, j_x, n_cols, jalg, row_base=base[0],
+                                        col_base=base[1], u_words=j_uw)
+            got = sp_ops.gspmm_planes(nbr, f, x, n_cols, alg, row_base=base[0],
+                                      col_base=base[1], u_words=uw)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_wrappers_refuse_other_devices():
