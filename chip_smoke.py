@@ -8,12 +8,16 @@ both, and the 2D GNN forward with int8 payloads:
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
 3. holds every kernel against its plain PyTorch version on the card, for
-   exact equality, at ragged small shapes (the SpMV kernels on SPMV_CASES:
-   1 to 17 planes, K from 1 to 64, unsorted and all-sentinel rows, empty
-   and full frontiers, offset slab views) and at the single-device path's
-   shapes (B=8 planes of the scale-S graph, its hybrid slab, a real
-   frontier and unreached plane), and times kernel (CUDA events, and the
-   profiler's device time) and plain version;
+   exact equality, at ragged small shapes (pack and popcount_planes on
+   inputs that take both their 16-byte and scalar routes: n = 0..15 mod
+   16, w = 0..3 mod 4, w = 0, views 1 byte or 1 word into their storage,
+   all-ones words, 1 to 17 planes, a uint8 byte of 2; the SpMV
+   kernels on SPMV_CASES: 1 to 17 planes, K from 1 to 64, unsorted and
+   all-sentinel rows, empty and full frontiers, offset slab views) and at
+   the single-device path's shapes (B=8 planes of the scale-S graph, its
+   hybrid slab, a real frontier and unreached plane), and times kernel
+   (CUDA events, and the profiler's device time) and plain version
+   (popcount_planes also at CC's single plane);
 4. runs the Graph500 harness (scale S, edgefactor 16, seed 1, 64 valid
    roots in batches of 8, ``direction_opt`` + ``hybrid``, every tree
    validated) with the launch counts zeroed just before and read just
@@ -205,25 +209,96 @@ def _min_algebra(op: str, max_weight: int):
     return algebra.SsspAlgebra(max_weight=max_weight) if op == "minplus" else algebra.CcAlgebra()
 
 
-def check_ragged() -> None:
-    """Exact kernel-vs-plain agreement on small ragged shapes (the SpMV
-    kernels on SPMV_CASES)."""
+def offset_view(t, elems: int = 1):
+    """A contiguous copy of ``t`` that starts ``elems`` elements into its
+    storage (so its base is not 16-byte aligned)."""
     import torch
+
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    buf[elems:] = t.reshape(-1)
+    return buf[elems:].view(t.shape)
+
+
+def pack_ragged_inputs(gen, dev) -> list:
+    """(label, values, b) inputs that take both routes of the pack kernel:
+    bool and uint8 planes with n = 0..15 (mod 16), one plane view 1 byte
+    into its storage, all-ones planes, uint8 planes holding 2 (a nonzero
+    byte packs as 1), uint8 values at b = 4 (cast to int32 by the wrapper);
+    int32 values at every width with n = 0..3 (mod 4) and a view one word
+    in; B in {1, 3, 8, 17}."""
+    import torch
+    from repro_torch.kernels.bitpack import ref as bp_ref
+
+    cases = []
+    for planes in (1, 3, 8, 17):
+        for n in (16, 1024, 4096, 9216, *(2048 + r for r in range(1, 16)), 1, 1000, 5000):
+            bits = torch.rand((planes, n), generator=gen, device=dev) < 0.3
+            cases += [(f"bool B={planes} n={n}", bits, 1),
+                      (f"uint8 B={planes} n={n}", bits.to(torch.uint8), 1)]
+        bits = torch.rand((planes, 4111), generator=gen, device=dev) < 0.3
+        cases += [(f"bool B={planes} 1 byte in", offset_view(bits), 1),
+                  (f"bool B={planes} 1 byte in, n % 16 == 0", offset_view(bits[:, :4096]), 1),
+                  (f"all-ones B={planes}", torch.ones((planes, 3088), dtype=torch.bool,
+                                                      device=dev), 1),
+                  (f"uint8 of 2 B={planes}", 2 * bits.to(torch.uint8), 1),
+                  (f"uint8 of 2 B={planes}, n % 16 == 0", 2 * bits[:, :4096].to(torch.uint8), 1),
+                  (f"uint8 b=4 B={planes}", torch.randint(0, 16, (planes, 1000), generator=gen,
+                                                          device=dev, dtype=torch.uint8), 4)]
+        for b in bp_ref.B_CLASSES:
+            for n in (4, 1024, 4100, 1001, 1022, 1023, 1025):
+                vals = torch.randint(0, 2**b if b < 31 else 2**31 - 1, (planes, n),
+                                     generator=gen, device=dev, dtype=torch.int64)
+                cases.append((f"int32 b={b} B={planes} n={n}", vals.to(torch.int32), b))
+            vals = torch.randint(0, 2**b if b < 31 else 2**31 - 1, (planes, 4096),
+                                 generator=gen, device=dev, dtype=torch.int64)
+            cases.append((f"int32 b={b} B={planes} 1 word in",
+                          offset_view(vals.to(torch.int32)), b))
+    return cases
+
+
+def popcount_ragged_inputs(gen, dev) -> list:
+    """(label, words) inputs that take both routes of popcount_planes: w =
+    0..3 (mod 4), w = 0, views one word into their storage, all-ones words
+    (a plane's count reaches 32 w), B in {1, 3, 8, 17}."""
+    import torch
+
+    cases = []
+    for planes in (1, 3, 8, 17):
+        for w in (0, 1, 7, 1024, 1500, 1501, 1502, 1503, 32768, 131072):
+            words = torch.randint(-2**31, 2**31 - 1, (planes, w), generator=gen, device=dev,
+                                  dtype=torch.int64).to(torch.int32)
+            cases.append((f"B={planes} w={w}", words))
+        for w in (1024, 1501):
+            words = torch.randint(-2**31, 2**31 - 1, (planes, w), generator=gen, device=dev,
+                                  dtype=torch.int64).to(torch.int32)
+            cases.append((f"B={planes} w={w} 1 word in", offset_view(words)))
+        cases.append((f"all-ones B={planes}", torch.full((planes, 4100), -1, dtype=torch.int32,
+                                                         device=dev)))
+    return cases
+
+
+def check_ragged() -> None:
+    """Exact kernel-vs-plain agreement on small ragged shapes: pack and
+    popcount_planes on inputs that take both of their routes (16-byte
+    vectors and scalars); unpack, popcount_blocks, popcount_words; the SpMV
+    kernels on SPMV_CASES."""
+    import torch
+    from repro_torch import kernels
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
     from repro_torch.kernels.popcount import ops as pc_ops, ref as pc_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
-    for n in (1, 1000, 5000, 9216):
-        for b in bp_ref.B_CLASSES:
-            vals = torch.randint(0, 2**b if b < 31 else 2**31 - 1, (3, n),
-                                 generator=gen, device=dev, dtype=torch.int64)
-            vals = vals.to(torch.int32)
-            expect(same(bp_ops.pack_planes(vals, b), bp_ref.pack_planes(vals, b)), ('pack', n, b))
-        bits = torch.rand((3, n), generator=gen, device=dev) < 0.3
-        expect(same(bp_ops.pack_planes(bits, 1), bp_ref.pack_planes(bits, 1)), ('pack bool', n))
-        expect(same(bp_ops.pack_planes(bits.to(torch.uint8), 1), bp_ref.pack_planes(bits, 1)),
-               ('pack uint8', n))
+    routes = {"pack": set(), "popcount_planes": set()}
+    for label, vals, b in pack_ragged_inputs(gen, dev):
+        expect(same(bp_ops.pack_planes(vals, b), bp_ref.pack_planes(vals, b)), ("pack", label))
+        if b < 32:
+            routes["pack"].add(kernels.vec_rows(vals))
+    for label, words in popcount_ragged_inputs(gen, dev):
+        expect(same(pc_ops.popcount_planes(words), pc_ref.popcount_planes(words)),
+               ("popcount_planes", label))
+        routes["popcount_planes"].add(kernels.vec_rows(words))
+    expect(all(r == {0, 1} for r in routes.values()), ("both routes launched", routes))
     for planes, chunks in ((1, 1), (3, 5), (7, 2)):
         for b in bp_ref.B_CLASSES:
             w = torch.randint(-2**31, 2**31 - 1, (planes, chunks * 32 * b), generator=gen,
@@ -232,7 +307,6 @@ def check_ragged() -> None:
                    ('unpack', planes, chunks, b))
     words = torch.randint(-2**31, 2**31 - 1, (5, 1500), generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
-    expect(same(pc_ops.popcount_planes(words), pc_ref.popcount_planes(words)), 'popcount_planes')
     expect(same(pc_ops.popcount_words(words), pc_ref.popcount_words(words)), 'popcount_words')
     for w in (7, 1024, 1500, 5000):
         expect(same(pc_ops.popcount_blocks(words.reshape(-1)[:w]),
@@ -454,6 +528,12 @@ def main_shape_rows(setup, roots):
             row = _row(name, kern, plain, nbytes, ops_n, shape)
             if d == dense:
                 rows[name] = row
+        if d == dense:
+            f1 = f[:1]  # CC's single plane
+            rows["popcount_planes"]["other_shapes"] = [brief(_row(
+                "popcount_planes", lambda: pc_ops.popcount_planes(f1),
+                lambda: pc_ref.popcount_planes(f1), wf * 4 + 4, 2 * wf,
+                {**shape, "planes": 1}))]
 
     return rows, res
 
@@ -539,10 +619,10 @@ def dist_shape_rows(kept, level, s) -> dict:
     for (name, sig, dtype), args in sorted(kept.items(), key=lambda kv: str(kv[0])):
         kern, plain = fns[name]
         nbytes, ops_n = work(name, args, kern(*args))
-        rows.setdefault(name, []).append(_row(
-            name, lambda: kern(*args), lambda: plain(*args), nbytes, ops_n,
-            {"args": [list(a) if isinstance(a, tuple) else a for a in sig],
-             "dtype": dtype}))
+        row = _row(name, lambda: kern(*args), lambda: plain(*args), nbytes, ops_n,
+                   {"args": [list(a) if isinstance(a, tuple) else a for a in sig],
+                    "dtype": dtype})
+        rows.setdefault(name, []).append(row)
     ids, counts = bp_ops.compact_ids(level[:, :s] == 1, 16384, fill=s)  # rank 0's chunk
     low = (bp_ops.gaps_from_sorted(ids, counts) & 0xFFFF).to(torch.int32)
     id_words = bp_ops.pack_planes(low, 16)
@@ -1164,9 +1244,9 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     check_ragged()
-    print("ragged shapes: pack (b=1..32, bool/uint8/int32), unpack (b=1..32), "
-          "popcount_planes, popcount_blocks, popcount_words, spmv push/pull (B planes "
-          "and one): exact")
+    print("ragged shapes: pack (b=1..32, bool/uint8/int32) and popcount_planes on both "
+          "routes, unpack (b=1..32), popcount_blocks, popcount_words, "
+          "spmv push/pull (B planes and one): exact")
 
     setup = graph500.build(args.scale, 16, 1, "hybrid", "cuda")
     info = graph500.summary(setup)
@@ -1181,6 +1261,11 @@ def main() -> int:
     rows, single = main_shape_rows(setup, roots[:8])
     for r in rows.values():
         print(describe(r, card))
+    pc = rows["popcount_planes"]
+    print(f"popcount_planes at one plane {pc['other_shapes'][0]['shape']}: "
+          f"{pc['other_shapes'][0]['ms'] * 1e3:.2f} us (device "
+          f"{pc['other_shapes'][0]['device_ms'] * 1e3:.2f} us), bound "
+          f"{pc['other_shapes'][0]['bound_ms'] * 1e3:.2f} us on {card}")
 
     kernels.reset_launches()
     out = graph500.search(setup, roots, batch=8, policy="direction_opt")

@@ -87,15 +87,16 @@ def _coo_push(src, dst, n_rows: int, n_cols: int, f: torch.Tensor) -> torch.Tens
     return out[:, :n_rows]
 
 
-def _coo_pull(src, dst, n_rows: int, n_cols: int, f, unreached) -> torch.Tensor:
+def _coo_pull(src, dst, n_rows: int, n_cols: int, words, unreached) -> torch.Tensor:
     """Pull over COO edges: the frontier is probed through its *packed*
-    bitmap, and only unreached destinations accumulate candidates."""
+    bitmap ``words`` (``_pack_planes`` of the planes), and only unreached
+    destinations accumulate candidates."""
     n_cp = chunk_pad(n_cols)
-    words = _pack_planes(f)
-    out = torch.full((f.shape[0], n_rows + 1), INF, dtype=torch.int32, device=f.device)
+    out = torch.full((words.shape[0], n_rows + 1), INF, dtype=torch.int32,
+                     device=words.device)
     valid = (src < n_cols) & (dst < n_rows)
     d_cl = torch.clamp(dst, 0, n_rows - 1)
-    for p in range(f.shape[0]):
+    for p in range(words.shape[0]):
         hit = spmv_ref.frontier_bit(words[p], src, n_cp) & unreached[p][d_cl] & valid
         cand = torch.where(hit, src, INF)
         out[p].scatter_reduce_(0, dst, cand, "amin")
@@ -106,9 +107,9 @@ def _ell_push(nbr, n_cols: int, f) -> torch.Tensor:
     return spmv_ops.spmv_min_planes(nbr, _pack_planes(f), chunk_pad(n_cols))
 
 
-def _ell_pull(nbr, n_cols: int, f, unreached) -> torch.Tensor:
+def _ell_pull(nbr, n_cols: int, words, unreached) -> torch.Tensor:
     return spmv_ops.spmv_pull_min_planes(
-        nbr, _pack_planes(f), _pack_planes(unreached), chunk_pad(n_cols)
+        nbr, words, _pack_planes(unreached), chunk_pad(n_cols)
     )
 
 
@@ -127,18 +128,18 @@ def _coo_push_value(src, dst, n_rows, n_cols, f, x, alg, row_base, col_base):
     return out
 
 
-def _coo_pull_value(src, dst, n_rows, n_cols, f, unreached, x, alg, row_base, col_base):
+def _coo_pull_value(src, dst, n_rows, n_cols, words, unreached, x, alg, row_base,
+                    col_base):
     """Value pull over COO edges: the frontier probed through its packed
-    bitmap, only ``unreached`` destinations (the algebra's pull mask)
-    accumulating."""
+    bitmap ``words``, only ``unreached`` destinations (the algebra's pull
+    mask) accumulating."""
     n_cp = chunk_pad(n_cols)
-    words = _pack_planes(f)
-    out = torch.empty((f.shape[0], n_rows), dtype=torch.int32, device=f.device)
+    out = torch.empty((words.shape[0], n_rows), dtype=torch.int32, device=words.device)
     valid = (src < n_cols) & (dst < n_rows)
     s_cl = torch.clamp(src, 0, n_cols - 1).to(torch.int64)
     d_cl = torch.clamp(dst, 0, n_rows - 1)
     w = alg.edge_weights(src + col_base, dst + row_base)
-    for p in range(f.shape[0]):
+    for p in range(words.shape[0]):
         hit = spmv_ref.frontier_bit(words[p], src, n_cp) & unreached[p][d_cl] & valid
         msg = alg.edge_message(x[p][s_cl], w)
         cand = torch.where(hit, msg, alg.empty)
@@ -151,8 +152,8 @@ def _ell_push_value(nbr, n_cols, f, x, alg, row_base, col_base):
                                  row_base=row_base, col_base=col_base)
 
 
-def _ell_pull_value(nbr, n_cols, f, unreached, x, alg, row_base, col_base):
-    return spmv_ops.gspmm_planes(nbr, _pack_planes(f), x, chunk_pad(n_cols), alg,
+def _ell_pull_value(nbr, n_cols, words, unreached, x, alg, row_base, col_base):
+    return spmv_ops.gspmm_planes(nbr, words, x, chunk_pad(n_cols), alg,
                                  row_base=row_base, col_base=col_base,
                                  u_words=_pack_planes(unreached))
 
@@ -216,15 +217,16 @@ class CooExpansion(ExpansionBackend):
         return _coo_push(blk.src, blk.dst, blk.n_rows, blk.n_cols, f)
 
     def pull_planes(self, blk, f, unreached):
-        return _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached)
+        return _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, _pack_planes(f),
+                         unreached)
 
     def push_value_planes(self, blk, f, x, alg, *, row_base=0, col_base=0):
         return _coo_push_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, x, alg,
                                row_base, col_base)
 
     def pull_value_planes(self, blk, f, unreached, x, alg, *, row_base=0, col_base=0):
-        return _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached,
-                               x, alg, row_base, col_base)
+        return _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, _pack_planes(f),
+                               unreached, x, alg, row_base, col_base)
 
 
 class EllExpansion(ExpansionBackend):
@@ -250,14 +252,14 @@ class EllExpansion(ExpansionBackend):
         return _ell_push(blk.nbr, blk.n_cols, f)
 
     def pull_planes(self, blk, f, unreached):
-        return _ell_pull(blk.nbr, blk.n_cols, f, unreached)
+        return _ell_pull(blk.nbr, blk.n_cols, _pack_planes(f), unreached)
 
     def push_value_planes(self, blk, f, x, alg, *, row_base=0, col_base=0):
         return _ell_push_value(blk.nbr, blk.n_cols, f, x, alg, row_base, col_base)
 
     def pull_value_planes(self, blk, f, unreached, x, alg, *, row_base=0, col_base=0):
-        return _ell_pull_value(blk.nbr, blk.n_cols, f, unreached, x, alg, row_base,
-                               col_base)
+        return _ell_pull_value(blk.nbr, blk.n_cols, _pack_planes(f), unreached, x, alg,
+                               row_base, col_base)
 
 
 class HybridExpansion(ExpansionBackend):
@@ -289,9 +291,10 @@ class HybridExpansion(ExpansionBackend):
         )
 
     def pull_planes(self, blk, f, unreached):
+        words = _pack_planes(f)  # one pack for both halves
         return torch.minimum(
-            _ell_pull(blk.nbr, blk.n_cols, f, unreached),
-            _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached),
+            _ell_pull(blk.nbr, blk.n_cols, words, unreached),
+            _coo_pull(blk.src, blk.dst, blk.n_rows, blk.n_cols, words, unreached),
         )
 
     def push_value_planes(self, blk, f, x, alg, *, row_base=0, col_base=0):
@@ -302,10 +305,11 @@ class HybridExpansion(ExpansionBackend):
         )
 
     def pull_value_planes(self, blk, f, unreached, x, alg, *, row_base=0, col_base=0):
+        words = _pack_planes(f)  # one pack for both halves
         return alg.combine(
-            _ell_pull_value(blk.nbr, blk.n_cols, f, unreached, x, alg, row_base,
+            _ell_pull_value(blk.nbr, blk.n_cols, words, unreached, x, alg, row_base,
                             col_base),
-            _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, f, unreached,
+            _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, words, unreached,
                             x, alg, row_base, col_base),
         )
 

@@ -200,6 +200,13 @@ def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def vec_rows(t: torch.Tensor) -> int:
+    """1 when every row of the contiguous 2D tensor ``t`` starts 16-byte
+    aligned, so a kernel may load the rows as 16-byte vectors; 0 when it
+    must load scalars."""
+    return int(t.data_ptr() % 16 == 0 and (t.shape[1] * t.element_size()) % 16 == 0)
+
+
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong

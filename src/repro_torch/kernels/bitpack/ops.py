@@ -20,9 +20,11 @@ from repro_torch.kernels.bitpack.ref import (  # noqa: F401
 
 KERNEL = "pack"
 UNPACK_KERNEL = "unpack"
-_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I64, kernels.I32, kernels.I32)
+_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I64, kernels.I32, kernels.I32,
+         kernels.I32)
+_BYTE_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I64, kernels.I32, kernels.I32)
 _UNPACK_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I32)
-_MAX_PLANES = 65535  # gridDim.y
+_MAX_PLANES = 65535  # gridDim.y of unpack
 
 
 def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
@@ -30,6 +32,8 @@ def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
 
     ``values`` is bool/uint8 (membership planes, read in place) or int32
     (uint32 bit patterns); any ``n`` — positions past ``n`` pack as zeros.
+    Bool/uint8 planes pack as 0/1 at ``b=1`` (a nonzero byte is a member);
+    at wider ``b`` they are cast to int32 first.
     """
     if b not in ref.B_CLASSES:
         raise ValueError(f"bit width {b} not in {ref.B_CLASSES}")
@@ -39,15 +43,18 @@ def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
     planes, n = values.shape
     if b == 32:
         return ref.pack_planes(values, 32)
-    if planes > _MAX_PLANES:
-        raise ValueError(f"pack_planes: at most {_MAX_PLANES} planes, got {planes}")
+    if values.dtype != torch.int32 and b > 1:
+        values = values.to(torch.int32)
     words = ref.words_for(n, b)
     out = torch.empty((planes, words), dtype=torch.int32, device=values.device)
     if out.numel() == 0:
         return out
-    name = "rt_pack_u32" if values.dtype == torch.int32 else "rt_pack_u8"
-    kernels.launch(KERNEL, name, _ARGS, values.data_ptr(), out.data_ptr(), n,
-                   words, planes, b)
+    if values.dtype == torch.int32:
+        kernels.launch(KERNEL, "rt_pack_u32", _ARGS, values.data_ptr(), out.data_ptr(), n,
+                       words, planes, b, kernels.vec_rows(values))
+    else:
+        kernels.launch(KERNEL, "rt_pack_u8", _BYTE_ARGS, values.data_ptr(), out.data_ptr(), n,
+                       words, planes, kernels.vec_rows(values))
     return out
 
 

@@ -38,10 +38,13 @@ def words_for(n: int, b: int) -> int:
 def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
     """(B, n) values (< 2**b) -> (B, words_for(n, b)) int32 packed words.
 
-    Positions past ``n`` in the last chunk pack as zeros.
+    Positions past ``n`` in the last chunk pack as zeros.  At ``b=1`` a
+    bool/uint8 plane packs as membership: a nonzero byte is a 1.
     """
     assert b in B_CLASSES, b
     planes, n = values.shape
+    if b == 1 and values.dtype in (torch.bool, torch.uint8):
+        values = values != 0
     v = values.to(torch.int64) & _MASK32
     pad = (-n) % CHUNK
     if pad:

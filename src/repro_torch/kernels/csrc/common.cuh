@@ -27,6 +27,19 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// The card's SM count (the device current at first call), for grids sized
+// to the card rather than to the work; 0 if the query failed, which makes
+// the launch fail and report it.
+inline int sm_count() {
+  static const int count = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return count;
+}
+
 // Every C entry point returns this right after its launch: a launch that
 // was refused never runs, and a later synchronize would not report it.
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

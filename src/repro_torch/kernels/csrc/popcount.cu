@@ -4,17 +4,36 @@
 // _popcount_kernel (src/repro/kernels/popcount/popcount.py:50 and :22), the
 // per-plane frontier counter of the density oracle.  The TPU kernel writes
 // (B, W/1024) int32 partials that XLA sums; here the planes' totals come out
-// directly as (B,) int32.
+// directly as (B,) int32, in one launch and with nothing zeroed first.
 //
 // Bound: bytes.  Every word is read once and B int32 are written; __popc is
 // one instruction per word, so the SWAR sequence of the TPU kernel is not
-// needed.
+// needed.  At the oracle's shapes (B = 8 planes of 32,768 to 131,072 words,
+// 1 to 4 MB) the bound is a fraction of a microsecond, so what counts is the
+// fixed cost of the launch and of the cross-block sum.
 //
-// Design: each thread sums __popc over a grid-strided run of its plane
-// (blockIdx.y), warp shuffles and one shared-memory pass reduce the block,
-// and one integer atomicAdd per block adds it to the plane's total -- exact,
-// whatever the order.  The x-grid is sized so about four blocks per SM are in
-// flight over all planes together, so a small B still fills the card.
+// Design: words are read as 16-byte vectors (four __popc each), neighbouring
+// threads on neighbouring vectors, over a grid sized to the card, (slices,
+// B); each block sums its share in shared memory.  The cross-block sum is a
+// ticket: each block adds (1 << 40) + its count to its plane's 64-bit word
+// with one atomicAdd, so the high bits count the blocks done and the low 40
+// bits the plane's bits so far.  The block whose add finds slices - 1 blocks
+// done is the plane's last; it writes out[p] from the sum and sets the word
+// back to 0 for the next call.  One atomic round trip a block, no fence, no
+// second pass over partials, and the sum is exact.  The words must be 0 when
+// a call starts and no other call may use them until it ends: the wrapper
+// keeps one zeroed buffer per (device, stream), so calls on one stream run
+// in order and calls on two streams never share it.
+// A thread-block cluster per plane (8 or 16 CTAs, the partials summed by
+// CTA rank 0 through distributed shared memory after cluster.sync()) was
+// measured beside the ticket on an H100: the ticket took 2.46-2.55 us of
+// device time at (8, 131,072), 2.01-2.03 us at (8, 32,768) and 1.95-1.97 us
+// at (1, 131,072); a cluster of 8 took 4.08-4.14, 3.26-3.28 and 3.90-3.93 us,
+// one of 16 4.28-4.30, 3.60-3.61 and 3.54 us.  The cluster's launch and its
+// two barriers cost more than one atomic round trip, so only the ticket is
+// kept.
+// Two routes: the 16-byte loads need w % 4 == 0 and a 16-byte aligned base;
+// otherwise the same kernel loads scalar words.
 //
 // popcount_blocks replaces popcount_blocks_pallas / _popcount_kernel
 // (popcount.py:32 and :22): (W,) words -> (ceil(W/1024),) int32 partials, one
@@ -31,24 +50,76 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTicketBlocksPerSm = 4;
+constexpr int kLoadsPerThread = 2;  // the grid: about this many loads a thread
 
-__global__ void popcount_planes_kernel(const uint32_t* __restrict__ words,
-                                       int* __restrict__ out, int64_t w) {
-  const uint32_t* row = words + static_cast<int64_t>(blockIdx.y) * w;
-  int acc = 0;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < w;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    acc += __popc(__ldg(row + i));
-  acc = rt::warp_sum(acc);
+// The sum of `v` over the block, valid in thread 0.
+__device__ __forceinline__ int block_sum(int v) {
   __shared__ int partial[kThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = acc;
+  v = rt::warp_sum(v);
+  if (lane == 0) partial[warp] = v;
   __syncthreads();
-  if (warp == 0) {
-    acc = rt::warp_sum(lane < kThreads / 32 ? partial[lane] : 0);
-    if (lane == 0 && acc) atomicAdd(out + blockIdx.y, acc);
+  return warp == 0 ? rt::warp_sum(lane < kThreads / 32 ? partial[lane] : 0) : 0;
+}
+
+// Bits set in the 16-byte vectors (kVec) or words i, i + stride, ... of a row
+// of w words.
+template <bool kVec>
+__device__ __forceinline__ int popc_strided(const uint32_t* __restrict__ row, int64_t w,
+                                            int64_t i, int64_t stride) {
+  int acc = 0;
+  if (kVec) {
+    const uint4* v = reinterpret_cast<const uint4*>(row);
+#pragma unroll 4
+    for (const int64_t nv = w >> 2; i < nv; i += stride) {
+      const uint4 q = __ldg(v + i);
+      acc += __popc(q.x) + __popc(q.y) + __popc(q.z) + __popc(q.w);
+    }
+  } else {
+#pragma unroll 4
+    for (; i < w; i += stride) acc += __popc(__ldg(row + i));
   }
+  return acc;
+}
+
+// acc: (planes,) uint64, 0 between calls: a plane's blocks done so far in the
+// bits from kSumBits up, their bit count below.
+constexpr int kSumBits = 40;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    popcount_planes_ticket_kernel(const uint32_t* __restrict__ words, int* __restrict__ out,
+                                  unsigned long long* __restrict__ acc, int64_t w) {
+  const int64_t plane = blockIdx.y;
+  const int sum = block_sum(popc_strided<kVec>(
+      words + plane * w, w, static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+      static_cast<int64_t>(gridDim.x) * blockDim.x));
+  if (threadIdx.x == 0) {
+    const unsigned long long mine = (1ull << kSumBits) | static_cast<unsigned>(sum);
+    const unsigned long long seen = atomicAdd(acc + plane, mine);
+    if ((seen >> kSumBits) == gridDim.x - 1) {  // the ticket of the plane's last block
+      out[plane] = static_cast<int>((seen + mine) & ((1ull << kSumBits) - 1));
+      acc[plane] = 0;  // every other block of the plane has added: ready for the next call
+    }
+  }
+}
+
+template <bool kVec>
+int launch_ticket(const void* words, void* out, void* acc, long long w, int planes,
+                  cudaStream_t stream) {
+  const long long units = kVec ? w / 4 : w;  // loads a plane
+  const long long per_block = static_cast<long long>(kThreads) * kLoadsPerThread;
+  const long long by_work = (units + per_block - 1) / per_block;
+  const long long by_card = static_cast<long long>(rt::sm_count()) * kTicketBlocksPerSm / planes;
+  long long slices = by_work < by_card ? by_work : by_card;
+  if (slices < 1) slices = 1;
+  popcount_planes_ticket_kernel<kVec>
+      <<<dim3(static_cast<unsigned>(slices), static_cast<unsigned>(planes)), kThreads, 0,
+         stream>>>(static_cast<const uint32_t*>(words), static_cast<int*>(out),
+                   static_cast<unsigned long long*>(acc), w);
+  return rt::launch_status();
 }
 
 constexpr int kBlockWords = 1024;  // words per partial, as the TPU kernel
@@ -83,17 +154,14 @@ __global__ void popcount_words_kernel(const uint32_t* __restrict__ words,
 
 }  // namespace
 
-// words: (planes, w) uint32; out: (planes,) int32, zeroed by the caller.
-RT_API int rt_popcount_planes(const void* words, void* out, long long w, int planes,
-                              void* stream) {
-  constexpr long long kTargetBlocks = 132 * 4;  // ~4 resident blocks per H100 SM
-  const long long by_work = (w + kThreads * 4 - 1) / (kThreads * 4);
-  const long long by_card = (kTargetBlocks + planes - 1) / planes;
-  const long long bx = by_work < by_card ? by_work : by_card;
-  const dim3 grid(static_cast<unsigned>(bx > 0 ? bx : 1), static_cast<unsigned>(planes));
-  popcount_planes_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<int*>(out), w);
-  return rt::launch_status();
+// words: (planes, w) uint32; out: (planes,) int32, every entry written; acc:
+// (>= planes) uint64 that are 0 (and are left 0).  vec: w % 4 == 0 and words
+// 16-byte aligned.
+RT_API int rt_popcount_planes(const void* words, void* out, void* acc, long long w, int planes,
+                              int vec, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return vec ? launch_ticket<true>(words, out, acc, w, planes, s)
+             : launch_ticket<false>(words, out, acc, w, planes, s);
 }
 
 // words: (w,) uint32; out: (ceil(w / 1024),) int32.

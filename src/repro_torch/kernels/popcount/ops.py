@@ -15,22 +15,47 @@ BLOCKS_KERNEL = "popcount_blocks"
 PLANES_KERNEL = "popcount_planes"
 WORDS_KERNEL = "popcount_words"
 _MAX_PLANES = 65535  # gridDim.y
+_PLANES_ARGS = (kernels.P, kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I32)
+#: per (device, stream): the ticket words of popcount_planes, one 64-bit word
+#: a plane (blocks done, bits so far), 0 between calls; zeroed once, when
+#: made or grown
+_SCRATCH: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ticket_scratch(device: torch.device, planes: int) -> torch.Tensor:
+    """The zeroed ticket words of the current stream on ``device``.
+
+    Calls on one stream run in order, so each finds the words as the last
+    one left them, 0; calls on two streams get separate words."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < planes:
+        buf = torch.zeros(max(planes, 1024), dtype=torch.int64, device=device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def popcount_planes(words: torch.Tensor) -> torch.Tensor:
-    """(B, W) int32 words -> (B,) int32 per-plane bit counts (any ``W``)."""
+    """(B, W) int32 words -> (B,) int32 per-plane bit counts (any ``W``).
+
+    On a CUDA tensor: one launch, no fill.  The blocks of a plane sum their
+    counts through a ticket word that must be 0 when the call starts; the
+    last block leaves it 0 again.  The words are kept per (device, stream),
+    so calls on one stream share them in order and calls on two streams
+    never do."""
     if not kernels.on_cuda(words):
         return ref.popcount_planes(words)
     kernels.require(words, "popcount_planes", (torch.int32,), 2)
     planes, w = words.shape
     if planes > _MAX_PLANES:
         raise ValueError(f"popcount_planes: at most {_MAX_PLANES} planes, got {planes}")
-    out = torch.zeros(planes, dtype=torch.int32, device=words.device)
-    if words.numel() == 0:
+    out = torch.empty(planes, dtype=torch.int32, device=words.device)
+    if planes == 0:
         return out
-    kernels.launch(PLANES_KERNEL, "rt_popcount_planes",
-                   (kernels.P, kernels.P, kernels.I64, kernels.I32),
-                   words.data_ptr(), out.data_ptr(), w, planes)
+    scratch = _ticket_scratch(words.device, planes)
+    kernels.launch(PLANES_KERNEL, "rt_popcount_planes", _PLANES_ARGS,
+                   words.data_ptr(), out.data_ptr(), scratch.data_ptr(), w, planes,
+                   kernels.vec_rows(words))
     return out
 
 

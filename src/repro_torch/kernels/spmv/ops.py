@@ -89,11 +89,6 @@ def _mask(f_words: torch.Tensor):
     return None if f_words.shape[0] == 1 else frontier_mask(f_words)
 
 
-def _vec(nbr: torch.Tensor) -> int:
-    """1 when the kernel may load the slab rows as 16-byte vectors."""
-    return int(nbr.shape[1] % 4 == 0 and nbr.data_ptr() % 16 == 0)
-
-
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
@@ -122,7 +117,8 @@ def _ell(nbr, f_words, u_words, n_cols: int, kernel: str) -> torch.Tensor:
         (kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
          kernels.I32, kernels.I32, kernels.I64, kernels.I32),
         nbr.data_ptr(), _ptr(mask), f_words.data_ptr(), _ptr(u_words), out.data_ptr(),
-        n_rows, k, n_cols, planes, 0 if u_words is None else u_words.shape[1], _vec(nbr),
+        n_rows, k, n_cols, planes, 0 if u_words is None else u_words.shape[1],
+        kernels.vec_rows(nbr),
     )
     return out
 
@@ -241,6 +237,6 @@ def _gather(nbr, f_words, x, u_words, n_cols: int, op: str, max_weight: int, row
         nbr.data_ptr(), _ptr(mask), f_words.data_ptr(), x.data_ptr(), _ptr(xi), _ptr(u_words),
         out.data_ptr(), n_rows, k, n_cols, x.shape[1], planes,
         0 if u_words is None else u_words.shape[1], int(row_base), int(col_base),
-        int(op == "minplus"), int(max_weight), _vec(nbr),
+        int(op == "minplus"), int(max_weight), kernels.vec_rows(nbr),
     )
     return out

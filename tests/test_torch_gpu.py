@@ -47,6 +47,69 @@ def test_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_pack_and_popcount_routes_match_plain_on_card(cuda):
+    """The pack and popcount_planes inputs of ``chip_smoke.check_ragged``
+    (plane views 1 byte or 1 word into their storage, n = 0..15 mod 16, w =
+    0..3 mod 4, w = 0, all-ones words, uint8 bytes of 2, B in {1, 3, 8, 17})
+    take both routes (16-byte vectors and scalars) exactly."""
+    import chip_smoke
+    from repro_torch.kernels.popcount import ops as pc_ops
+    from repro_torch.kernels.popcount import ref as pc_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    packs = chip_smoke.pack_ragged_inputs(gen, cuda)
+    counts = chip_smoke.popcount_ragged_inputs(gen, cuda)
+    assert {kernels.vec_rows(v) for _, v, b in packs if b < 32} == {0, 1}
+    assert {kernels.vec_rows(w) for _, w in counts} == {0, 1}
+    for label, vals, b in packs:
+        assert torch.equal(bp_ops.pack_planes(vals, b), bp_ref.pack_planes(vals, b)), label
+    for label, words in counts:
+        assert torch.equal(pc_ops.popcount_planes(words), pc_ref.popcount_planes(words)), label
+    ones = dict(counts)["all-ones B=17"]
+    assert pc_ops.popcount_planes(ones).tolist() == [32 * ones.shape[1]] * 17
+
+
+@pytest.mark.gpu
+def test_popcount_planes_is_one_launch_on_card(cuda):
+    """Each popcount_planes call launches one kernel and nothing else (no
+    fill of its output) at the oracle's main shape."""
+    from repro_torch.kernels.popcount import ops as pc_ops
+
+    words = torch.randint(-2**31, 2**31 - 1, (8, 131072), device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+    pc_ops.popcount_planes(words)  # the stream's ticket words are made once
+    kernels.reset_launches()
+    pc_ops.popcount_planes(words)
+    assert dict(kernels.LAUNCHES) == {"popcount_planes": 1}
+    _, by_kernel = kernels.device_ms(lambda: pc_ops.popcount_planes(words), reps=5)
+    assert len(by_kernel) == 1 and next(iter(by_kernel)).startswith(
+        "popcount_planes"), by_kernel
+
+
+@pytest.mark.gpu
+def test_popcount_planes_streams_keep_their_own_tickets(cuda):
+    """Counts on two streams at once stay exact: each stream has its own
+    ticket words, left 0 after every call."""
+    from repro_torch.kernels.popcount import ops as pc_ops
+    from repro_torch.kernels.popcount import ref as pc_ref
+
+    words = torch.randint(-2**31, 2**31 - 1, (8, 131072), device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+    want = pc_ref.popcount_planes(words)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append([pc_ops.popcount_planes(words) for _ in range(50)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for got in outs for o in got)
+    keys = {(words.device, s.cuda_stream) for s in streams}
+    assert keys <= pc_ops._SCRATCH.keys()
+    assert all(int(pc_ops._SCRATCH[k].abs().sum()) == 0 for k in keys)
+
+
+@pytest.mark.gpu
 def test_spmv_cases_match_plain_on_card(cuda):
     """The frontier mask, ELL push/pull and value-gather kernels against
     their plain versions, exactly, on every ``chip_smoke.SPMV_CASES`` input
@@ -61,7 +124,7 @@ def test_spmv_cases_match_plain_on_card(cuda):
     vec = set()
     for i in range(len(chip_smoke.SPMV_CASES)):
         nbr = chip_smoke.spmv_case_tensors(chip_smoke.spmv_case(i), cuda)[0]
-        vec.add(sp_ops._vec(nbr))
+        vec.add(kernels.vec_rows(nbr))
     assert vec == {0, 1}
     labels = [c[0] for c in chip_smoke.SPMV_CASES]
     nbr, f, u, _, n_cols = chip_smoke.spmv_case_tensors(

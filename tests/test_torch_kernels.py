@@ -60,17 +60,62 @@ def test_pack_planes_matches_jax(b):
     np.testing.assert_array_equal(_u32(bp_ops.pack_planes(_i32(vals), b)), expect)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1025, 5000])
-def test_pack_planes_ragged_bool_is_zero_padded_pack(n):
+def _offset_copy(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting ``elems`` elements into its storage."""
+    buf = torch.zeros(t.numel() + elems, dtype=t.dtype)
+    buf[elems:] = t.reshape(-1)
+    return buf[elems:].view(t.shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 1000, 1025, 2055, 4096, 4111, 5000])
+def test_pack_planes_ragged_bool_is_zero_padded_pack(n, offset):
     """Ragged bool planes pack as the reference packs their zero-padded
-    uint32 copy (expand.py:72-76), which the port never materializes."""
+    uint32 copy (expand.py:72-76), which the port never materializes; n
+    takes 0, 1, 7, 8 and 15 (mod 16), and ``offset`` hands the planes over
+    as a view one element into its storage."""
     rng = np.random.default_rng(n)
     bits = rng.random((4, n)) < 0.4
     padded = np.zeros((4, n + (-n) % 1024), np.uint32)
     padded[:, :n] = bits
     expect = np.asarray(jbp_ops.pack_planes(jnp.asarray(padded), 1))
     for planes in (torch.from_numpy(bits), torch.from_numpy(bits.astype(np.uint8))):
+        planes = _offset_copy(planes, offset)
+        assert planes.storage_offset() == offset and planes.is_contiguous()
         np.testing.assert_array_equal(_u32(bp_ops.pack_planes(planes, 1)), expect)
+
+
+@pytest.mark.parametrize("byte", [2, 3, 128, 255])
+def test_pack_planes_nonzero_byte_is_member(byte):
+    """At b=1 a uint8 plane packs as membership, as the kernel packs it: a
+    nonzero byte is a 1, the same words JAX packs from the 0/1 planes."""
+    rng = np.random.default_rng(byte)
+    bits = rng.random((3, 2055)) < 0.4
+    padded = np.zeros((3, 3072), np.uint32)
+    padded[:, :2055] = bits
+    expect = np.asarray(jbp_ops.pack_planes(jnp.asarray(padded), 1))
+    planes = torch.from_numpy(bits.astype(np.uint8) * np.uint8(byte))
+    np.testing.assert_array_equal(_u32(bp_ops.pack_planes(planes, 1)), expect)
+
+
+@pytest.mark.parametrize("dtype,n,offset,vec", [
+    # pack over bool / uint8 planes: each plane 16-byte aligned iff n % 16 == 0
+    (torch.bool, 4096, 0, 1), (torch.bool, 4112, 0, 1), (torch.bool, 4097, 0, 0),
+    (torch.bool, 4104, 0, 0), (torch.bool, 4111, 0, 0), (torch.bool, 4096, 1, 0),
+    (torch.uint8, 16, 0, 1), (torch.uint8, 15, 0, 0), (torch.uint8, 1024, 16, 1),
+    (torch.uint8, 1024, 8, 0),
+    # pack over int32 values and popcount over int32 words: n or w % 4 == 0
+    (torch.int32, 1024, 0, 1), (torch.int32, 1028, 0, 1), (torch.int32, 1022, 0, 0),
+    (torch.int32, 1023, 0, 0), (torch.int32, 1024, 1, 0), (torch.int32, 1024, 4, 1),
+    (torch.int32, 0, 0, 1), (torch.int32, 7, 0, 0),
+])
+def test_vec_rows_picks_the_route(dtype, n, offset, vec):
+    """The route helper of the pack and popcount_planes wrappers (and the
+    ELL slab): 16-byte vector loads only when every row starts 16-byte
+    aligned, scalar loads otherwise."""
+    t = _offset_copy(torch.zeros((3, n), dtype=dtype), offset)
+    assert t.data_ptr() % 16 == (offset * t.element_size()) % 16  # CPU storage is aligned
+    assert kernels.vec_rows(t) == vec
 
 
 @pytest.mark.parametrize("w", [1024, 2048, 1500, 7])
