@@ -11,7 +11,10 @@ both, and the 2D GNN forward with int8 payloads:
    exact equality, at ragged small shapes (pack and popcount_planes on
    inputs that take both their 16-byte and scalar routes: n = 0..15 mod
    16, w = 0..3 mod 4, w = 0, views 1 byte or 1 word into their storage,
-   all-ones words, 1 to 17 planes, a uint8 byte of 2; the SpMV
+   all-ones words, 1 to 17 planes, a uint8 byte of 2; frontier_mask and
+   interleave_values at 1 to 17 planes, ragged widths, all-zero and
+   all-set masks, misaligned views, interleave_values into an output
+   filled with a sentinel that every column with a zero byte keeps; the SpMV
    kernels on SPMV_CASES: 1 to 17 planes, K from 1 to 64, unsorted and
    all-sentinel rows, empty and full frontiers, offset slab views) and at
    the single-device path's shapes (B=8 planes of the scale-S graph, its
@@ -43,7 +46,10 @@ both, and the 2D GNN forward with int8 payloads:
    kernel ``gspmm_min_planes`` and its ``interleave_values`` helper against
    their plain versions at the path's own inputs (a real SSSP level of 8
    planes, push and pull, both ops; one rank's slab of the 2x2 grid with its
-   bases; CC's single plane), timed beside their bounds; then ``sssp`` (8 roots), ``cc`` and ``pagerank`` (one
+   bases; CC's single plane), timed beside their bounds (the helper also
+   at an all-set mask, beside the transpose call that computes it there,
+   with the columns it writes, the 32-byte sectors of x they touch and the
+   sector-granular floor); then ``sssp`` (8 roots), ``cc`` and ``pagerank`` (one
    plane each) on one device, counts zeroed before each run and read
    after, checked on the card (SSSP shortest-path certificates, CC labels,
    PageRank against a float64 power iteration) and against scipy (one
@@ -277,11 +283,92 @@ def popcount_ragged_inputs(gen, dev) -> list:
     return cases
 
 
+#: the plane counts the two ELL helpers are held to on ragged inputs: part
+#: of one mask byte, a full byte, one bit past it, two full bytes, one bit
+#: past them
+HELPER_PLANES = (2, 7, 8, 9, 16, 17)
+#: a column the interleave kernel must leave as it found it
+SENTINEL = -5
+
+
+def mask_ragged_inputs(gen, dev) -> list:
+    """(label, f_words) inputs of frontier_mask: B in HELPER_PLANES (and 1),
+    n_cols of 1, 3, 5 and 9 chunks (none a multiple of 4,096), random,
+    all-zero and all-set words."""
+    import torch
+
+    cases = []
+    for planes in (1, *HELPER_PLANES):
+        for chunks in (1, 3, 5, 9):
+            words = torch.randint(-2**31, 2**31 - 1, (planes, 32 * chunks), generator=gen,
+                                  device=dev, dtype=torch.int64).to(torch.int32)
+            cases.append((f"B={planes} n={1024 * chunks}", words))
+        cases += [(f"all-zero B={planes}", torch.zeros((planes, 160), dtype=torch.int32,
+                                                       device=dev)),
+                  (f"all-set B={planes}", torch.full((planes, 160), -1, dtype=torch.int32,
+                                                     device=dev))]
+    return cases
+
+
+def interleave_ragged_inputs(gen, dev) -> list:
+    """(label, x, mask) inputs of interleave_values that take both of its
+    routes (4-column vectors and scalars): B in HELPER_PLANES; n_x = n_cols,
+    n_x below and above n_cols, widths that are not multiples of 4 (a
+    ragged tail), a width below 4; random (every third byte 0), all-zero and
+    all-set masks (all-set sets the bits of planes past B too); x one word
+    and the mask one byte into their storage."""
+    import torch
+
+    cases = []
+    for planes in HELPER_PLANES:
+        groups = -(-planes // 8)
+        for n_x, n_cols in ((4096, 4096), (5001, 5120), (5120, 4099), (4100, 5120), (3, 1024)):
+            x = torch.randint(0, INF, (planes, n_x), generator=gen, device=dev,
+                              dtype=torch.int32)
+            x[:, ::5] = INF
+            m = torch.randint(0, 256, (groups, n_cols), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+            m[:, ::3] = 0
+            tag = f"B={planes} n_x={n_x} n_cols={n_cols}"
+            cases += [(tag, x, m),
+                      (f"all-zero {tag}", x, torch.zeros_like(m)),
+                      (f"all-set {tag}", x, torch.full_like(m, 255))]
+            if n_x == n_cols == 4096:
+                cases += [(f"{tag} x 1 word in", offset_view(x), m),
+                          (f"{tag} mask 1 byte in", x, offset_view(m))]
+    return cases
+
+
+def check_helpers_ragged(dev) -> set:
+    """frontier_mask and interleave_values against their plain versions,
+    exactly, on their ragged inputs; interleave_values writes into an
+    output filled with SENTINEL and must leave every column whose mask
+    byte is 0 as it was.  Returns the interleave routes taken."""
+    import torch
+    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for label, f in mask_ragged_inputs(gen, dev):
+        expect(same(sp_ops.frontier_mask(f), sp_ref.frontier_mask(f)), ("frontier_mask", label))
+    routes = set()
+    for label, x, m in interleave_ragged_inputs(gen, dev):
+        want = sp_ref.interleave_values(x, m)
+        written = interleaved_columns(m, x.shape[1]) > 0
+        xi = torch.full(want.shape, SENTINEL, dtype=torch.int32, device=dev)
+        sp_ops._interleave_into(x, m, xi)
+        expect(same(xi[written], want[written]) and bool((xi[~written] == SENTINEL).all()),
+               ("interleave_values", label))
+        expect(same(sp_ops.interleave_values(x, m)[written], want[written]),
+               ("interleave_values wrapper", label))
+        routes.add(sp_ops.interleave_vec(x, m))
+    return routes
+
+
 def check_ragged() -> None:
-    """Exact kernel-vs-plain agreement on small ragged shapes: pack and
-    popcount_planes on inputs that take both of their routes (16-byte
-    vectors and scalars); unpack, popcount_blocks, popcount_words; the SpMV
-    kernels on SPMV_CASES."""
+    """Exact kernel-vs-plain agreement on small ragged shapes: pack,
+    popcount_planes and interleave_values on inputs that take both of their
+    routes (16-byte vectors and scalars), frontier_mask beside it; unpack,
+    popcount_blocks, popcount_words; the SpMV kernels on SPMV_CASES."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
@@ -298,6 +385,7 @@ def check_ragged() -> None:
         expect(same(pc_ops.popcount_planes(words), pc_ref.popcount_planes(words)),
                ("popcount_planes", label))
         routes["popcount_planes"].add(kernels.vec_rows(words))
+    routes["interleave_values"] = check_helpers_ragged(dev)
     expect(all(r == {0, 1} for r in routes.values()), ("both routes launched", routes))
     for planes, chunks in ((1, 1), (3, 5), (7, 2)):
         for b in bp_ref.B_CLASSES:
@@ -861,15 +949,7 @@ def gspmm_rows(kept, setup, st, kept_cc) -> tuple[dict, list, list]:
     u = bp_ops.pack_planes(unreached, 1)
     main = row(nbr, f, x, n_cols, "minplus", shape=level_shape)
     mask = sp_ops.frontier_mask(f)
-    copied = interleaved_columns(mask, x.shape[1])
-    written = copied > 0
-    # the mask read once, the set bits of the columns it copies read once
-    # and their 32 bytes written once; no arithmetic
-    interleave = _row("interleave_values", lambda: sp_ops.interleave_values(x, mask),
-                      lambda: sp_ref.interleave_values(x, mask),
-                      mask.numel() + int(copied.sum()) * 4 + int(written.sum()) * 32, 0,
-                      {**level_shape, "x": list(x.shape), "columns": int(written.sum())},
-                      view=lambda t: t[written])
+    interleave = interleave_rows(x, mask, level_shape)
     others = [row(nbr, f, x, n_cols, "copy", shape=level_shape),
               row(nbr, f, x, n_cols, "minplus", u, shape=level_shape),
               row(nbr, f, x, n_cols, "copy", u, shape=level_shape)]
@@ -894,6 +974,62 @@ def gspmm_rows(kept, setup, st, kept_cc) -> tuple[dict, list, list]:
             for op in ("minplus", "copy") for uw in (None, u_row)]
     main["levels"] = layout_levels(kept["levels"])
     return main, others, rank, interleave
+
+
+def x_sectors(mask, n_x: int) -> int:
+    """The 32-byte sectors of x (8 columns of a plane, rows starting at a
+    sector) that hold a value whose mask bit is set: what a sector-granular
+    read of the set bits costs."""
+    import torch
+
+    m = mask[:, :n_x].to(torch.int32)
+    m = torch.nn.functional.pad(m, (0, (-m.shape[1]) % 8))
+    return sum(int(((m >> q) & 1).view(m.shape[0], -1, 8).any(-1).sum()) for q in range(8))
+
+
+def interleave_rows(x, mask, shape) -> dict:
+    """The interleave kernel against its plain version on the captured SSSP
+    level (only the columns it writes compared), and on the same x under an
+    all-set mask, where it computes the plane transpose: one PyTorch call,
+    timed beside it as the row's library time (CUDA events and the
+    profiler's device time).  Bound: the mask read once, the set bits of the
+    columns it writes read once (4 bytes each) and their 32 bytes written
+    once.  The row also carries the sector-granular floor of its input: the
+    mask, the 32-byte sectors of x holding a set bit, the columns' 32 bytes."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
+
+    groups, n_x = mask.shape[0], x.shape[1]
+
+    def row(m, what):
+        copied = interleaved_columns(m, n_x)
+        written = copied > 0
+        columns, sectors = int(written.sum()), x_sectors(m, n_x)
+        floor = m.numel() + 32 * sectors + 32 * columns
+        return _row("interleave_values", lambda: sp_ops.interleave_values(x, m),
+                    lambda: sp_ref.interleave_values(x, m),
+                    m.numel() + int(copied.sum()) * 4 + columns * 32, 0,
+                    {**shape, "mask": what, "x": list(x.shape), "columns": columns,
+                     "set_bits": int(copied.sum()), "x_sectors": sectors, "floor_bytes": floor,
+                     "floor_ms": floor / HBM_BYTES_PER_S * 1e3},
+                    view=lambda t: t[written])
+
+    main = row(mask, "sssp level")
+    full = torch.full_like(mask, 0xFF)
+    every = row(full, "all set")
+    padded = torch.nn.functional.pad(x, (0, 0, 0, 8 * groups - x.shape[0]), value=INF)
+
+    def library():
+        return padded.view(groups, 8, n_x).transpose(1, 2).contiguous()
+
+    expect(same(library(), sp_ops.interleave_values(x, full)), "interleave_values all set")
+    main["library_ms"] = every["library_ms"] = time_ms(library, 50)
+    every["library_device_ms"] = kernels.device_ms(library, 50)[0]
+    main["library_input"] = "the all-set mask (other_shapes[0])"
+    main["other_shapes"] = [{**brief(every), "library_ms": every["library_ms"],
+                             "library_device_ms": every["library_device_ms"]}]
+    return main
 
 
 def layout_levels(calls) -> list[dict]:
@@ -963,6 +1099,15 @@ def algebra_step(setup, roots, st, card) -> tuple[dict, dict, dict]:
     del kept, kept_cc
     for r in [main, *others, *rank, interleave]:
         print(describe(r, card))
+    for r in (interleave, *interleave["other_shapes"]):
+        sh = r["shape"]
+        lib = (f"; the transpose call {r['library_ms'] * 1e3:.2f} us (device "
+               f"{r['library_device_ms'] * 1e3:.2f})" if "library_device_ms" in r else "")
+        print(f"interleave_values, {sh['mask']} mask: {sh['columns']:,} columns written, "
+              f"{sh['set_bits']:,} set bits in {sh['x_sectors']:,} 32-byte sectors of x; "
+              f"sector-granular floor {sh['floor_bytes'] / 1e6:.3f} MB = "
+              f"{sh['floor_ms'] * 1e3:.2f} us; kernel {r['ms'] * 1e3:.2f} us (device "
+              f"{r['device_ms'] * 1e3:.2f}){lib} on {card}")
     for e in main["levels"]:
         copy = e["wrapper_device_ms_by_kernel"].get("interleave_values_kernel", 0.0)
         print(f"gspmm_min_planes sssp level {e['level']} ({e['frontier']} frontier bits in "
@@ -1244,8 +1389,9 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     check_ragged()
-    print("ragged shapes: pack (b=1..32, bool/uint8/int32) and popcount_planes on both "
-          "routes, unpack (b=1..32), popcount_blocks, popcount_words, "
+    print("ragged shapes: pack (b=1..32, bool/uint8/int32), popcount_planes and "
+          "interleave_values (B = 2..17, sentinel columns untouched) on both routes, "
+          "frontier_mask, unpack (b=1..32), popcount_blocks, popcount_words, "
           "spmv push/pull (B planes and one): exact")
 
     setup = graph500.build(args.scale, 16, 1, "hybrid", "cuda")

@@ -32,11 +32,25 @@
 // 8g + q's bit c: one byte per column holds all 8 planes of a pass, 4 MB at
 // scale 22 and B = 8, which stays in L2.  The bitmaps are in the vertical
 // layout (value i of a 1024-value chunk in word i % 32, bit (i % 1024) / 32),
-// so one source word holds 32 columns lying 32 apart: a block stages its
-// chunks' 32 x 8 words in shared memory and writes each chunk's 1024 mask
-// bytes as coalesced 4-byte stores.  (2) One thread per row loads its slots
-// 4 at a time, as one 16-byte evict-first vector when K % 4 == 0 and the slab
-// is 16-byte aligned, as scalars otherwise (kVec); the state fits 38
+// so one source word holds 32 columns lying 32 apart.  One warp takes a
+// chunk of a group of 8 planes (more groups on blockIdx.y, planes past B
+// read as clear): lane w loads word w of each of the 8 planes, 8 coalesced
+// 128-byte loads a warp, and holds columns w + 32 b at bit b.  Its 32 mask
+// bytes are four 8 x 8 bit transposes: eight byte permutes gather byte j of
+// the 8 words into one 64-bit value (row q = plane q), and three delta swaps
+// transpose it, so byte i is the mask byte of column w + 32 (8j + i).  That
+// is ~3 instructions a column where a bit-at-a-time gather took ~40 (8
+// shared loads, shifts, ands and ors a byte): that first design issued
+// ~5.3 M warp instructions at (8, 4,194,304), about 5.5 us across 132 SMs,
+// for 8.4 MB (2.50 us) of bytes, and took 7.11 us of device time.  The
+// lane writes its bytes to the warp's 1 KB of shared memory at their
+// column's offset (bytes of one word from different lanes do not
+// conflict), and the warp writes the chunk as two 16-byte stores a lane.
+// It takes 3.22 us of device time at (8, 4,194,304), 78% of its bound
+// (chip_smoke.py on an H100 80GB HBM3 at 700 W, PERF.md).  (2) One thread
+// per row loads its slots 4 at a time, as one 16-byte evict-first vector
+// when K % 4 == 0 and the slab is 16-byte aligned, as scalars otherwise
+// (kVec); the state fits 38
 // registers at B > 1 with vector loads (ptxas -v), 48 of an SM's 64 warp
 // slots.  A sentinel slot is dropped by one compare; a real slot costs one
 // mask byte ANDed with the live planes (every plane of the pass in push; in
@@ -59,51 +73,74 @@
 namespace {
 
 constexpr int kThreads = 128;      // rows per block of the ELL kernels
-constexpr int kTileThreads = 256;  // the mask and interleave kernels' blocks
-constexpr int kInterleaveCols = 8;  // columns per thread of the interleave kernel
+constexpr int kTileThreads = 256;  // the interleave kernel's block
+constexpr int kInterleaveCols = 4;  // columns a thread of the interleave kernel (one int4)
 constexpr int kPlanesPerPass = 8;  // the bits of one mask byte
-constexpr int kMaskChunks = 4;     // 1024-column chunks per mask block
+constexpr int kMaskWarps = 8;      // 1024-column chunks per mask block, one a warp
+static_assert(kInterleaveCols == 4, "the interleave kernel loads a plane's columns as one int4");
 constexpr int kEllSlots = 4;       // slab slots per step (one int4)
 constexpr int kGatherSlots = 8;    // in the value gather (two int4)
 
+// Bytes j of a0..a3 -> b[j] (byte q of b[j] is byte j of a_q): a 4 x 4
+// byte transpose in eight byte permutes.
+__device__ __forceinline__ void transpose_bytes(uint32_t a0, uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint32_t (&b)[4]) {
+  const uint32_t t0 = __byte_perm(a0, a1, 0x5140), t1 = __byte_perm(a0, a1, 0x7362);
+  const uint32_t t2 = __byte_perm(a2, a3, 0x5140), t3 = __byte_perm(a2, a3, 0x7362);
+  b[0] = __byte_perm(t0, t2, 0x5410);
+  b[1] = __byte_perm(t0, t2, 0x7632);
+  b[2] = __byte_perm(t1, t3, 0x5410);
+  b[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Transpose of the 8 x 8 bit matrix whose row r is byte r of (hi:lo), column
+// c its bit c: three delta swaps (Hacker's Delight 7-3) on the two halves;
+// the first two stay within a half, the third crosses them.
+__device__ __forceinline__ void transpose_bits8(uint32_t& lo, uint32_t& hi) {
+  uint32_t t;
+  t = (lo ^ (lo >> 7)) & 0x00AA00AAu; lo ^= t ^ (t << 7);
+  t = (hi ^ (hi >> 7)) & 0x00AA00AAu; hi ^= t ^ (t << 7);
+  t = (lo ^ (lo >> 14)) & 0x0000CCCCu; lo ^= t ^ (t << 14);
+  t = (hi ^ (hi >> 14)) & 0x0000CCCCu; hi ^= t ^ (t << 14);
+  t = (lo ^ (hi << 4)) & 0xF0F0F0F0u; lo ^= t; hi ^= t >> 4;
+}
+
 // f: (planes, wf) vertical words, wf = n_cols / 32; mask: (groups, n_cols)
-// bytes viewed as uint32.  Block (kMaskChunks chunks, group): all their 8
-// planes x 32 words loaded at once, then each chunk's 1024 bytes out, 4 per
-// thread.
-__global__ void __launch_bounds__(kTileThreads)
-    frontier_mask_kernel(const uint32_t* __restrict__ f, uint32_t* __restrict__ mask,
+// bytes.  Warp w of block (x, g) takes chunk kMaskWarps x + w of group g;
+// see the head note.
+__global__ void __launch_bounds__(kMaskWarps * 32)
+    frontier_mask_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ mask,
                          int planes, int64_t wf, int64_t n_cols) {
-  __shared__ uint32_t words[kMaskChunks][kPlanesPerPass][32];
-  const int64_t n_chunks = n_cols / rt::kChunk;
-  const int64_t chunk0 = static_cast<int64_t>(blockIdx.x) * kMaskChunks;
+  __shared__ __align__(16) uint8_t stage[kMaskWarps][rt::kChunk];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kMaskWarps + warp;
+  if (chunk >= n_cols / rt::kChunk) return;  // warp-uniform
   const int g = blockIdx.y;
-  const int t = threadIdx.x;
-  const int p = g * kPlanesPerPass + (t >> 5);
+  uint32_t w[kPlanesPerPass];  // lane: columns lane + 32 b of the chunk at bit b
 #pragma unroll
-  for (int i = 0; i < kMaskChunks; ++i) {
-    const int64_t chunk = chunk0 + i;
-    words[i][t >> 5][t & 31] =
-        p < planes && chunk < n_chunks ? __ldg(f + p * wf + chunk * 32 + (t & 31)) : 0u;
+  for (int q = 0; q < kPlanesPerPass; ++q) {
+    const int p = g * kPlanesPerPass + q;
+    w[q] = p < planes ? __ldg(f + p * wf + chunk * 32 + lane) : 0u;
   }
-  __syncthreads();
-  // values 4t .. 4t+3 of a chunk: words (4t % 32) + j, bit 4t / 32
-  const int w0 = (4 * t) & 31;
-  const int shift = t >> 3;
+  uint32_t lo[4], hi[4];  // [j]: byte j of every plane, planes 0-3 / 4-7
+  transpose_bytes(w[0], w[1], w[2], w[3], lo);
+  transpose_bytes(w[4], w[5], w[6], w[7], hi);
+  uint8_t* s = stage[warp];
 #pragma unroll
-  for (int i = 0; i < kMaskChunks; ++i) {
-    const int64_t chunk = chunk0 + i;
-    if (chunk >= n_chunks) break;
-    uint32_t packed = 0;
+  for (int j = 0; j < 4; ++j) {
+    transpose_bits8(lo[j], hi[j]);  // byte i: the mask byte of column lane + 32 (8j + i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t byte = 0;
-#pragma unroll
-      for (int q = 0; q < kPlanesPerPass; ++q)
-        byte |= ((words[i][q][w0 + j] >> shift) & 1u) << q;
-      packed |= byte << (8 * j);
+    for (int i = 0; i < 4; ++i) {
+      s[(8 * j + i) * 32 + lane] = static_cast<uint8_t>(lo[j] >> (8 * i));
+      s[(8 * j + 4 + i) * 32 + lane] = static_cast<uint8_t>(hi[j] >> (8 * i));
     }
-    mask[(g * n_cols + chunk * rt::kChunk) / 4 + t] = packed;
   }
+  __syncwarp();
+  uint4* dst = reinterpret_cast<uint4*>(mask + g * n_cols + chunk * rt::kChunk);
+  const uint4* src = reinterpret_cast<const uint4*>(s);
+  dst[lane] = src[lane];
+  dst[32 + lane] = src[32 + lane];
 }
 
 // Slots d .. d + kN - 1 of a row; -1 (dropped by the unsigned column
@@ -211,10 +248,10 @@ void launch_ell(const EllArgs& a, cudaStream_t s) {
 // 1024; mask: (ceil(planes / 8), n_cols) uint8.
 RT_API int rt_frontier_mask(const void* f, void* mask, long long n_cols, int planes,
                             long long wf, void* stream) {
-  const dim3 grid(static_cast<unsigned>((n_cols / rt::kChunk + kMaskChunks - 1) / kMaskChunks),
+  const dim3 grid(static_cast<unsigned>((n_cols / rt::kChunk + kMaskWarps - 1) / kMaskWarps),
                   static_cast<unsigned>((planes + kPlanesPerPass - 1) / kPlanesPerPass));
-  frontier_mask_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(f), static_cast<uint32_t*>(mask), planes, wf, n_cols);
+  frontier_mask_kernel<<<grid, kMaskWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(f), static_cast<uint8_t*>(mask), planes, wf, n_cols);
   return rt::launch_status();
 }
 
@@ -288,6 +325,29 @@ RT_API int rt_spmv_min_planes(const void* nbr, const void* mask, const void* f, 
 //   (few planes a hit column) it costs up to 60 us, and neither the
 //   frontier's bit count nor a per-column choice picks the better layout
 //   for less (PERF.md; chip_smoke.py times both layouts at every level).
+//   The copy is bound by bytes, read a sector at a time: at the densest
+//   level almost every 32-byte sector of every plane of x holds a set bit,
+//   so it reads nearly all of x (134 MB at scale 22) and writes 32 bytes a
+//   written column.  A thread takes 4 consecutive columns: one 4-byte load
+//   of their mask bytes, then one 16-byte evict-first load of x[q, c..c+3]
+//   for each plane q with a bit in any of the 4 bytes, all issued before any
+//   select (the first design loaded one 4-byte value a set bit, behind a
+//   branch a column, and moved its traffic at ~2.3 TB/s).  Registers hold
+//   the 4 x 8 transpose; INF where a bit is clear or the plane is past B.
+//   The stores go through the warp's 4 KB of shared memory (a swizzled slot
+//   per 16-byte half-column, conflict-free both ways), so each warp store
+//   writes 512 contiguous bytes, and a half-column is stored only where its
+//   column's byte is nonzero (read from its owner lane by a shuffle).
+//   Storing each thread's own 4 columns directly (two int4 each, 128 bytes
+//   apart across a warp: 32 lines a store) measured slower than the first
+//   design at dense inputs and is not kept.  Unaligned rows and the ragged
+//   tail take scalar loads in the same kernel (kVec).  At the densest SSSP
+//   level of scale 22 the copy writes 2.38 M columns and reads 4.17 M
+//   sectors of x: a sector-granular floor of 213.8 MB, 63.8 us, against
+//   81.0 us of device time (96.0 us for the first design; bound 44.2 us
+//   for the set bits alone); at an all-set mask it takes 93.6 us, where
+//   the transpose copy x.view(g, 8, n_x).transpose(1, 2).contiguous()
+//   takes 129.1 us (chip_smoke.py on an H100 80GB HBM3 at 700 W, PERF.md).
 // - pull: only the planes where the row is unreached gather, and the copy
 //   would not pay (210 us against 208 + 93 us at the densest level): x is
 //   read as it is.  So is the one plane of B = 1 (kMask = false).
@@ -377,40 +437,78 @@ __global__ void __launch_bounds__(kThreads)
 // x: (planes, n_x) int32 and the frontier mask (groups, n_cols) -> xi:
 // (groups, n_x, 8) int32 viewed as int4 pairs.  For each column c < n_x
 // whose mask byte mask[g, c] is nonzero, xi[g, c, q] = x[8g + q, c] where
-// bit q is set, INF where it is clear; no other column is written, and the
-// gather reads no other (it reads a column's pair only when its byte hits,
-// and uses only the set bits).  A block takes 2048 columns of
-// a group, thread t the 8 columns c0 + t + 256 j: the byte loads, the value
-// loads of a plane and the int4 stores of a warp each cover consecutive
-// columns, and a thread's loads are independent of each other, so a sparse
-// copy costs the mask's stream and little else (no shared memory, no
-// barrier).
+// bit q is set and 8g + q < planes, INF otherwise; no other column is
+// written, and the gather reads no other (it reads a column's pair only when
+// its byte hits, and uses only the set bits).  Thread t of the grid takes
+// columns 4t .. 4t + 3 of group g (the value gather's note above).  kVec:
+// x's rows 16-byte aligned and the mask's rows 4-byte aligned.
+template <bool kVec>
 __global__ void __launch_bounds__(kTileThreads)
     interleave_values_kernel(const int* __restrict__ x, const uint8_t* __restrict__ mask,
-                             int4* __restrict__ xi, int n_x, int n_cols) {
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kInterleaveCols * kTileThreads;
+                             int4* __restrict__ xi, int n_x, int n_cols, int planes) {
+  // a warp's 128 columns as 256 half-columns of 16 bytes; half-column 8t + j
+  // of the warp sits in slot 8t + (j ^ (t & 7)), so neither the writes (lane
+  // t, slots 8t + j) nor the reads (lane l, slots 32r + l) conflict
+  __shared__ int4 stage[kTileThreads / 32][32 * kInterleaveCols * 2];
+  const int lane = threadIdx.x & 31;
   const int g = blockIdx.y;
-  const int t = threadIdx.x;
+  const int64_t c = kInterleaveCols * (static_cast<int64_t>(blockIdx.x) * kTileThreads +
+                                       threadIdx.x);
   const int n = min(n_x, n_cols);  // the columns with both a value and a byte
-  uint32_t bits[kInterleaveCols];
+  const uint32_t live = (1u << min(kPlanesPerPass, planes - kPlanesPerPass * g)) - 1u;
+  const uint8_t* m = mask + static_cast<int64_t>(g) * n_cols + c;
+  const int* xg = x + static_cast<int64_t>(g) * kPlanesPerPass * n_x + c;
+  uint32_t bytes;  // the 4 columns' mask bytes; a column is written where its byte is not 0
+  uint32_t b[kInterleaveCols];  // the same bytes, planes below `planes` only
+  int v[kPlanesPerPass][kInterleaveCols];
+  if (kVec && c + kInterleaveCols <= n) {
+    bytes = __ldg(reinterpret_cast<const uint32_t*>(m));
 #pragma unroll
-  for (int j = 0; j < kInterleaveCols; ++j) {
-    const int64_t c = c0 + j * kTileThreads + t;
-    bits[j] = c < n ? __ldg(mask + static_cast<int64_t>(g) * n_cols + c) : 0u;
-  }
+    for (int k = 0; k < kInterleaveCols; ++k) b[k] = (bytes >> (8 * k)) & live;
+    const uint32_t any = b[0] | b[1] | b[2] | b[3];
+    // one 16-byte load a plane with a bit in any of the 4 bytes, all
+    // issued before any select
 #pragma unroll
-  for (int j = 0; j < kInterleaveCols; ++j) {
-    if (bits[j] == 0) continue;
-    const int64_t c = c0 + j * kTileThreads + t;
-    int v[kPlanesPerPass];
+    for (int q = 0; q < kPlanesPerPass; ++q) {
+      int4 t = make_int4(rt::kInf, rt::kInf, rt::kInf, rt::kInf);
+      if ((any >> q) & 1u)
+        t = __ldcs(reinterpret_cast<const int4*>(xg + static_cast<int64_t>(q) * n_x));
+      v[q][0] = t.x; v[q][1] = t.y; v[q][2] = t.z; v[q][3] = t.w;
+    }
+  } else {  // a misaligned row or the ragged tail: scalars
+    bytes = 0;
+#pragma unroll
+    for (int k = 0; k < kInterleaveCols; ++k) {
+      if (c + k < n) bytes |= static_cast<uint32_t>(__ldg(m + k)) << (8 * k);
+      b[k] = (bytes >> (8 * k)) & live;
+    }
 #pragma unroll
     for (int q = 0; q < kPlanesPerPass; ++q)
-      v[q] = (bits[j] >> q) & 1u
-                 ? __ldcs(x + static_cast<int64_t>(g * kPlanesPerPass + q) * n_x + c)
-                 : rt::kInf;
-    int4* dst = xi + (static_cast<int64_t>(g) * n_x + c) * 2;
-    dst[0] = make_int4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_int4(v[4], v[5], v[6], v[7]);
+#pragma unroll
+      for (int k = 0; k < kInterleaveCols; ++k)
+        v[q][k] = (b[k] >> q) & 1u ? __ldcs(xg + static_cast<int64_t>(q) * n_x + k) : rt::kInf;
+  }
+  if (__ballot_sync(0xffffffffu, bytes != 0) == 0) return;  // warp-uniform
+  // the 4 x 8 transpose: column k's 8 planes, INF where the bit is clear
+  int4* s = stage[threadIdx.x >> 5];
+#pragma unroll
+  for (int k = 0; k < kInterleaveCols; ++k) {
+    int o[kPlanesPerPass];
+#pragma unroll
+    for (int q = 0; q < kPlanesPerPass; ++q) o[q] = (b[k] >> q) & 1u ? v[q][k] : rt::kInf;
+    s[8 * lane + ((2 * k) ^ (lane & 7))] = make_int4(o[0], o[1], o[2], o[3]);
+    s[8 * lane + ((2 * k + 1) ^ (lane & 7))] = make_int4(o[4], o[5], o[6], o[7]);
+  }
+  __syncwarp();
+  // 512 contiguous bytes a warp store; a half-column is stored where its
+  // column's byte (held by lane t) is nonzero
+  int4* dst = xi + (static_cast<int64_t>(g) * n_x + (c - kInterleaveCols * lane)) * 2;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int h = 32 * r + lane;
+    const int t = h >> 3;
+    const uint32_t owner = __shfl_sync(0xffffffffu, bytes, t);
+    if ((owner >> (8 * ((h >> 1) & 3))) & 0xFFu) dst[h] = s[8 * t + ((h & 7) ^ (t & 7))];
   }
 }
 
@@ -457,17 +555,24 @@ void launch_gspmm(const GspmmArgs& a, bool vec, cudaStream_t s) {
 
 // x: (planes, n_x) int32, mask: (ceil(planes / 8), n_cols) uint8 -> xi:
 // (ceil(planes / 8), n_x, 8) int32, written for the columns whose byte is
-// nonzero, the others left as they were.
+// nonzero, the others left as they were.  vec != 0: x 16-byte aligned with
+// n_x % 4 == 0, the mask 4-byte aligned with n_cols % 4 == 0.
 RT_API int rt_interleave_values(const void* x, const void* mask, void* xi, int planes,
-                                int n_x, int n_cols, void* stream) {
+                                int n_x, int n_cols, int vec, void* stream) {
   const int n = n_x < n_cols ? n_x : n_cols;
   if (n <= 0) return rt::launch_status();  // no column to write
   constexpr int kCols = kInterleaveCols * kTileThreads;
   const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
                   static_cast<unsigned>((planes + kPlanesPerPass - 1) / kPlanesPerPass));
-  interleave_values_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<const uint8_t*>(mask), static_cast<int4*>(xi),
-      n_x, n_cols);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xs = static_cast<const int*>(x);
+  const auto* ms = static_cast<const uint8_t*>(mask);
+  auto* out = static_cast<int4*>(xi);
+  if (vec)
+    interleave_values_kernel<true><<<grid, kTileThreads, 0, s>>>(xs, ms, out, n_x, n_cols, planes);
+  else
+    interleave_values_kernel<false><<<grid, kTileThreads, 0, s>>>(xs, ms, out, n_x, n_cols,
+                                                                  planes);
   return rt::launch_status();
 }
 

@@ -73,14 +73,33 @@ def interleave_values(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if not kernels.on_cuda(x, mask):
         return ref.interleave_values(x, mask)
     xi = torch.empty((mask.shape[0], n_x, 8), dtype=torch.int32, device=x.device)
-    if xi.numel() == 0:
-        return xi
-    if n_x >= 2**31 or mask.shape[1] >= 2**31:
+    if xi.numel():
+        _interleave_into(x, mask, xi)
+    return xi
+
+
+def interleave_vec(x: torch.Tensor, mask: torch.Tensor) -> int:
+    """1 when the interleave kernel may load 4 columns of ``x`` as one
+    16-byte vector and their 4 mask bytes as one word (every row of both
+    aligned), 0 when it loads scalars."""
+    return int(kernels.vec_rows(x) and mask.data_ptr() % 4 == 0 and mask.shape[1] % 4 == 0)
+
+
+def _interleave_into(x: torch.Tensor, mask: torch.Tensor, xi: torch.Tensor) -> None:
+    """Launch the interleave kernel on checked CUDA inputs into ``xi``, a
+    contiguous (ceil(B/8), n_x, 8) int32 tensor: the columns whose mask
+    byte is nonzero are written, the others keep what they held."""
+    if (xi.shape != (mask.shape[0], x.shape[1], 8) or xi.dtype != torch.int32
+            or not xi.is_contiguous()):
+        raise ValueError(f"xi {tuple(xi.shape)} {xi.dtype} is not a contiguous (groups, n_x, "
+                         "8) int32 output")
+    if x.shape[1] >= 2**31 or mask.shape[1] >= 2**31:
         raise ValueError("n_x and n_cols must fit int32")
     kernels.launch(INTERLEAVE_KERNEL, "rt_interleave_values",
-                   (kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32),
-                   x.data_ptr(), mask.data_ptr(), xi.data_ptr(), planes, n_x, mask.shape[1])
-    return xi
+                   (kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
+                    kernels.I32),
+                   x.data_ptr(), mask.data_ptr(), xi.data_ptr(), x.shape[0], x.shape[1],
+                   mask.shape[1], interleave_vec(x, mask))
 
 
 def _mask(f_words: torch.Tensor):

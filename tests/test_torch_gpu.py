@@ -142,6 +142,69 @@ def test_spmv_cases_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_frontier_mask_ragged_matches_plain_on_card(cuda):
+    """The frontier mask kernel against its plain version, exactly, at B in
+    {1, 2, 7, 8, 9, 16, 17} over 1, 3, 5 and 9 chunks (no multiple of 4,096
+    columns), and on all-zero and all-set words; one launch a call."""
+    import chip_smoke
+    from repro_torch.kernels.spmv import ref as sp_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cases = chip_smoke.mask_ragged_inputs(gen, cuda)
+    assert {f.shape[0] for _, f in cases} == {1, *chip_smoke.HELPER_PLANES}
+    for label, f in cases:
+        kernels.reset_launches()
+        got = sp_ops.frontier_mask(f)
+        assert dict(kernels.LAUNCHES) == {"frontier_mask": 1}, label
+        assert torch.equal(got, sp_ref.frontier_mask(f)), label
+    mask = sp_ops.frontier_mask(dict(cases)["all-set B=9"])
+    assert mask[0].eq(255).all() and mask[1].eq(1).all()
+
+
+@pytest.mark.gpu
+def test_interleave_values_ragged_matches_plain_on_card(cuda):
+    """The interleave kernel against its plain version, exactly, on
+    ``chip_smoke.interleave_ragged_inputs`` (B in {2, 7, 8, 9, 16, 17}, n_x
+    equal to, below and above n_cols, ragged widths, random / all-zero /
+    all-set masks, x and the mask as misaligned views), both routes taken;
+    written into an output pre-filled with a sentinel, every column whose
+    mask byte is 0 keeps the sentinel, and an all-zero mask writes nothing."""
+    import chip_smoke
+    from repro_torch.kernels.spmv import ref as sp_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cases = chip_smoke.interleave_ragged_inputs(gen, cuda)
+    assert {sp_ops.interleave_vec(x, m) for _, x, m in cases} == {0, 1}
+    kernels.reset_launches()
+    for label, x, m in cases:
+        want = sp_ref.interleave_values(x, m)
+        written = chip_smoke.interleaved_columns(m, x.shape[1]) > 0
+        xi = torch.full(want.shape, chip_smoke.SENTINEL, dtype=torch.int32, device=cuda)
+        sp_ops._interleave_into(x, m, xi)
+        assert torch.equal(xi[written], want[written]), label
+        assert bool((xi[~written] == chip_smoke.SENTINEL).all()), label
+        if label.startswith("all-zero"):
+            assert not written.any() and bool((xi == chip_smoke.SENTINEL).all()), label
+    assert dict(kernels.LAUNCHES) == {"interleave_values": len(cases)}
+
+
+@pytest.mark.gpu
+def test_interleave_values_all_set_is_the_transpose_on_card(cuda):
+    """At an all-set mask the kernel writes every column, and its output is
+    the plane transpose ``x.view(g, 8, n_x).transpose(1, 2)`` (the library
+    call chip_smoke.py times beside it); planes past B read INF."""
+    from repro_torch.kernels.spmv import ref as sp_ref
+
+    for planes, n_x in ((8, 8192), (16, 4100), (9, 1001)):
+        x = torch.randint(0, 2**31 - 1, (planes, n_x), device=cuda, dtype=torch.int32)
+        groups = -(-planes // 8)
+        full = torch.full((groups, n_x), 255, dtype=torch.uint8, device=cuda)
+        padded = torch.nn.functional.pad(x, (0, 0, 0, 8 * groups - planes), value=sp_ref.INF)
+        want = padded.view(groups, 8, n_x).transpose(1, 2)
+        assert torch.equal(sp_ops.interleave_values(x, full), want), (planes, n_x)
+
+
+@pytest.mark.gpu
 def test_gspmm_value_layouts_agree_on_card(cuda):
     """The value gather reads the same answer from both value layouts, on
     every ``chip_smoke.SPMV_CASES`` input with more than one plane: push

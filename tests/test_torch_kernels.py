@@ -212,6 +212,26 @@ def test_frontier_mask_matches_jax_bitmap(planes, n_real):
         assert not (mask[-1] >> (planes % 8)).any()
 
 
+@pytest.mark.parametrize("planes", [1, 7, 8, 9, 16])
+@pytest.mark.parametrize("n_x,n_cols", [(4096, 4096), (1001, 1024), (5000, 4096)])
+def test_interleave_values_all_set_is_the_transpose(planes, n_x, n_cols):
+    """At an all-set mask the plain interleave is the plane transpose
+    ``x.view(g, 8, n_x).transpose(1, 2)`` of x padded to 8g planes with INF
+    (the PyTorch call chip_smoke.py times beside the kernel), over every
+    column the mask covers; columns past n_cols have no byte and read INF."""
+    rng = np.random.default_rng(planes * 31 + n_x)
+    x = torch.from_numpy(rng.integers(0, sp_ref.INF, size=(planes, n_x)).astype(np.int32))
+    groups = -(-planes // 8)
+    full = torch.full((groups, n_cols), 0xFF, dtype=torch.uint8)
+    padded = torch.nn.functional.pad(x, (0, 0, 0, 8 * groups - planes), value=sp_ref.INF)
+    want = padded.view(groups, 8, n_x).transpose(1, 2)
+    got = sp_ops.interleave_values(x, full)
+    assert got.shape == (groups, n_x, 8) and got.dtype == torch.int32
+    cover = min(n_x, n_cols)
+    assert torch.equal(got[:, :cover], want[:, :cover])
+    assert bool((got[:, cover:] == sp_ref.INF).all())
+
+
 @pytest.mark.parametrize("i", range(len(chip_smoke.SPMV_CASES)),
                          ids=[c[0] for c in chip_smoke.SPMV_CASES])
 def test_spmv_cases_match_jax(i):
