@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
 Drives the port's paths on one NVIDIA card: the single-device Graph500
-BFS, the 2D-distributed one on a simulated grid, the frontier algebras on
-both, and the 2D GNN forward with int8 payloads:
+BFS, the paper's frontier and codec study, the 2D-distributed BFS on a
+simulated grid, the frontier algebras on both, and the 2D GNN forward with
+int8 payloads:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -20,12 +21,24 @@ both, and the 2D GNN forward with int8 payloads:
    the single-device path's shapes (B=8 planes of the scale-S graph, its
    hybrid slab, a real frontier and unreached plane), and times kernel
    (CUDA events, and the profiler's device time) and plain version
-   (popcount_planes also at CC's single plane);
+   (popcount_planes also at CC's single plane); popcount_blocks on inputs
+   that take both of its routes (W = 1, 7, 1,500, 3 x 1,024 + 3, views one
+   word into their storage);
 4. runs the Graph500 harness (scale S, edgefactor 16, seed 1, 64 valid
    roots in batches of 8, ``direction_opt`` + ``hybrid``, every tree
    validated) with the launch counts zeroed just before and read just
    after; every kernel of the path must have launched;
-5. partitions the same graph onto a simulated 2x2 grid and runs the
+5. the paper's frontier and codec study (Fig 5.2, Tables 5.3-5.5:
+   ``repro_torch.bench.frontier_stats`` and ``.codecs``) at the reference's
+   defaults (scale 14, root 0) and on the scale-S graph of step 4 from its
+   first valid root, counts zeroed before and read after: each level's
+   count comes from ``DensityOracle.local_count`` on the card (pack and
+   ``popcount_blocks``, at least one launch a level); the rows are printed,
+   the codec speeds labelled with the host CPU.  Then popcount_blocks at
+   the densest level's packed frontier, at one 1024-word block (the
+   launch's floor) and at the scale-26 shape, exact and timed beside its
+   bound, and ``local_count`` on the card against the bit sums;
+6. partitions the same graph onto a simulated 2x2 grid and runs the
    distributed BFS (``auto`` + ``direction_opt`` + ``hybrid``) on 16 of
    the roots in batches of 8, counts zeroed before and read after: every
    tree valid, every kernel of the path launched, the first batch equal to
@@ -36,13 +49,13 @@ both, and the 2D GNN forward with int8 payloads:
    every bucket it used, what it unpacks); each is held against its plain
    version exactly and timed beside its bound, as is unpack on a 16-bit id
    stream at cap 16,384;
-6. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
+7. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
    ``direction_opt`` on the card, single-device and on the 2x2 grid under
    ``raw``, ``bitmap`` and ``auto``, and ``direction_opt`` on the CPU give
    bit-identical parents, levels and level counts; so do ``sssp`` and
    ``cc`` under every policy on the card, single-device and on the grid
    under every plan, against ``top_down`` on the CPU;
-7. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
+8. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
    kernel ``gspmm_min_planes`` and its ``interleave_values`` helper against
    their plain versions at the path's own inputs (a real SSSP level of 8
    planes, push and pull, both ops; one rank's slab of the 2x2 grid with its
@@ -57,7 +70,7 @@ both, and the 2D GNN forward with int8 payloads:
    grid under ``auto`` equal the single-device ones (PageRank within a
    float32 bound), and the first SSSP batch again under ``raw`` gives the
    per-phase bytes of both plans;
-8. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
+9. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
    16 layers, d_hidden 512, 227 variables, on the refinement-6 multimesh,
    40,962 nodes, over a simulated 2x2 grid): one int8 forward records the
    inputs the path gives the ``quantize`` kernel (the owned chunk and the
@@ -147,6 +160,14 @@ ALGEBRA_PATHS = {"sssp": ("gspmm_min_planes", "frontier_mask", "interleave_value
 #: in-edges in another order, a few ulp of relative error per vertex
 PAGERANK_GRID_L1 = 1e-5
 GNN_PATH = ("quantize",)
+#: the paper's frontier and codec study: each level's count by local_count
+STUDY_PATH = ("pack", "popcount_blocks")
+STUDY_SCALE = 14  # the reference harnesses' default scale
+STUDY_LEVEL = 3  # the codec study's frontier (the reference's default level)
+#: popcount_blocks beside its main input: one 1024-word block (the launch's
+#: fixed cost on this card) and the packed frontier of a scale-26 graph
+#: (Graph500's smallest class)
+BLOCK_INPUTS = {"one block": 1024, "scale-26 shape": (1 << 26) // 32}
 #: fp32 2D against single-device GraphCast: the same float32 products, the
 #: aggregates summed in another order (per block, then over the grid's
 #: columns) through 16 residual layers whose outputs reach ~1e12 (random
@@ -283,6 +304,25 @@ def popcount_ragged_inputs(gen, dev) -> list:
     return cases
 
 
+def blocks_ragged_inputs(gen, dev) -> list:
+    """(label, words) inputs of popcount_blocks that take both of its routes
+    (16-byte loads over the full 1024-word blocks of an aligned base, scalar
+    loads for the ragged last block and a misaligned base): W = 1, 7, 1,500,
+    3 x 1,024 + 3 and whole blocks, views one word into their storage,
+    all-ones words."""
+    import torch
+
+    cases = []
+    for w in (1, 7, 1024, 1500, 3 * 1024 + 3, 5000, 8192, 33 * 1024):
+        words = torch.randint(-2**31, 2**31 - 1, (w,), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+        cases.append((f"w={w}", words))
+        if w in (1500, 3 * 1024 + 3, 8192):
+            cases.append((f"w={w} 1 word in", offset_view(words)))
+    cases.append(("all-ones w=4100", torch.full((4100,), -1, dtype=torch.int32, device=dev)))
+    return cases
+
+
 #: the plane counts the two ELL helpers are held to on ragged inputs: part
 #: of one mask byte, a full byte, one bit past it, two full bytes, one bit
 #: past them
@@ -366,9 +406,9 @@ def check_helpers_ragged(dev) -> set:
 
 def check_ragged() -> None:
     """Exact kernel-vs-plain agreement on small ragged shapes: pack,
-    popcount_planes and interleave_values on inputs that take both of their
-    routes (16-byte vectors and scalars), frontier_mask beside it; unpack,
-    popcount_blocks, popcount_words; the SpMV kernels on SPMV_CASES."""
+    popcount_planes, interleave_values and popcount_blocks on inputs that
+    take both of their routes (16-byte vectors and scalars), frontier_mask
+    beside them; unpack, popcount_words; the SpMV kernels on SPMV_CASES."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
@@ -396,9 +436,12 @@ def check_ragged() -> None:
     words = torch.randint(-2**31, 2**31 - 1, (5, 1500), generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
     expect(same(pc_ops.popcount_words(words), pc_ref.popcount_words(words)), 'popcount_words')
-    for w in (7, 1024, 1500, 5000):
-        expect(same(pc_ops.popcount_blocks(words.reshape(-1)[:w]),
-                    pc_ref.popcount_blocks(words.reshape(-1)[:w])), ('popcount_blocks', w))
+    routes["popcount_blocks"] = set()
+    for label, w in blocks_ragged_inputs(gen, dev):
+        expect(same(pc_ops.popcount_blocks(w), pc_ref.popcount_blocks(w)),
+               ("popcount_blocks", label))
+        routes["popcount_blocks"].add(int(w.data_ptr() % 16 == 0 and w.numel() >= 1024))
+    expect(routes["popcount_blocks"] == {0, 1}, ("popcount_blocks routes", routes))
     check_spmv_cases("cuda")
 
 
@@ -590,9 +633,6 @@ def main_shape_rows(setup, roots):
             "popcount_planes": (lambda: pc_ops.popcount_planes(f),
                                 lambda: pc_ref.popcount_planes(f),
                                 planes * wf * 4 + planes * 4, 2 * planes * wf),
-            "popcount_blocks": (lambda: pc_ops.popcount_blocks(f[0]),
-                                lambda: pc_ref.popcount_blocks(f[0]),
-                                wf * 4 + -(-wf // 1024) * 4, 2 * wf),
             "spmv_min_planes": (lambda: sp_ops.spmv_min_planes(nbr, f, n_cp),
                                 lambda: sp_ref.spmv_min_planes(nbr, f, n_cp),
                                 r * k * 4 + planes * wf * 4 + planes * r * 4,
@@ -732,6 +772,137 @@ def require_launched(counts: dict, kernels_of_path, path: str) -> None:
     missing = [k for k in kernels_of_path if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of the {path} path never launched: {missing}")
+
+
+@contextlib.contextmanager
+def capture_blocks():
+    """While active, keep every input the path gives ``popcount_blocks``."""
+    from repro_torch.kernels.popcount import ops as pc_ops
+
+    kept = []
+    real = pc_ops.popcount_blocks
+
+    def run(words):
+        kept.append(words)
+        return real(words)
+
+    pc_ops.popcount_blocks = run
+    try:
+        yield kept
+    finally:
+        pc_ops.popcount_blocks = real
+
+
+def check_local_count() -> None:
+    """The density oracle's ``local_count`` on the card equals the sum of its
+    bits: n not a multiple of the 1024-bit chunk, packed words not a multiple
+    of the 1024-word block, and a scale-22 plane; densities 0 to 1."""
+    import torch
+    from repro_torch.core import traversal
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for n in (3000, 33 * 1024, 1 << 22):
+        oracle = traversal.DensityOracle(n)
+        for density in (0.0, 0.01, 0.5, 1.0):
+            bits = torch.rand(n, generator=gen, device="cuda") < density
+            got = oracle.local_count(bits)
+            expect(got.dtype == torch.int32 and got.device.type == "cuda"
+                   and int(got) == int(bits.sum()), ("local_count", n, density, int(got)))
+
+
+def blocks_row(words, shape) -> dict:
+    """``popcount_blocks`` against its plain version at the study path's own
+    input (``words``: a level's frontier packed by ``local_count``), and at
+    BLOCK_INPUTS (random words, seed 5), each timed beside its byte bound
+    (every word read once, one int32 written a block).  The one-block time
+    is the row's ``floor``: the launch's fixed cost on this card.  Returns
+    the main row and the others."""
+    import torch
+    from repro_torch.kernels.popcount import ops as pc_ops, ref as pc_ref
+
+    def row(w, shape):
+        blocks = -(-w.numel() // pc_ref.BLOCK_WORDS)
+        return _row("popcount_blocks", lambda: pc_ops.popcount_blocks(w),
+                    lambda: pc_ref.popcount_blocks(w), w.numel() * 4 + blocks * 4,
+                    2 * w.numel(), {"words": w.numel(), **shape})
+
+    main = row(words, shape)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    others = [row(torch.randint(-2**31, 2**31 - 1, (w,), generator=gen, device="cuda",
+                                dtype=torch.int64).to(torch.int32), {"input": what})
+              for what, w in BLOCK_INPUTS.items()]
+    main["floor_ms"], main["floor_device_ms"] = others[0]["ms"], others[0]["device_ms"]
+    main["other_shapes"] = [brief(r) for r in others]
+    return main, others
+
+
+def print_study(profile: dict, rows: list, frontier, repeat: int, scale, card) -> None:
+    """The Fig 5.2 / Table 5.3 rows of ``profile`` and the Table 5.4 / 5.5
+    rows of the codec study, the C/D speeds labelled with the host CPU."""
+    from repro_torch.bench import codecs as study_codecs, frontier_stats
+
+    print(f"frontier study (Fig 5.2 / Table 5.3), scale {scale} root {profile['root']}: "
+          f"n={profile['n']:,} m={profile['m']:,} {profile['n_levels']} levels, each "
+          f"level's count by local_count (pack + popcount_blocks) on {card}")
+    for line in frontier_stats.rows(profile):
+        print(f"  {line}")
+    print(f"codec study (Tables 5.4 / 5.5), scale {scale} root {profile['root']}: frontier "
+          f"stream = level {STUDY_LEVEL}, {frontier.size:,} ids; zipf-index stream "
+          f"{study_codecs.zipf_index_stream().size:,} values; C/D speeds in MI/s on the "
+          f"host CPU {study_codecs.host_cpu()} (not the card), {repeat} repeats")
+    for line in study_codecs.csv_lines(rows):
+        print(f"  {line}")
+
+
+def study_step(setup, roots, card) -> tuple[dict, dict]:
+    """The paper's frontier and codec study (``repro_torch.bench.
+    frontier_stats`` and ``.codecs``), with the launch counts zeroed before
+    and read after: at the reference's defaults (scale STUDY_SCALE, seed 1,
+    root 0), then on the scale-S graph already built, from the first of its
+    valid roots.  ``local_count`` must launch ``popcount_blocks`` at least
+    once a level.  Then ``popcount_blocks`` at the densest level's packed
+    frontier (``blocks_row``) and ``local_count`` against the bit sums.
+    Returns the path's launch counts and the kernel's JSON row."""
+    from repro_torch import kernels
+    from repro_torch.bench import codecs as study_codecs, frontier_stats
+    from repro_torch.kernels.popcount import ref as pc_ref
+
+    t0 = time.perf_counter()
+    root = int(roots[0])
+    on_setup = {"block": setup.block, "policy": "direction_opt", "expand": "hybrid"}
+    kernels.reset_launches()
+    small = frontier_stats.run(STUDY_SCALE, device="cuda")
+    small_frontier = study_codecs.extract_frontier_stream(STUDY_SCALE, STUDY_LEVEL,
+                                                          device="cuda")
+    small_rows = study_codecs.run(STUDY_SCALE, frontier=small_frontier)
+    with capture_blocks() as kept:
+        big = frontier_stats.profile(setup.src, setup.dst, setup.g.n, setup.g.m, root,
+                                     device="cuda", **on_setup)
+    big_frontier = study_codecs.frontier_ids(setup.src, setup.dst, setup.g.n, root,
+                                             STUDY_LEVEL, "cuda", **on_setup)
+    big_rows = study_codecs.run(frontier=big_frontier, repeat=1)
+    counts = dict(kernels.LAUNCHES)
+    require_launched(counts, STUDY_PATH, "frontier study")
+    levels = small["n_levels"] + big["n_levels"]
+    if counts["popcount_blocks"] < levels:
+        raise AssertionError(f"popcount_blocks launched {counts['popcount_blocks']} times "
+                             f"over {levels} levels")
+    print_study(small, small_rows, small_frontier, 3, STUDY_SCALE, card)
+    print_study(big, big_rows, big_frontier, 1, setup.scale, card)
+    print(f"launches on the study path ({levels} levels): {counts}")
+
+    check_local_count()
+    dense = max(range(len(kept)), key=lambda i: int(kept[i].count_nonzero()))
+    words = kept[dense]
+    row, others = blocks_row(words, {"input": f"level {dense + 1} of the scale-{setup.scale} "
+                                              f"study, packed by local_count",
+                                     "frontier": int(pc_ref.popcount_blocks(words).sum())})
+    for r in (row, *others):
+        print(describe(r, card))
+    print("local_count on the card (n = 3,000, 33 x 1,024, 2**22; densities 0, 0.01, 0.5, 1): "
+          "equal to the bit sums")
+    print(f"study step: {time.perf_counter() - t0:.1f}s")
+    return counts, row
 
 
 def distributed_step(setup, roots, single, card) -> dict:
@@ -1391,7 +1562,8 @@ def main() -> int:
     check_ragged()
     print("ragged shapes: pack (b=1..32, bool/uint8/int32), popcount_planes and "
           "interleave_values (B = 2..17, sentinel columns untouched) on both routes, "
-          "frontier_mask, unpack (b=1..32), popcount_blocks, popcount_words, "
+          "frontier_mask, popcount_blocks (W = 1..33,792, 1 word in) on both routes, "
+          "unpack (b=1..32), popcount_words, "
           "spmv push/pull (B planes and one): exact")
 
     setup = graph500.build(args.scale, 16, 1, "hybrid", "cuda")
@@ -1427,6 +1599,7 @@ def main() -> int:
     print(f"Graph500 scale {args.scale}: {out['n_valid']}/{out['n_roots']} trees valid, "
           f"TEPS harmonic mean {out['teps_harmonic_mean']:.6e} on {card}")
 
+    launches["study"], rows["popcount_blocks"] = study_step(setup, roots, card)
     launches["distributed"], dist_rows, st = distributed_step(setup, roots, single, card)
     cross_check(card)
     alg_launches, rows["gspmm_min_planes"], rows["interleave_values"] = algebra_step(

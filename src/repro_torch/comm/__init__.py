@@ -10,7 +10,10 @@ adaptive exchange engine and its byte ledger, over a simulated grid.
   branch dispatch, byte-recording collectives.
 * :mod:`.stats`       — :class:`CommStats`, the per-phase byte ledger.
 * :mod:`.collectives` — the BFS column and row exchanges.
-* :mod:`.registry`    — the ``raw`` / ``bitmap`` / ``auto`` wire plans.
+* :mod:`.registry`    — the ``raw`` / ``bitmap`` / ``auto`` wire plans and
+  the host codec factory.
+* :mod:`.codecs`      — the paper's §5.2 host codecs (numpy: S4-BP128 with
+  delta, PFOR, VByte, Bitmap, Copy) behind Tables 5.4/5.5.
 
 Layering: core.distributed_bfs -> comm -> kernels (bitpack).
 """

@@ -1,9 +1,10 @@
 """Wire plans: the builders of one exchange mode's BFS collectives.
 
-The port's counterpart of ``repro/comm/registry.py:84-321`` for the
-``raw``, ``bitmap`` and ``auto`` plans (``btfly`` and the host codec
-factory come with later slices; traversal policies, expansion backends and
-algebras resolve in their own modules).  A plan's builders take the grid,
+The port's counterpart of ``repro/comm/registry.py:46-321``: the host
+codec factory (the paper's §5.3 "Factory": a codec is a name resolved
+outside the timed code) and the ``raw``, ``bitmap`` and ``auto`` wire plans
+(``btfly`` comes with a later slice; traversal policies, expansion backends
+and algebras resolve in their own modules).  A plan's builders take the grid,
 the axis and ``b``, the number of source planes each exchange carries, and
 return plane-batched callables over per-rank lists:
 
@@ -33,6 +34,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.comm import codecs
 from repro_torch.comm import collectives as cc
 from repro_torch.comm.engine import AdaptiveExchange
 from repro_torch.comm.formats import INF, BitmapParentFormat
@@ -40,6 +42,46 @@ from repro_torch.comm.ladder import BucketLadder
 from repro_torch.core.algebra import ALGEBRAS
 
 BFS = ALGEBRAS["bfs"]
+
+# ---------------------------------------------------------------------------
+# host codec factory (paper §5.3 "Factory")
+# ---------------------------------------------------------------------------
+
+_CODECS: dict[str, Callable[[], codecs.Codec]] = {}
+
+
+def register_codec(name: str, factory: Callable[[], codecs.Codec]) -> None:
+    if name in _CODECS:
+        raise ValueError(f"codec {name!r} already registered")
+    _CODECS[name] = factory
+
+
+def make_codec(name: str) -> codecs.Codec:
+    """Instantiate a codec by name (paper: Factory call before Kernel 2)."""
+    try:
+        return _CODECS[name]()
+    except KeyError:
+        raise KeyError(f"unknown codec {name!r}; known: {sorted(_CODECS)}") from None
+
+
+def available_codecs() -> list[str]:
+    return sorted(_CODECS)
+
+
+# Built-in codecs (the paper's comparison set, Table 5.4).
+register_codec("copy", codecs.Copy)
+register_codec("bp128", lambda: codecs.BP128(delta=False))
+register_codec("bp128d", lambda: codecs.BP128(delta=True))  # paper's choice: S4-BP128+delta
+register_codec("pfor", lambda: codecs.PFOR(delta=False))
+register_codec("pfor-delta", lambda: codecs.PFOR(delta=True))
+register_codec("vbyte", lambda: codecs.VByte(delta=False))
+register_codec("vbyte-delta", lambda: codecs.VByte(delta=True))
+register_codec("bitmap", codecs.Bitmap)
+
+
+# ---------------------------------------------------------------------------
+# wire plans (in-graph exchange modes)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,8 +55,10 @@ def ladder_alpha(s: int, payload_width: int) -> float:
 class DensityOracle:
     """Popcount-based frontier-density oracle.
 
-    ``plane_counts`` is the per-plane membership popcount over the packed
-    bitmaps (one pack and one popcount launch for all B planes).
+    ``local_count`` is the membership popcount of one (n,) plane over its
+    packed bitmap (one pack and one ``popcount_blocks`` launch);
+    ``plane_counts`` is its multi-source form over (B, n) planes (one pack
+    and one ``popcount_planes`` launch for all B planes).
     ``next_direction`` applies alpha/beta hysteresis on the count, per
     plane, plus the anticipatory Beamer signal: ``m_f`` (edges incident to
     the frontier) against ``m_u`` (edges incident to unreached vertices),
@@ -68,6 +70,14 @@ class DensityOracle:
     alpha: float = 0.25  # switch to bottom-up above this frontier density
     beta: float = 0.05  # fall back to top-down below this density
     alpha_mf: float = 14.0  # Beamer edge heuristic
+
+    def local_count(self, bits: torch.Tensor) -> torch.Tensor:
+        """(n,) bool membership -> int32 scalar size, on the input's device:
+        the width-1 pack zero-pads to the 1024-bit chunk (the reference's
+        ``_pad_to_chunk``), ``popcount_blocks`` counts each 1024-word block,
+        and the partials are summed."""
+        words = bp_ops.pack(bits, 1)
+        return pc_ops.popcount_blocks(words).sum(dtype=torch.int32)
 
     def plane_counts(self, bits: torch.Tensor) -> torch.Tensor:
         """(B, n) bool membership planes -> (B,) int32 sizes."""

@@ -1,4 +1,4 @@
-"""Graph500 generation and Kernel 1 (host-side numpy copies of
-``repro.graphgen``)."""
+"""Graph500 generation and Kernel 1, and the codec study's synthetic
+streams (host-side numpy copies of ``repro.graphgen``)."""
 
-from repro_torch.graphgen import builder, kronecker  # noqa: F401
+from repro_torch.graphgen import builder, kronecker, zipf  # noqa: F401

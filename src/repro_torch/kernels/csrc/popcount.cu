@@ -37,11 +37,40 @@
 //
 // popcount_blocks replaces popcount_blocks_pallas / _popcount_kernel
 // (popcount.py:32 and :22): (W,) words -> (ceil(W/1024),) int32 partials, one
-// per 1024-word block, the last block zero-padded.  Same bound: every word
-// read once, one int32 written per block.  One thread block per 1024-word
-// block: each of its 256 threads sums four words with a stride of 256 (so a
-// warp's loads are contiguous), and warp shuffles plus one shared-memory pass
-// reduce them to the block's partial, written by one thread -- no atomics.
+// per 1024-word block, the last block zero-padded.  Its caller is the
+// density oracle's local_count (one packed frontier plane, the frontier study
+// of repro_torch.bench.frontier_stats): at scale 22 that is 131,072 words.
+//
+// Bound: bytes, every word read once and one int32 written a block: 0.157 us
+// at 131,072 words and 2.51 us at 2,097,152 (the scale-26 plane) at 3.35 TB/s.
+// At the oracle's shapes the input is one DRAM (or L2) round trip, so the
+// time is the launch's fixed cost plus that trip, and what the design can do
+// is keep every load of a block in flight at once.
+//
+// Design: one warp per 1024-word block.  Lane l issues its eight 16-byte
+// loads through the read-only path (words 4 l + 128 k, k < 8: each is one
+// contiguous 512-byte warp load) before its first __popc, sums with warp
+// shuffles, and lane 0 writes the partial: no shared memory, no barrier, no
+// atomics.  CTAs of 8 warps over a grid sized to the card (at most
+// kBlocksCtasPerSm CTAs a SM) stride over the blocks, so a large input costs
+// no more CTAs than the card holds.  A base that is not 16-byte aligned takes
+// 32 scalar loads a lane a block, all issued before the first __popc, in the
+// same kernel (the kVec = false instance); the ragged last block of either
+// instance takes scalar loads bounded by W.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit (profiler device time
+// a call, inputs resident in L2; an empty kernel takes 0.88-0.93 us), in two
+// runs beside variants since removed, at 1,024 / 131,072 / 2,097,152 words:
+// this kernel 1.63-1.65 / 1.74-1.78 / 2.62-2.77 us; with streaming loads
+// (ld.global.cs) 1.63-1.65 / 1.79-1.83 / 3.54-3.72; with
+// ld.global.nc.L1::no_allocate 1.63-1.64 / 1.80-1.82 / 3.57-3.65; with
+// one-warp CTAs 1.47-1.54 / 1.59-1.61 / 3.19-3.25; with eight 16-byte
+// cp.async copies a lane into shared memory 1.46 / 1.76-1.79 / 2.77-2.79;
+// with one TMA bulk copy of the block a warp 1.54-1.58 / 1.87-1.89 /
+// 2.85-2.91; the earlier kernel (a 256-thread CTA a block, four 4-byte loads
+// a thread, a shared-memory sum) 1.30-1.33 / 1.41-1.47 / 3.00-3.22.  A warp
+// that reads its 4 KB alone waits longer than eight warps reading 512 bytes
+// each, so at one and at 128 blocks the earlier layout stays 0.3 us ahead;
+// at 2,048 blocks the 16-byte loads win by 0.3-0.5 us.
 //
 // popcount_words is the elementwise per-word count (the port's counterpart of
 // the oracle repro/kernels/popcount/ref.py:popcount_words).
@@ -123,25 +152,48 @@ int launch_ticket(const void* words, void* out, void* acc, long long w, int plan
 }
 
 constexpr int kBlockWords = 1024;  // words per partial, as the TPU kernel
+constexpr int kBlocksWarps = 8;    // warps (so blocks in flight) a CTA
+constexpr int kBlocksCtasPerSm = 4;
 
-__global__ void popcount_blocks_kernel(const uint32_t* __restrict__ words,
-                                       int* __restrict__ out, int64_t w) {
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kBlockWords;
+// Bits set in the 1024 words of a whole block, lane's share.
+template <bool kVec>
+__device__ __forceinline__ int popc_block(const uint32_t* __restrict__ block, int lane) {
   int acc = 0;
+  if (kVec) {
+    const uint4* v = reinterpret_cast<const uint4*>(block) + lane;
+    uint4 q[kBlockWords / 128];
 #pragma unroll
-  for (int k = 0; k < kBlockWords / kThreads; ++k) {
-    const int64_t i = first + k * kThreads + threadIdx.x;
-    if (i < w) acc += __popc(__ldg(words + i));
+    for (int k = 0; k < kBlockWords / 128; ++k) q[k] = __ldg(v + 32 * k);
+#pragma unroll
+    for (int k = 0; k < kBlockWords / 128; ++k)
+      acc += __popc(q[k].x) + __popc(q[k].y) + __popc(q[k].z) + __popc(q[k].w);
+  } else {
+    uint32_t q[kBlockWords / 32];
+#pragma unroll
+    for (int k = 0; k < kBlockWords / 32; ++k) q[k] = __ldg(block + 32 * k + lane);
+#pragma unroll
+    for (int k = 0; k < kBlockWords / 32; ++k) acc += __popc(q[k]);
   }
-  acc = rt::warp_sum(acc);
-  __shared__ int partial[kThreads / 32];
+  return acc;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBlocksWarps * 32)
+    popcount_blocks_kernel(const uint32_t* __restrict__ words, int* __restrict__ out,
+                           int64_t w, int64_t blocks) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    acc = rt::warp_sum(lane < kThreads / 32 ? partial[lane] : 0);
-    if (lane == 0) out[blockIdx.x] = acc;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlocksWarps;
+  for (int64_t b = static_cast<int64_t>(blockIdx.x) * kBlocksWarps + (threadIdx.x >> 5);
+       b < blocks; b += stride) {  // warp-uniform: every lane of a warp takes one block
+    const int64_t first = b * kBlockWords;
+    int acc = 0;
+    if (first + kBlockWords <= w) {
+      acc = popc_block<kVec>(words + first, lane);
+    } else {  // the ragged last block
+      for (int64_t i = first + lane; i < w; i += 32) acc += __popc(__ldg(words + i));
+    }
+    acc = rt::warp_sum(acc);
+    if (lane == 0) out[b] = acc;
   }
 }
 
@@ -164,12 +216,22 @@ RT_API int rt_popcount_planes(const void* words, void* out, void* acc, long long
              : launch_ticket<false>(words, out, acc, w, planes, s);
 }
 
-// words: (w,) uint32; out: (ceil(w / 1024),) int32.
-RT_API int rt_popcount_blocks(const void* words, void* out, long long w, void* stream) {
+// words: (w,) uint32, w > 0; out: (ceil(w / 1024),) int32.  vec: words is
+// 16-byte aligned.
+RT_API int rt_popcount_blocks(const void* words, void* out, long long w, int vec,
+                              void* stream) {
   const long long blocks = (w + kBlockWords - 1) / kBlockWords;
-  popcount_blocks_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<int*>(out), w);
+  const long long by_work = (blocks + kBlocksWarps - 1) / kBlocksWarps;
+  const long long by_card = static_cast<long long>(rt::sm_count()) * kBlocksCtasPerSm;
+  const unsigned ctas = static_cast<unsigned>(by_work < by_card ? by_work : by_card);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto in = static_cast<const uint32_t*>(words);
+  if (vec)
+    popcount_blocks_kernel<true><<<ctas, kBlocksWarps * 32, 0, s>>>(in, static_cast<int*>(out),
+                                                                    w, blocks);
+  else
+    popcount_blocks_kernel<false><<<ctas, kBlocksWarps * 32, 0, s>>>(in, static_cast<int*>(out),
+                                                                     w, blocks);
   return rt::launch_status();
 }
 

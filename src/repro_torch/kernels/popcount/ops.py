@@ -16,6 +16,7 @@ PLANES_KERNEL = "popcount_planes"
 WORDS_KERNEL = "popcount_words"
 _MAX_PLANES = 65535  # gridDim.y
 _PLANES_ARGS = (kernels.P, kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I32)
+_BLOCKS_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I32)
 #: per (device, stream): the ticket words of popcount_planes, one 64-bit word
 #: a plane (blocks done, bits so far), 0 between calls; zeroed once, when
 #: made or grown
@@ -60,7 +61,11 @@ def popcount_planes(words: torch.Tensor) -> torch.Tensor:
 
 
 def popcount_blocks(words: torch.Tensor) -> torch.Tensor:
-    """(W,) int32 words -> (ceil(W/1024),) int32 per-1024-word-block counts."""
+    """(W,) int32 words -> (ceil(W/1024),) int32 per-1024-word-block counts.
+
+    On a CUDA tensor: one warp a block; the whole blocks of a 16-byte
+    aligned base take 16-byte loads, the ragged last block and a misaligned
+    base scalar loads, in the same kernel."""
     if not kernels.on_cuda(words):
         return ref.popcount_blocks(words)
     kernels.require(words, "popcount_blocks", (torch.int32,), 1)
@@ -68,8 +73,9 @@ def popcount_blocks(words: torch.Tensor) -> torch.Tensor:
                       device=words.device)
     if out.numel() == 0:
         return out
-    kernels.launch(BLOCKS_KERNEL, "rt_popcount_blocks", (kernels.P, kernels.P, kernels.I64),
-                   words.data_ptr(), out.data_ptr(), words.shape[0])
+    kernels.launch(BLOCKS_KERNEL, "rt_popcount_blocks", _BLOCKS_ARGS,
+                   words.data_ptr(), out.data_ptr(), words.shape[0],
+                   int(words.data_ptr() % 16 == 0))
     return out
 
 

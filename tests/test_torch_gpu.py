@@ -110,6 +110,50 @@ def test_popcount_planes_streams_keep_their_own_tickets(cuda):
 
 
 @pytest.mark.gpu
+def test_popcount_blocks_routes_match_plain_on_card(cuda):
+    """popcount_blocks at the smoke script's ragged inputs (W = 1, 7, 1,500,
+    3 x 1,024 + 3, views one word into their storage) and at whole blocks
+    (one block, the scale-22 and scale-26 planes), on both routes, exactly;
+    one launch a call."""
+    import chip_smoke
+    from repro_torch.kernels.popcount import ops as pc_ops
+    from repro_torch.kernels.popcount import ref as pc_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cases = chip_smoke.blocks_ragged_inputs(gen, cuda)
+    for w in (1024, 131072, 2097152):
+        cases.append((f"w={w}", torch.randint(-2**31, 2**31 - 1, (w,), generator=gen,
+                                              device=cuda, dtype=torch.int64).to(torch.int32)))
+    assert {int(w.data_ptr() % 16 == 0) for _, w in cases} == {0, 1}
+    for label, words in cases:
+        kernels.reset_launches()
+        got = pc_ops.popcount_blocks(words)
+        assert kernels.LAUNCHES["popcount_blocks"] == 1, label
+        assert torch.equal(got, pc_ref.popcount_blocks(words)), label
+    ones = dict(cases)["all-ones w=4100"]
+    assert pc_ops.popcount_blocks(ones).tolist() == [32 * 1024] * 4 + [32 * 4]
+
+
+@pytest.mark.gpu
+def test_local_count_and_frontier_study_on_card(cuda):
+    """local_count on the card equals the bit sums; the frontier and codec
+    study on the card equal the CPU run (sizes, directions, entropies,
+    ratios), and each level launched popcount_blocks."""
+    import chip_smoke
+    from repro_torch.bench import codecs as bench_codecs
+    from repro_torch.bench import frontier_stats
+
+    chip_smoke.check_local_count()
+    kernels.reset_launches()
+    on_card = frontier_stats.run(scale=10, device=cuda)
+    assert kernels.LAUNCHES["popcount_blocks"] >= on_card["n_levels"]
+    assert on_card == frontier_stats.run(scale=10, device="cpu")
+    rows = [bench_codecs.run(scale=10, n_zipf=20_000, device=dev) for dev in (cuda, "cpu")]
+    assert [(r["codec"], r.get("ratio_pct")) for r in rows[0]] == [
+        (r["codec"], r.get("ratio_pct")) for r in rows[1]]
+
+
+@pytest.mark.gpu
 def test_spmv_cases_match_plain_on_card(cuda):
     """The frontier mask, ELL push/pull and value-gather kernels against
     their plain versions, exactly, on every ``chip_smoke.SPMV_CASES`` input
