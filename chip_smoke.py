@@ -3,8 +3,8 @@
 
 Drives the port's paths on one NVIDIA card: the single-device Graph500
 BFS, the paper's frontier and codec study, the 2D-distributed BFS on a
-simulated grid, the frontier algebras on both, and the 2D GNN forward with
-int8 payloads:
+simulated grid under the direct and the butterfly wire plans, the
+frontier algebras on both, and the 2D GNN forward with int8 payloads:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -49,13 +49,28 @@ int8 payloads:
    every bucket it used, what it unpacks); each is held against its plain
    version exactly and timed beside its bound, as is unpack on a 16-bit id
    stream at cap 16,384;
-7. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
+7. the butterfly wire plan (``btfly``) on step 6's 2x2 set-up: one batch
+   records the inputs the path gives pack and unpack (stage bitmaps,
+   PFOR16 gaps, packed floors), each held against its plain version
+   exactly and timed beside its bound; then the 16 roots under ``btfly``
+   + ``direction_opt`` + ``hybrid``, counts zeroed before and read after:
+   every tree valid, every batch equal to ``auto``'s, every kernel of the
+   path launched; the first batch again under ``top_down`` and
+   ``bottom_up``; the bytes per zone and per stage zone, batch times, TEPS
+   and the idle share of a traced batch beside ``auto``'s; one batch on a
+   2x3 grid of the same graph (fold, one stage, unfold; 2**18-multiple
+   chunks) equal to the single-device run; one SSSP batch equal to
+   ``auto``'s; and at scale 18 (2x2, 4 hub roots, every policy) the
+   ledger equal to the host replay ``bench.bfs_comm.simulate_batch`` zone
+   for zone and stage for stage, the replay's document passing
+   ``bench.check_comm``;
+8. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
    ``direction_opt`` on the card, single-device and on the 2x2 grid under
-   ``raw``, ``bitmap`` and ``auto``, and ``direction_opt`` on the CPU give
-   bit-identical parents, levels and level counts; so do ``sssp`` and
-   ``cc`` under every policy on the card, single-device and on the grid
-   under every plan, against ``top_down`` on the CPU;
-8. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
+   ``raw``, ``bitmap``, ``auto`` and ``btfly``, and ``direction_opt`` on
+   the CPU give bit-identical parents, levels and level counts; so do
+   ``sssp`` and ``cc`` under every policy on the card, single-device and
+   on the grid under every plan, against ``top_down`` on the CPU;
+9. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
    kernel ``gspmm_min_planes`` and its ``interleave_values`` helper against
    their plain versions at the path's own inputs (a real SSSP level of 8
    planes, push and pull, both ops; one rank's slab of the 2x2 grid with its
@@ -70,7 +85,7 @@ int8 payloads:
    grid under ``auto`` equal the single-device ones (PageRank within a
    float32 bound), and the first SSSP batch again under ``raw`` gives the
    per-phase bytes of both plans;
-9. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
+10. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
    16 layers, d_hidden 512, 227 variables, on the refinement-6 multimesh,
    40,962 nodes, over a simulated 2x2 grid): one int8 forward records the
    inputs the path gives the ``quantize`` kernel (the owned chunk and the
@@ -110,6 +125,17 @@ ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores: the
 INF = 2**31 - 1
 GRID = (2, 2)  # the simulated grid of the distributed path
 DIST_ROOTS = 16
+#: the butterfly's C = 3 grid (fold, one stage, unfold); its chunks are
+#: 2**18-multiples, the least that keeps every bucket capacity of the
+#: ladders a 1,024-multiple at scale 22 (the default 1,024-multiple chunk,
+#: 699,392, gives s // 256 = 2,732, which the ladder refuses, as the
+#: reference's does)
+BTFLY_C3 = (2, 3)
+BTFLY_C3_CHUNK_MULTIPLE = 1 << 18
+#: the ledger's check against the host replay: a scale small enough for
+#: the replay's numpy (seconds), with sparse buckets on every wire
+LEDGER_SCALE = 18
+LEDGER_BATCH = 4
 REPLACES = {
     "pack": "src/repro/kernels/bitpack/bitpack.py:50",
     "unpack": "src/repro/kernels/bitpack/bitpack.py:72",
@@ -667,11 +693,12 @@ def main_shape_rows(setup, roots):
 
 
 @contextlib.contextmanager
-def capture_path_inputs():
+def capture_path_inputs(names=DIST_PATH):
     """Record the inputs the distributed path gives each of its kernels.
 
-    While active, every call of a DIST_PATH wrapper that launches its
-    kernel is passed through; per kernel and distinct argument shapes the
+    While active, every call of a wrapper of ``names`` (DIST_PATH's, less
+    the mask that runs inside the ELL wrappers) that launches its kernel
+    is passed through; per kernel and distinct argument shapes the
     arguments of the call with the most nonzero entries in its data input
     (the frontier for the SpMV kernels) are kept.  Yields the dict
     ``(name, signature) -> args``."""
@@ -684,6 +711,7 @@ def capture_path_inputs():
              "popcount_planes": (pc_ops, "popcount_planes", 0),
              "spmv_min_planes": (sp_ops, "spmv_min_planes", 1),
              "spmv_pull_min_planes": (sp_ops, "spmv_pull_min_planes", 1)}
+    hooks = {name: hook for name, hook in hooks.items() if name in names}
     kept, weights = {}, {}
 
     def recorder(name, fn, data):
@@ -708,13 +736,10 @@ def capture_path_inputs():
             setattr(mod, attr, fn)
 
 
-def dist_shape_rows(kept, level, s) -> dict:
-    """Every DIST_PATH kernel against its plain version on the inputs one
-    distributed batch gave it (``capture_path_inputs``), timed beside its
-    bound; and unpack on a 16-bit id stream at cap 16,384 (a bucket of the
-    column ladder at s = 2**20) of the level-1 frontier.  Returns name ->
-    rows, the one moving the most bytes first."""
-    import torch
+def kept_rows(kept) -> dict:
+    """Every kernel against its plain version on the inputs one distributed
+    batch gave it (``capture_path_inputs``), timed beside its bound.
+    Returns name -> rows, the one moving the most bytes first."""
     from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
     from repro_torch.kernels.popcount import ops as pc_ops, ref as pc_ref
     from repro_torch.kernels.spmv import ops as sp_ops, ref as sp_ref
@@ -751,6 +776,19 @@ def dist_shape_rows(kept, level, s) -> dict:
                    {"args": [list(a) if isinstance(a, tuple) else a for a in sig],
                     "dtype": dtype})
         rows.setdefault(name, []).append(row)
+    for name in rows:
+        rows[name].sort(key=lambda r: r["bound_ms"], reverse=True)
+    return rows
+
+
+def dist_shape_rows(kept, level, s) -> dict:
+    """``kept_rows`` of the auto path's inputs, and unpack on a 16-bit id
+    stream at cap 16,384 (a bucket of the column ladder at s = 2**20) of
+    the level-1 frontier."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
+
+    rows = kept_rows(kept)
     ids, counts = bp_ops.compact_ids(level[:, :s] == 1, 16384, fill=s)  # rank 0's chunk
     low = (bp_ops.gaps_from_sorted(ids, counts) & 0xFFFF).to(torch.int32)
     id_words = bp_ops.pack_planes(low, 16)
@@ -971,7 +1009,161 @@ def distributed_step(setup, roots, single, card) -> dict:
     print(f"  {'total':18s} raw {total_r:>14,}  auto {total_a:>14,}  ratio "
           f"{total_r / total_a:.3f}")
     print(f"distributed step: {time.perf_counter() - t0:.1f}s")
-    return counts, rows, st
+    return counts, rows, st, out
+
+
+def print_zones(plans: dict) -> None:
+    """Bytes over links, all ranks, per zone (the butterfly's stage zones
+    apart, then their sum) for each plan's ledgers, the first plan's
+    formats beside."""
+    from repro_torch.bench import bfs_comm, distributed
+
+    by_plan = {plan: distributed.zone_bytes(ledgers) for plan, ledgers in plans.items()}
+    names = sorted(set().union(*by_plan.values()))
+    head = "  ".join(f"{plan:>14s}" for plan in by_plan)
+    print(f"  {'zone':26s} {head}  formats ({next(iter(by_plan))})")
+    for zone in names:
+        vals = "  ".join(f"{sum(z.get(zone, {}).values()):>14,}" for z in by_plan.values())
+        print(f"  {zone:26s} {vals}  {next(iter(by_plan.values())).get(zone, {})}")
+    staged = sorted({bfs_comm.split_phase(z)[0] for z in names if bfs_comm.split_phase(z)[1]})
+    for zone in staged:
+        sums = [sum(sum(v.values()) for k, v in z.items() if bfs_comm.split_phase(k)[0] == zone)
+                for z in by_plan.values()]
+        print(f"  {zone + ' (all stages)':26s} " + "  ".join(f"{v:>14,}" for v in sums))
+    totals = [sum(sum(z.values()) for z in zb.values()) for zb in by_plan.values()]
+    print(f"  {'total':26s} " + "  ".join(f"{t:>14,}" for t in totals))
+
+
+def ledger_check(card) -> None:
+    """The btfly ledger on the card against the host replay at LEDGER_SCALE
+    on the 2x2 grid, LEDGER_BATCH hub roots, every policy: zone for zone
+    and stage for stage (``bench.bfs_comm.device_terms`` against
+    ``replay_terms`` of ``simulate_batch``); then the replay's BENCH_comm
+    document at that size passes ``bench.check_comm``."""
+    from repro_torch.bench import bfs_comm, check_comm
+    from repro_torch.bench import run as bench_run
+    from repro_torch.comm import CommStats, SimGrid
+    from repro_torch.core import bfs as bfsmod, csr
+    from repro_torch.core import distributed_bfs as dbfs
+
+    r, c = GRID
+    prebuilt = bfs_comm.build_replay_graph(LEDGER_SCALE, r, c)
+    g = prebuilt[0]
+    roots = bfsmod.hub_roots(g.degrees(), LEDGER_BATCH)
+    levels = {}
+    rep = {p: bfs_comm.simulate_batch(LEDGER_SCALE, r, c, LEDGER_BATCH, policy=p, graph=g,
+                                      level_cache=levels)
+           for p in bfs_comm.POLICIES}
+    depth = max(int(levels[int(x)].max()) for x in roots)
+    grid = SimGrid(r, c, "cuda")
+    bg = csr.partition_2d(g, r, c)
+    blocks = dbfs.shard_blocked(grid, bg, dbfs.DistBFSConfig(expand="hybrid"))
+    for policy in bfs_comm.POLICIES:
+        stats = CommStats()
+        cfg = dbfs.DistBFSConfig(mode="btfly", policy=policy, expand="hybrid",
+                                 max_levels=depth)
+        dbfs.build_bfs(grid, bg, cfg, stats=stats)(*blocks, roots)
+        got = bfs_comm.device_terms(stats, r, c)
+        want = bfs_comm.replay_terms(rep[policy], "btfly", bg.part.chunk)
+        if got != want or not got["stages"]:
+            raise AssertionError(f"btfly ledger ({policy}) differs from the replay: "
+                                 f"{got} != {want}")
+        print(f"ledger scale {LEDGER_SCALE} 2x2 B={LEDGER_BATCH} btfly {policy} on {card}: "
+              f"row {got['row_bytes']:,} B, consensus {got['consensus_bytes']:,} B, "
+              f"{len(got['stages'])} (zone, stage, format) sums: equal to the host replay")
+    table, policy_levels = bfs_comm.run(LEDGER_SCALE, r, c, prebuilt=prebuilt)
+    batch = bfs_comm.run_batch(LEDGER_SCALE, r, c, prebuilt=prebuilt)
+    n_stages, n_batch = check_comm.verify(bench_run.bench_comm_doc(
+        LEDGER_SCALE, r, c, table, policy_levels, batch))
+    print(f"check_comm on the scale-{LEDGER_SCALE} document: {n_stages} stage and {n_batch} "
+          "batch entries within the static byte model")
+
+
+def btfly_step(setup, roots, single, st, auto, card) -> tuple[dict, dict]:
+    """The butterfly wire plan on the distributed path's 2x2 set-up ``st``:
+    one batch records the inputs it gives pack and unpack (held against
+    their plain versions and timed), then DIST_ROOTS roots in batches of 8
+    under btfly + direction_opt + hybrid with the launch counts zeroed
+    before and read after, every tree valid and equal to ``auto``'s (and
+    so, for the first batch, to the single-device run); the first batch
+    again under top_down and bottom_up; the bytes per zone and stage, batch
+    times, TEPS and idle share beside ``auto``'s; one batch on the 2x3 grid
+    (fold, one stage, unfold) equal to the single-device run; one SSSP batch
+    equal to auto's; and ``ledger_check``.  Returns the path's launch
+    counts and the pack and unpack rows."""
+    from repro_torch import kernels
+    from repro_torch.bench import algebras, distributed, trace
+    from repro_torch.comm import SimGrid
+    from repro_torch.core import distributed_bfs as dbfs
+
+    t0 = time.perf_counter()
+    droots = roots[:DIST_ROOTS]
+    n = setup.g.n
+    with capture_path_inputs(("pack", "unpack")) as kept:
+        distributed.search(st, droots[:8], batch=8, mode="btfly", policy="direction_opt",
+                           validate_trees=False)
+    rows = kept_rows(kept)
+    del kept
+    for name, rs in rows.items():
+        for r in rs:
+            print(describe(r, card, " (btfly, rank inputs)"))
+    kernels.reset_launches()
+    out = distributed.search(st, droots, batch=8, mode="btfly", policy="direction_opt")
+    counts = dict(kernels.LAUNCHES)
+    print(f"launches on the btfly path ({sum(out['depths'])} levels over "
+          f"{len(out['depths'])} batches): {counts}")
+    require_launched(counts, DIST_PATH, "btfly")
+    if out["n_valid"] != out["n_roots"]:
+        raise AssertionError(f"invalid btfly trees: {out['failures']}")
+    for k, ((p, lv), (pa, la)) in enumerate(zip(out["trees"], auto["trees"])):
+        if not (np.array_equal(p, pa) and np.array_equal(lv, la)):
+            raise AssertionError(f"btfly batch {k} differs from auto")
+    for policy in ("top_down", "bottom_up"):
+        other = distributed.search(st, droots[:8], batch=8, mode="btfly", policy=policy,
+                                   validate_trees=False)
+        if not all(np.array_equal(a, b) for a, b in zip(other["trees"][0], out["trees"][0])):
+            raise AssertionError(f"btfly {policy} differs from btfly direction_opt")
+    print(f"btfly scale {setup.scale} (direction_opt, hybrid, 2x2): {out['n_valid']}/"
+          f"{out['n_roots']} trees valid, every batch equal to auto's and the first to the "
+          f"single-device run; top_down and bottom_up equal too")
+    idle = {}
+    for mode in ("auto", "btfly"):
+        fn = dbfs.build_bfs(st.grid, st.bg, dbfs.DistBFSConfig(
+            mode=mode, policy="direction_opt", expand="hybrid"))
+        idle[mode] = trace.idle_share(lambda: fn(*st.blocks, droots[8:16]))
+    ranks = f"{GRID[0] * GRID[1]} ranks simulated on one card, not a multi-card figure"
+    for mode, o in (("auto", auto), ("btfly", out)):
+        print(f"  {mode:6s} batches {[round(t, 4) for t in o['batch_s']]} s, TEPS harmonic "
+              f"mean {o['teps_harmonic_mean']:.6e}; traced batch wall "
+              f"{idle[mode]['wall_ms']:.3f} ms, busy {idle[mode]['busy_ms']:.3f} ms, idle "
+              f"share {idle[mode]['idle_share']:.4f} ({ranks}) on {card}")
+    print("bytes over links, all ranks, first batch (auto vs btfly):")
+    print_zones({"auto": auto["stats"][:1], "btfly": out["stats"][:1]})
+
+    st3 = distributed.setup(setup.g, SimGrid(*BTFLY_C3, device="cuda"), "hybrid",
+                            chunk_multiple=BTFLY_C3_CHUNK_MULTIPLE)
+    c3 = distributed.search(st3, droots[:8], batch=8, mode="btfly", policy="direction_opt",
+                            validate_trees=False)
+    del st3
+    if not (np.array_equal(c3["trees"][0][0], single.parent[:, :n].cpu().numpy())
+            and np.array_equal(c3["trees"][0][1], single.level[:, :n].cpu().numpy())):
+        raise AssertionError("btfly on the 2x3 grid differs from the single-device run")
+    print(f"btfly 2x3 (chunk multiple {BTFLY_C3_CHUNK_MULTIPLE}: fold, one stage, unfold): "
+          f"first batch equal to the single-device run in {c3['batch_s'][0]:.4f} s "
+          f"(6 ranks simulated on one card); bytes over links, all ranks:")
+    print_zones({"btfly 2x3": c3["stats"]})
+
+    sssp = {mode: algebras.run_grid(st, "sssp", droots[:8], mode=mode)
+            for mode in ("auto", "btfly")}
+    a, b = sssp["auto"], sssp["btfly"]
+    if not (same(a["value"], b["value"]) and same(a["level"], b["level"])
+            and a["n_levels"] == b["n_levels"]):
+        raise AssertionError("SSSP under btfly differs from auto")
+    print(f"sssp btfly 2x2 (8 roots, top_down): equal to auto ({a['n_levels']} levels; "
+          f"{b['batch_s']:.4f} s vs auto {a['batch_s']:.4f} s, 4 ranks simulated on one card)")
+    ledger_check(card)
+    print(f"btfly step: {time.perf_counter() - t0:.1f}s")
+    return counts, rows
 
 
 def cross_check(card) -> None:
@@ -998,7 +1190,7 @@ def cross_check(card) -> None:
     bg = csr.partition_2d(small.g, *GRID)
     n = small.g.n
     blocks = dbfs.shard_blocked(grid, bg, dbfs.DistBFSConfig(expand="hybrid"))
-    for mode in ("raw", "bitmap", "auto"):
+    for mode in ("raw", "bitmap", "auto", "btfly"):
         for policy in ("top_down", "bottom_up", "direction_opt"):
             cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand="hybrid")
             parent, level, depth = dbfs.build_bfs(grid, bg, cfg)(*blocks, sroots)
@@ -1021,7 +1213,7 @@ def cross_check(card) -> None:
             r = bfsmod.bfs(small.src, small.dst, aroots, n, policy=policy, expand="hybrid",
                            device="cuda", block=small.block, algebra=alg, max_levels=1024)
             runs[f"cuda/{policy}"] = (r.parent.cpu(), r.level.cpu(), r.n_levels)
-            for mode in ("raw", "bitmap", "auto"):
+            for mode in ("raw", "bitmap", "auto", "btfly"):
                 cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand="hybrid",
                                          algebra=alg, max_levels=1024)
                 value, level, depth = dbfs.build_bfs(grid, bg, cfg)(*blocks, aroots)
@@ -1600,7 +1792,9 @@ def main() -> int:
           f"TEPS harmonic mean {out['teps_harmonic_mean']:.6e} on {card}")
 
     launches["study"], rows["popcount_blocks"] = study_step(setup, roots, card)
-    launches["distributed"], dist_rows, st = distributed_step(setup, roots, single, card)
+    launches["distributed"], dist_rows, st, auto = distributed_step(setup, roots, single, card)
+    launches["btfly"], btfly_rows = btfly_step(setup, roots, single, st, auto, card)
+    del auto
     cross_check(card)
     alg_launches, rows["gspmm_min_planes"], rows["interleave_values"] = algebra_step(
         setup, roots, st, card)
@@ -1613,6 +1807,8 @@ def main() -> int:
     rows["unpack"] = dict(dist_rows["unpack"][0])
     for name, rs in dist_rows.items():
         rows[name]["distributed_shapes"] = [brief(r) for r in rs]
+    for name, rs in btfly_rows.items():
+        rows[name]["btfly_shapes"] = [brief(r) for r in rs]
     for name, r in rows.items():
         per_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         r["launches"] = sum(per_path.values())

@@ -51,10 +51,12 @@ def parse_grid(text: str) -> tuple[int, int]:
     return r, c
 
 
-def setup(g: builder.CSRGraph, grid: SimGrid, expand: str = "hybrid") -> DistSetup:
-    """Partition ``g`` onto ``grid`` and move every rank's block containers."""
+def setup(g: builder.CSRGraph, grid: SimGrid, expand: str = "hybrid",
+          chunk_multiple: int = 1024) -> DistSetup:
+    """Partition ``g`` onto ``grid`` (chunks a multiple of
+    ``chunk_multiple``) and move every rank's block containers."""
     t0 = time.perf_counter()
-    bg = csr.partition_2d(g, grid.rows, grid.cols)
+    bg = csr.partition_2d(g, grid.rows, grid.cols, chunk_multiple=chunk_multiple)
     t1 = time.perf_counter()
     blocks = dbfs.shard_blocked(grid, bg, dbfs.DistBFSConfig(expand=expand))
     if grid.device.type == "cuda":
@@ -118,7 +120,7 @@ def print_ledger(ledgers) -> None:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid", default="2x2", help="R x C, e.g. 2x2")
-    ap.add_argument("--mode", default="auto", choices=["raw", "bitmap", "auto"])
+    ap.add_argument("--mode", default="auto", choices=["raw", "bitmap", "auto", "btfly"])
     ap.add_argument("--policy", default="direction_opt",
                     choices=["top_down", "bottom_up", "direction_opt"])
     ap.add_argument("--expand", default="hybrid", choices=["coo", "ell", "hybrid", "auto"])

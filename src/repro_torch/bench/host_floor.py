@@ -28,12 +28,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.bench import card
 from repro_torch.kernels.bitpack import ops as bp_ops
 from repro_torch.kernels.popcount import ops as pc_ops
 
@@ -97,15 +97,6 @@ def pieces(call, reps: int) -> dict[str, float]:
         "empty_loop": lambda: None,
     }
     return {piece: us_per_call(f, reps) for piece, f in times.items()}
-
-
-def card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return torch.cuda.get_device_name(0)
 
 
 def main(argv=None) -> dict:

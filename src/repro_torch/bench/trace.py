@@ -84,7 +84,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--batch", type=int, default=8,
                     help="roots per BFS batch (the algebras take their own)")
     ap.add_argument("--grid", default=None, help="R x C: trace the distributed BFS")
-    ap.add_argument("--mode", default="auto", choices=["raw", "bitmap", "auto"])
+    ap.add_argument("--mode", default="auto", choices=["raw", "bitmap", "auto", "btfly"])
     ap.add_argument("--algebra", nargs="+", default=["bfs"],
                     choices=["bfs", "sssp", "cc", "pagerank"])
     ap.add_argument("--out", default=None, help="chrome trace output path (last algebra)")
@@ -166,6 +166,21 @@ def _profiled(fn):
     return prof, wall_us, res
 
 
+def busy_ms(prof) -> float:
+    """Device-busy time of a trace: the sum of its kernels' device time."""
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("range/")) / 1e3
+
+
+def idle_share(fn) -> dict:
+    """Trace one call of ``fn`` -> its wall and device-busy ms and the share
+    of the wall time the device sat idle."""
+    prof, wall_us, _ = _profiled(fn)
+    busy = busy_ms(prof)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy, "idle_share": 1 - busy * 1e3 / wall_us}
+
+
 def _report(prof, wall_us: float, title: str, out: dict, phases: bool,
             trace_out: str | None, classes=None) -> dict:
     """Print and return the traced call's device time by kernel and by op,
@@ -187,7 +202,7 @@ def _report(prof, wall_us: float, title: str, out: dict, phases: bool,
                      key=_device_us, reverse=True)
     ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
                   and not e.key.startswith("range/")), key=_device_us, reverse=True)
-    busy_us = sum(_device_us(e) for e in kernels)
+    busy_us = busy_ms(prof) * 1e3
     print(f"# {title} on {torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
     table = {}

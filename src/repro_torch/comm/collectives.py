@@ -18,8 +18,11 @@ Every function takes and returns per-rank lists over the grid.  The
 one-word-per-plane id-stream sideband; the single-source forms (one root)
 keep the two-word ``(count, exc)`` sideband, so the two differ in bytes.
 Where the two wires are the same, the single-source form is the planes
-form on one plane.  The butterfly stages and the int8 all-reduce come with
-later slices.
+form on one plane.  The butterfly wire plan's stages
+(:mod:`repro_torch.comm.butterfly`) go through :func:`ppermute_min_block`
+and :func:`ppermute_membership_block`: one adaptive partner exchange per
+stage, re-bucketed on the merged stream.  The int8 all-reduce comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -390,3 +393,146 @@ def alltoall_bitmap_min(ex: AdaptiveExchange, prop: list, fmt: BitmapParentForma
                                      fmt, n_c, groups)
     return [None if x is None else x[0] for x in got]
 
+
+# ---------------------------------------------------------------------------
+# butterfly stages: adaptive merge-exchange of subchunk blocks (ppermute)
+# ---------------------------------------------------------------------------
+
+
+def _stage_streams(ex: AdaptiveExchange, bits, ladder: BucketLadder, gate) -> tuple:
+    """Per rank, the id streams of its ``(N, s)`` membership rows
+    (``bits[p]``) and its bucket, gated to 0 where the rank sends nothing
+    at this stage (so stale state never escalates the group's consensus)."""
+    streams, my_bucket = {}, [None] * ex.grid.size
+    for p in ex.ranks():
+        ids, counts, excs = stream_stats(bits[p], ladder.s)
+        streams[p] = (ids, counts)
+        bucket = ladder.bucket_for(counts, excs).max()
+        my_bucket[p] = bucket if gate[p] else torch.zeros_like(bucket)
+    return streams, my_bucket
+
+
+def _ppermute_streams(ex: AdaptiveExchange, fmt: IdStreamFormat, perm, gs, packed,
+                      nb: int, b: int) -> list:
+    """Ship each rank's packed ``(nb*b, ...)`` words and (count, exc) pairs
+    to its partner; the sideband is one word a plane when ``b > 1``, and
+    the received one comes back as (count, exc) pairs."""
+    words, metas = [None] * ex.grid.size, [None] * ex.grid.size
+    for p in ex.ranks(gs):
+        w, meta = packed[p]
+        words[p] = w.reshape(nb, b, fmt.data_words)
+        metas[p] = pack_plane_meta(meta[:, 0], meta[:, 1]).reshape(nb, b) if b > 1 else meta
+    r_words = ex.ppermute(words, perm, fmt=fmt.name, groups=gs)
+    r_meta = ex.ppermute(metas, perm, fmt=fmt.name, part="meta", groups=gs)
+    out = [None] * ex.grid.size
+    for p in ex.ranks(gs):
+        out[p] = (r_words[p].reshape(nb * b, fmt.data_words), _unpack_meta(r_meta[p], b > 1))
+    return out
+
+
+def ppermute_min_block(ex: AdaptiveExchange, block: list, perm, ladder: BucketLadder,
+                       floor_fmt, *, gate) -> list:
+    """One butterfly stage: each rank sends its ``(nb, b, s)`` block of
+    global candidate planes (INF = none) to its partner under ``perm`` and
+    gets the partner's block back, rebuilt dense for the caller's merge.
+
+    The ladder picks the wire per stage and group: delta + PFOR16 id streams
+    carrying the candidates at the ladder's payload width (global ids:
+    merged streams have no single sender), or ``floor_fmt`` (found-bitmap
+    + packed parents, or dense int32).  One bucket consensus covers every
+    subchunk and plane; ``gate[p]`` is whether rank ``p`` sends at this
+    stage.  A rank no pair sends to gets an empty block (INF), or zeros
+    under the dense floor, as ``ppermute`` gives it zero words."""
+    ranks = ex.ranks()
+    nb, b, s = block[ranks[0]].shape
+    flat = {p: block[p].reshape(nb * b, s) for p in ranks}
+    streams, my_bucket = {}, None
+    if ladder.specs:
+        streams, my_bucket = _stage_streams(ex, {p: flat[p] < INF for p in ranks}, ladder,
+                                            gate)
+
+    def sparse_branch(fmt: IdStreamFormat):
+        cap = fmt.spec.cap
+
+        def run(gs):
+            packed = {}
+            for p in ex.ranks(gs):
+                ids, counts = streams[p]
+                par = torch.gather(flat[p], 1,
+                                   torch.clamp(ids[:, :cap], 0, s - 1).to(torch.int64))
+                packed[p] = fmt.pack(ids, counts, payload=par)
+            got = _ppermute_streams(ex, fmt, perm, gs, packed, nb, b)
+            slot = torch.arange(cap, device=ex.grid.device)
+            out = [None] * ex.grid.size
+            for p in ex.ranks(gs):
+                u_ids, u_count, par = fmt.unpack(*got[p], fill=s)  # (nb*b, cap) each
+                valid = slot < u_count[:, None]
+                out[p] = _segment_min(torch.where(valid, u_ids, s),
+                                      torch.where(valid, par, INF), s).reshape(nb, b, s)
+            return out
+
+        return run
+
+    def floor_branch(gs):
+        if not isinstance(floor_fmt, BitmapParentFormat):
+            return ex.ppermute(block, perm, fmt=floor_fmt.name, groups=gs)
+        words = [None] * ex.grid.size
+        for p in ex.ranks(gs):
+            words[p] = floor_fmt.pack(block[p])  # (nb, b, data_words)
+        recv = ex.ppermute(words, perm, fmt=floor_fmt.name, groups=gs)
+        out = [None] * ex.grid.size
+        for p in ex.ranks(gs):
+            bits, par = floor_fmt.unpack(recv[p])
+            out[p] = torch.where(bits, par, INF)
+        return out
+
+    branches = [sparse_branch(f) for f in ladder.formats()] + [floor_branch]
+    return ex.dispatch(my_bucket, branches)
+
+
+def ppermute_membership_block(ex: AdaptiveExchange, block: list, perm,
+                              ladder: BucketLadder, *, gate) -> list:
+    """One butterfly all-gather stage: each rank sends its ``(nb, b, s)``
+    bool block of membership planes to its partner under ``perm`` and gets
+    the partner's block back.  Sparse stages travel as delta + PFOR16 id
+    streams per chunk-plane, dense ones as width-1 bitmaps; the doubling
+    block keeps chunk identity, so the caller places it as it is.
+    ``gate`` as for :func:`ppermute_min_block`."""
+    ranks = ex.ranks()
+    nb, b, s = block[ranks[0]].shape
+    flat = {p: block[p].reshape(nb * b, s) for p in ranks}
+    streams, my_bucket = {}, None
+    if ladder.specs:
+        streams, my_bucket = _stage_streams(ex, flat, ladder, gate)
+
+    def sparse_branch(fmt: IdStreamFormat):
+        cap = fmt.spec.cap
+
+        def run(gs):
+            packed = {p: fmt.pack(*streams[p]) for p in ex.ranks(gs)}
+            got = _ppermute_streams(ex, fmt, perm, gs, packed, nb, b)
+            slot = torch.arange(cap, device=ex.grid.device)
+            out = [None] * ex.grid.size
+            for p in ex.ranks(gs):
+                u_ids, u_count, _ = fmt.unpack(*got[p], fill=s)
+                seg = torch.where(slot < u_count[:, None], u_ids, s).to(torch.int64)
+                mem = torch.zeros((nb * b, s + 1), dtype=torch.bool, device=seg.device)
+                mem.scatter_(1, seg, True)
+                out[p] = mem[:, :s].reshape(nb, b, s)
+            return out
+
+        return run
+
+    def bitmap_branch(gs):
+        fmt = BitmapFormat(s)
+        words = [None] * ex.grid.size
+        for p in ex.ranks(gs):
+            words[p] = fmt.pack(flat[p]).reshape(nb, b, -1)
+        recv = ex.ppermute(words, perm, fmt=fmt.name, groups=gs)
+        out = [None] * ex.grid.size
+        for p in ex.ranks(gs):
+            out[p] = fmt.unpack(recv[p]).reshape(nb, b, s)
+        return out
+
+    branches = [sparse_branch(f) for f in ladder.formats()] + [bitmap_branch]
+    return ex.dispatch(my_bucket, branches)

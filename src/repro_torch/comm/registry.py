@@ -2,9 +2,12 @@
 
 The port's counterpart of ``repro/comm/registry.py:46-321``: the host
 codec factory (the paper's §5.3 "Factory": a codec is a name resolved
-outside the timed code) and the ``raw``, ``bitmap`` and ``auto`` wire plans
-(``btfly`` comes with a later slice; traversal policies, expansion backends
-and algebras resolve in their own modules).  A plan's builders take the grid,
+outside the timed code) and the ``raw``, ``bitmap``, ``auto`` and ``btfly``
+wire plans (traversal policies, expansion backends and algebras resolve in
+their own modules).  ``btfly`` (ButterFly BFS) keeps ``auto``'s column
+gather and replaces the row exchanges and the unreached gather with the
+log2(C)-stage butterflies of :mod:`repro_torch.comm.butterfly`, each stage
+re-bucketing the merged stream.  A plan's builders take the grid,
 the axis and ``b``, the number of source planes each exchange carries, and
 return plane-batched callables over per-rank lists:
 
@@ -24,7 +27,8 @@ algebra as ``alg`` (default BFS).  Id payloads (BFS parents) travel
 column-local and the receiver re-globalizes them; value payloads (SSSP
 distances, CC labels) are global already and travel as they are; a sum
 algebra (PageRank) takes the dense int32 wire with its add-combine under
-every plan, its candidates being dense partial sums.
+every plan, its candidates being dense partial sums (on ``btfly``, one
+dense block a stage).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.comm import codecs
+from repro_torch.comm import butterfly, codecs
 from repro_torch.comm import collectives as cc
 from repro_torch.comm.engine import AdaptiveExchange
 from repro_torch.comm.formats import INF, BitmapParentFormat
@@ -201,6 +205,25 @@ def _bitmap_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
     return lambda prop: cc.alltoall_bitmap_min_planes(ex, prop, fmt, loc)
 
 
+def _btfly_row(s, grid, axis, n_c, parent_width, *, b=1, stats=None, phase="bfs/row",
+               alg=BFS):
+    """log2(C)-stage butterfly push row phase (merge + re-bucket per hop)."""
+    return butterfly.build_row_exchange(s, grid, axis, n_c, b=b, to_global=False,
+                                        stats=stats, phase=phase, alg=alg)
+
+
+def _btfly_row_bu(s, grid, axis, n_c, parent_width, *, b=1, stats=None,
+                  phase="bfs/row-pull", alg=BFS):
+    """Butterfly pull row phase: globalize column-local candidates, then the
+    same staged merge as the push direction."""
+    return butterfly.build_row_exchange(s, grid, axis, n_c, b=b, to_global=True,
+                                        stats=stats, phase=phase, alg=alg)
+
+
+def _btfly_unreached(s, grid, axis, *, b=1, stats=None, phase="bfs/unreached"):
+    return butterfly.build_unreached_gather(s, grid, axis, b=b, stats=stats, phase=phase)
+
+
 # the unreached-membership gather rides the same wire as the plan's
 # uncompressed or bitmap column gather (over the grid row)
 WIRE_PLANS = {
@@ -209,12 +232,15 @@ WIRE_PLANS = {
         WirePlan("raw", _raw_column, _dense_row, _dense_row_bu, _raw_column),
         WirePlan("bitmap", _bitmap_column, _dense_row, _bitmap_row_bu, _bitmap_column),
         WirePlan("auto", _auto_column, _auto_row, _bitmap_row_bu, _bitmap_column),
+        # ButterFly BFS: the adaptive column gather, staged row exchanges
+        # and a staged unreached gather
+        WirePlan("btfly", _auto_column, _btfly_row, _btfly_row_bu, _btfly_unreached),
     )
 }
 
 
 def wire_plan(name: str) -> WirePlan:
-    """Wire plan by name (``raw`` | ``bitmap`` | ``auto``)."""
+    """Wire plan by name (``raw`` | ``bitmap`` | ``auto`` | ``btfly``)."""
     try:
         return WIRE_PLANS[name]
     except KeyError:

@@ -13,7 +13,9 @@ result-shape bytes (all-reduces are doubled in :attr:`hlo_bytes`, the ring
 convention), ``moved_bytes`` what crosses a link for that rank (self-sends
 and the own chunk of a gather excluded).  The ``grid_*`` fields add up the
 same two over every rank that ran the call — what a host replay of the
-whole grid counts (``benchmarks/bfs_comm.py``).
+whole grid counts (:mod:`repro_torch.bench.bfs_comm`).  The replay itself
+fills a ledger through :meth:`CommStats.add`, with bytes that are already
+totals over the grid and already cross links.
 """
 
 from __future__ import annotations
@@ -71,8 +73,59 @@ class CommStats:
         rec.grid_bytes += int(nbytes) * ranks
         rec.grid_moved_bytes += int(moved) * ranks
 
+    def add(self, phase: str, fmt: str, collective: str, nbytes: int,
+            part: str = "words", count: int = 1) -> None:
+        """Accumulate ``nbytes`` over ``count`` op instances, already totaled
+        over the grid and all true link traffic (the host replay's zones):
+        every byte field takes them."""
+        assert collective in COLLECTIVE_KINDS, collective
+        key = (phase, fmt, collective, part)
+        rec = self._records.setdefault(key, ExchangeRecord(*key))
+        rec.nbytes += int(nbytes)
+        rec.count += count
+        rec.moved_bytes += int(nbytes)
+        rec.grid_bytes += int(nbytes)
+        rec.grid_moved_bytes += int(nbytes)
+
     def records(self) -> list[ExchangeRecord]:
         return [self._records[k] for k in sorted(self._records)]
+
+    # -- views ---------------------------------------------------------------
+
+    def _sum_by(self, key, value) -> dict:
+        out: dict = {}
+        for r in self.records():
+            out[key(r)] = out.get(key(r), 0) + value(r)
+        return out
+
+    def per_phase(self) -> dict[str, int]:
+        """phase -> bytes (HLO convention, all-reduce doubled)."""
+        return self._sum_by(lambda r: r.phase, lambda r: r.hlo_bytes)
+
+    def per_phase_moved(self) -> dict[str, int]:
+        """phase -> link bytes (self-sends excluded, no HLO factor)."""
+        return self._sum_by(lambda r: r.phase, lambda r: r.moved_bytes)
+
+    def per_phase_fmt(self) -> dict[str, dict[str, int]]:
+        """phase -> fmt -> bytes, HLO convention (the replay's tables)."""
+        out: dict[str, dict[str, int]] = {}
+        for (phase, fmt), v in self._sum_by(lambda r: (r.phase, r.fmt),
+                                            lambda r: r.hlo_bytes).items():
+            out.setdefault(phase, {})[fmt] = v
+        return out
+
+    def per_op(self) -> dict[str, int]:
+        """collective kind -> bytes, HLO convention."""
+        return self._sum_by(lambda r: r.collective, lambda r: r.hlo_bytes)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(r.hlo_bytes for r in self.records())
+
+    @property
+    def total_moved_bytes(self) -> int:
+        """Link bytes of one rank's calls (identity permute pairs excluded)."""
+        return sum(r.moved_bytes for r in self.records())
 
     def table(self) -> list[dict]:
         """JSON-friendly dump."""

@@ -21,8 +21,9 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ThresholdPolicy:
-    """Decide whether a packed wire format beats its dense fallback (the
-    host codecs' ``should_compress`` comes with the codec slice).
+    """Decide whether a transfer should be compressed: the link model of the
+    paper's Table 7.5 (``modeled_speedup``) and the packed wire formats'
+    break-even (``should_pack``).
 
     Attributes:
       min_ints: minimum element count before compression pays off.
@@ -39,6 +40,17 @@ class ThresholdPolicy:
     link_bandwidth_gBps: float = 50.0
     codec_speed_mips: float = 50_000.0
     codec_dspeed_mips: float = 50_000.0
+
+    def modeled_speedup(self, n_ints: int, ratio: float, same_host: bool = False) -> float:
+        """Transfer-time speedup of compressed against plain under this model."""
+        bw = (self.same_host_bandwidth_gBps if same_host else self.link_bandwidth_gBps) * 1e9
+        plain_s = n_ints * 4 / bw
+        comp_s = (
+            n_ints / (self.codec_speed_mips * 1e6)
+            + n_ints * 4 / (ratio * bw)
+            + n_ints / (self.codec_dspeed_mips * 1e6)
+        )
+        return plain_s / comp_s
 
     def should_pack(
         self,

@@ -94,6 +94,12 @@ class ELLBlocks:
     def k(self) -> int:
         return int(self.nbr.shape[-1])
 
+    def padding_ratio(self) -> np.ndarray:
+        """(R, C) fraction of slab slots holding sentinels (ELL waste)."""
+        slots = self.nbr.shape[-2] * self.nbr.shape[-1]
+        pad = (self.nbr == self.part.n_c).sum(axis=(-2, -1))
+        return pad / slots
+
 
 @dataclasses.dataclass(frozen=True)
 class HybridBlocks:
@@ -114,6 +120,12 @@ class HybridBlocks:
     @property
     def r_cap(self) -> int:
         return int(self.res_src.shape[-1])
+
+    def padding_ratio(self) -> np.ndarray:
+        """(R, C) fraction of slab slots holding sentinels (ELL waste)."""
+        slots = self.nbr.shape[-2] * self.nbr.shape[-1]
+        pad = (self.nbr == self.part.n_c).sum(axis=(-2, -1))
+        return pad / slots
 
 
 def _block_degrees(src: np.ndarray, dst: np.ndarray, part: Partition2D) -> np.ndarray:

@@ -63,7 +63,7 @@ BETA = 0.05
 
 @dataclasses.dataclass(frozen=True)
 class DistBFSConfig:
-    mode: str = "auto"  # wire plan: 'raw' | 'bitmap' | 'auto'
+    mode: str = "auto"  # wire plan: 'raw' | 'bitmap' | 'auto' | 'btfly'
     policy: str = "top_down"  # 'top_down' | 'bottom_up' | 'direction_opt'
     expand: str = "coo"  # 'coo' | 'ell' | 'hybrid' | 'auto'
     max_levels: int = 64
@@ -227,7 +227,7 @@ def build_bfs(
     backend = expand_mod.resolve(cfg.expand)
     part = bg if isinstance(bg, Partition2D) else bg.part
     _check(grid, part)
-    if (cfg.mode in ("bitmap", "auto") or policy.uses_bottom_up) and part.chunk % 1024:
+    if (cfg.mode in ("bitmap", "auto", "btfly") or policy.uses_bottom_up) and part.chunk % 1024:
         raise ValueError(
             f"compressed modes and pull traversal need 1024-multiple chunks "
             f"(got s={part.chunk}); partition with chunk_multiple=1024")

@@ -202,6 +202,23 @@ class ExpansionBackend:
                           row_base=0, col_base=0) -> torch.Tensor:
         raise NotImplementedError
 
+    def describe(self, bg: csrmod.BlockedGraph) -> list[dict]:
+        """Per-block split and slab padding (``[]`` where there is no slab)."""
+        return []
+
+
+def _describe(blocks, bg: csrmod.BlockedGraph, residue: bool) -> list[dict]:
+    waste = blocks.padding_ratio()
+    out = []
+    for i in range(bg.part.rows):
+        for j in range(bg.part.cols):
+            d = {"block": (i, j), "split_k": int(blocks.split_k[i, j]),
+                 "padding_ratio": float(waste[i, j])}
+            if residue:
+                d["residue_edges"] = int((blocks.res_src[i, j] < bg.part.n_c).sum())
+            out.append(d)
+    return out
+
 
 class CooExpansion(ExpansionBackend):
     name = "coo"
@@ -261,6 +278,9 @@ class EllExpansion(ExpansionBackend):
         return _ell_pull_value(blk.nbr, blk.n_cols, _pack_planes(f), unreached, x, alg,
                                row_base, col_base)
 
+    def describe(self, bg):
+        return _describe(csrmod.ell_blocked(bg), bg, residue=False)
+
 
 class HybridExpansion(ExpansionBackend):
     """Degree-split COO/ELL: low-degree rows on the slab, hubs in COO."""
@@ -312,6 +332,9 @@ class HybridExpansion(ExpansionBackend):
             _coo_pull_value(blk.src, blk.dst, blk.n_rows, blk.n_cols, words, unreached,
                             x, alg, row_base, col_base),
         )
+
+    def describe(self, bg):
+        return _describe(csrmod.hybrid_blocked(bg), bg, residue=True)
 
 
 BACKENDS = {b.name: b for b in (CooExpansion(), EllExpansion(), HybridExpansion())}

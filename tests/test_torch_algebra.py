@@ -251,7 +251,8 @@ DIST_CONFIGS = (
      for m in ("raw", "bitmap", "auto") for p in ("top_down", "bottom_up")
      for e in ("coo", "hybrid")]
     + [("scalar-auto-top_down", (2, 2), "auto", "top_down", "hybrid", False, False),
-       ("2x3-auto-top_down", (2, 3), "auto", "top_down", "hybrid", True, False)]
+       ("2x3-auto-top_down", (2, 3), "auto", "top_down", "hybrid", True, False),
+       ("btfly-top_down-hybrid", (2, 2), "btfly", "top_down", "hybrid", True, True)]
 )
 
 _JAX_RUN = """
@@ -341,14 +342,15 @@ def _jax_single(g, alg, roots, n=None):
                     max_levels=256)
 
 
-@pytest.mark.parametrize("mode", ["raw", "bitmap", "auto"])
+@pytest.mark.parametrize("mode", ["raw", "bitmap", "auto", "btfly"])
 @pytest.mark.parametrize("alg,policy", [("sssp", "direction_opt"), ("cc", "bottom_up"),
                                         ("cc", "direction_opt")])
 def test_no_live_reference_equals_jax_single_device(dist_graph, alg, policy, mode):
     """Distributed cc and direction_opt (no live distributed JAX reference)
     against JAX single-device ``bfs(algebra=)`` and the host oracles.  CC's
     labels are global ids of class 16 here, so its pull row takes
-    ``bitmap+p16`` with global payloads under bitmap and auto."""
+    ``bitmap+p16`` with global payloads under bitmap, auto and btfly (the
+    butterfly's floor: at s = 1,024 its ladder has no sparse bucket)."""
     g, n = dist_graph, dist_graph.n
     roots = np.asarray(DIST_ROOTS, np.int32)
     stats = CommStats()
@@ -378,6 +380,25 @@ def test_pagerank_grid_within_tolerance(dist_graph, shape):
     assert np.abs(value.numpy() - np.asarray(ref.parent)).max() < PAGERANK_MAX_ABS
 
 
+def test_pagerank_grid_btfly_within_tolerance(dist_graph):
+    """PageRank under btfly (dense int32 blocks a stage, add-merged) on the
+    2x2 and 2x3 grids against JAX single-device, within float32 rounding,
+    and against auto on the same grid."""
+    g = dist_graph
+    roots = np.asarray(DIST_ROOTS[:1], np.int32)
+    for shape in ((2, 2), (2, 3)):
+        stats = CommStats()
+        value, _, depth, part = _dist(g, shape, "pagerank", "btfly", "top_down", "hybrid",
+                                      roots, stats)
+        ref = _jax_single(g, "pagerank", roots, n=part.n)
+        assert value.dtype == torch.float32 and depth == int(ref.n_levels)
+        assert np.abs(value.numpy() - np.asarray(ref.parent)).max() < PAGERANK_MAX_ABS
+        auto, _, _, _ = _dist(g, shape, "pagerank", "auto", "top_down", "hybrid", roots)
+        assert np.abs(value.numpy() - auto.numpy()).max() < PAGERANK_MAX_ABS
+        rows = {x.fmt for x in stats.records() if x.phase.startswith("pagerank/row")}
+        assert rows == {"dense-i32"}, rows
+
+
 def _zone(phase: str) -> str:
     return re.sub(r"@p\d+$", "", phase)
 
@@ -385,8 +406,8 @@ def _zone(phase: str) -> str:
 def test_value_ledger_equals_static_model_and_jax(jax_dist_run, dist_graph):
     """Every ``values`` and ``dense-i32`` record of the port's ledger is the
     static byte model's (``scripts/check_bench_comm.value_unit_bytes``) times
-    its calls, for every algebra; and SSSP's records under auto + top_down
-    equal JAX's trace-time records call for call: every port key is one of
+    its calls, for every algebra; and SSSP's records under top_down, with
+    auto and with btfly, equal JAX's trace-time records call for call: every port key is one of
     JAX's with the same per-call bytes, and every exchange that is not an
     adaptive branch ran."""
     from scripts.check_bench_comm import value_unit_bytes
@@ -395,7 +416,8 @@ def test_value_ledger_equals_static_model_and_jax(jax_dist_run, dist_graph):
     roots = np.asarray(DIST_ROOTS, np.int32)
     for alg, mode, policy in (("sssp", "auto", "top_down"), ("sssp", "raw", "bottom_up"),
                               ("cc", "bitmap", "direction_opt"),
-                              ("pagerank", "auto", "top_down")):
+                              ("pagerank", "auto", "top_down"),
+                              ("pagerank", "btfly", "top_down")):
         stats = CommStats()
         _, _, _, part = _dist(g, (2, 2), alg, mode, policy, "hybrid", roots, stats)
         checked = 0
@@ -411,17 +433,19 @@ def test_value_ledger_equals_static_model_and_jax(jax_dist_run, dist_graph):
         assert not any(z.startswith("bfs/") for z in zones)
 
     _, ledgers = jax_dist_run()
-    jax_recs = {tuple(r[:4]): r[4:] for r in ledgers["auto-top_down-hybrid"]}
-    stats = CommStats()
-    _dist(g, (2, 2), "sssp", "auto", "top_down", "hybrid", roots, stats)
-    port = {(r.phase, r.fmt, r.collective, r.part): r for r in stats.records()}
-    for key, rec in port.items():
-        assert key in jax_recs, key
-        nbytes, moved = jax_recs[key]
-        assert (rec.nbytes, rec.moved_bytes) == (nbytes * rec.count, moved * rec.count), key
-    fixed = [k for k in jax_recs
-             if _zone(k[0]) in ("sssp/transpose", "sssp/values", "sssp/termination")]
-    assert fixed and all(k in port for k in fixed), sorted(set(fixed) - set(port))
+    for mode in ("auto", "btfly"):
+        jax_recs = {tuple(r[:4]): r[4:] for r in ledgers[f"{mode}-top_down-hybrid"]}
+        stats = CommStats()
+        _dist(g, (2, 2), "sssp", mode, "top_down", "hybrid", roots, stats)
+        port = {(r.phase, r.fmt, r.collective, r.part): r for r in stats.records()}
+        for key, rec in port.items():
+            assert key in jax_recs, (mode, key)
+            nbytes, moved = jax_recs[key]
+            assert (rec.nbytes, rec.moved_bytes) == (nbytes * rec.count,
+                                                     moved * rec.count), (mode, key)
+        fixed = [k for k in jax_recs
+                 if _zone(k[0]) in ("sssp/transpose", "sssp/values", "sssp/termination")]
+        assert fixed and all(k in port for k in fixed), sorted(set(fixed) - set(port))
 
 
 def test_algebra_harness_and_its_checks_on_cpu():

@@ -7,13 +7,13 @@ and roots on ``SimGrid(..., "cpu")`` and must equal them bit for bit.
 Distributed ``direction_opt`` has no live JAX reference on the installed
 jax (its ``lax.cond`` branches fail to trace), so it is held against the
 JAX single-device ``bfs`` and ``validate.reference_bfs``.  The ledger is
-held against the host byte replay ``benchmarks.bfs_comm.simulate_batch``.
+held against the host byte replay ``benchmarks.bfs_comm.simulate_batch``,
+under the direct (``auto``) and the butterfly (``btfly``) row plans.
 """
 
 import dataclasses
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -41,6 +41,10 @@ CONFIGS = (
        ("scalar-auto-top_down", (2, 2), "auto", "top_down", "hybrid", False),
        ("scalar-auto-bottom_up", (2, 2), "auto", "bottom_up", "hybrid", False),
        ("2x3-auto-top_down", (2, 3), "auto", "top_down", "hybrid", True)]
+    # the butterfly: two stages at C = 4, fold + one stage + unfold at C = 3
+    + [(f"{r}x{c}-btfly-{p}", (r, c), "btfly", p, "hybrid", True)
+       for r, c in ((2, 2), (2, 3), (1, 4)) for p in ("top_down", "bottom_up")]
+    + [("scalar-btfly-top_down", (2, 2), "btfly", "top_down", "hybrid", False)]
 )
 
 _JAX_RUN = """
@@ -98,7 +102,7 @@ def test_port_equals_jax_build_bfs(jax_results, graph, name, shape, mode, policy
     assert depth == int(jax_results[name + "/depth"])
 
 
-@pytest.mark.parametrize("mode", ["raw", "bitmap", "auto"])
+@pytest.mark.parametrize("mode", ["raw", "bitmap", "auto", "btfly"])
 def test_direction_opt_equals_jax_single_device(graph, mode):
     """Distributed direction_opt (no live JAX reference) equals the JAX
     single-device bfs and the host reference's levels, batched and scalar."""
@@ -122,38 +126,40 @@ def test_direction_opt_equals_jax_single_device(graph, mode):
     assert torch.equal(p1, parent[1]) and torch.equal(l1, level[1])
 
 
-def _zone(stats, name):
-    return [r for r in stats.records() if re.sub(r"@p\d+$", "", r.phase) == f"bfs/{name}"]
-
-
-@pytest.mark.parametrize("policy", ["top_down", "bottom_up", "direction_opt"])
-def test_ledger_equals_host_replay(policy):
+@pytest.mark.parametrize(
+    "policy,mode",
+    [pytest.param(p, m, id=p if m == "auto" else f"{p}-{m}")
+     for m in ("auto", "btfly") for p in ("top_down", "bottom_up", "direction_opt")])
+def test_ledger_equals_host_replay(policy, mode):
     """Scale 15, 2x2, B=4 hub roots: the port's ledger against
-    ``simulate_batch``.  Conventions converted here:
-
-    * the replay prices the L levels that discover vertices; the device
-      loop runs one more, whose frontier finds nothing, so the port runs
-      with ``max_levels = L`` (its results are complete by then);
-    * the replay counts cluster totals: link bytes summed over ranks for
-      the column and row zones (``grid_moved_bytes``), result bytes summed
-      over ranks for the transpose (self-sends included, ``grid_bytes``),
-      all-reduces doubled and summed over ranks for termination and
-      degree, and the bucket consensus doubled once per communicator
-      group (rank total / group size).
+    ``simulate_batch``'s plan (``alltoall`` for ``auto``, ``btfly``), and
+    under ``btfly`` each stage zone's bytes per format against the
+    replay's stage log.  The replay prices the L levels that discover
+    vertices; the device loop runs one more, whose frontier finds nothing,
+    so the port runs with ``max_levels = L`` (its results are complete by
+    then).  ``repro_torch.bench.bfs_comm.device_terms`` and
+    ``replay_terms`` put both in the replay's conventions: cluster totals,
+    link bytes for the column and row zones, result bytes for the
+    transpose, all-reduces doubled, one consensus per group and exchange;
+    the replay also charges a consensus to each unreached stage whose
+    ladder has no sparse bucket (s < 65,536 here), where the device, as
+    JAX's, has a single branch and none, and ``replay_terms`` takes it off.
     """
-    from benchmarks import bfs_comm
+    from benchmarks import bfs_comm as jbfs_comm
+    from repro.comm import butterfly as jbutterfly
+    from repro_torch.bench import bfs_comm
 
     scale, r, c, b = 15, 2, 2, 4
     g = builder.build_csr(kronecker.kronecker_edges(scale, seed=1), n=1 << scale)
     roots = bfs.hub_roots(g.degrees(), b)
     jg = jbuilder.build_csr(jkronecker.kronecker_edges(scale, seed=1), n=1 << scale)
     depth = max(int(jvalidate.reference_bfs(jg, int(x)).max()) for x in roots)
-    rep = bfs_comm.simulate_batch(scale, r, c, b, policy=policy, graph=jg)
+    rep = jbfs_comm.simulate_batch(scale, r, c, b, policy=policy, graph=jg)
     assert rep["roots"] == [int(x) for x in roots]
 
     grid = SimGrid(r, c, "cpu")
     bg = csr.partition_2d(g, r, c)
-    cfg = dbfs.DistBFSConfig(mode="auto", policy=policy, expand="hybrid", max_levels=depth)
+    cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand="hybrid", max_levels=depth)
     stats = CommStats()
     _, level, n_levels = dbfs.build_bfs(grid, bg, cfg, stats=stats)(
         *dbfs.shard_blocked(grid, bg, cfg), roots)
@@ -162,23 +168,18 @@ def test_ledger_equals_host_replay(policy):
         np.testing.assert_array_equal(level[k, : g.n].numpy(),
                                       jvalidate.reference_bfs(jg, int(x)))
 
-    payload = ("row", "row-pull", "unreached")
-    got = {
-        "column": sum(x.grid_moved_bytes for x in _zone(stats, "column")
-                      if x.part != "bucket"),
-        "transpose": sum(x.grid_bytes for x in _zone(stats, "transpose")),
-        "termination": sum(2 * x.grid_bytes for x in _zone(stats, "termination")),
-        "degree": sum(2 * x.grid_bytes for x in _zone(stats, "degree")),
-        "row_bytes": sum(x.grid_moved_bytes for z in payload for x in _zone(stats, z)
-                         if x.part != "bucket"),
-        "consensus_bytes": sum(2 * x.grid_bytes // c for x in _zone(stats, "row")
-                               if x.part == "bucket"),
-    }
-    assert not [x for x in _zone(stats, "column") if x.part == "bucket"]  # empty ladder
-    want = {k: rep["zones"][k] for k in ("column", "transpose", "termination", "degree")}
-    want["row_bytes"] = rep["plans"]["alltoall"]["row_bytes"]
-    want["consensus_bytes"] = rep["plans"]["alltoall"]["consensus_bytes"]
-    assert got == want
+    assert not [x for x in stats.records()
+                if bfs_comm.split_phase(x.phase)[0] == "bfs/column" and x.part == "bucket"]
+    plan = "alltoall" if mode == "auto" else mode
+    got = bfs_comm.device_terms(stats, r, c)
+    want = bfs_comm.replay_terms(rep, plan, bg.part.chunk)
+    # the one adjustment replay_terms makes: 8 bytes per unreached stage,
+    # whose ladder has no sparse bucket at this chunk
+    assert not jbutterfly.unreached_wire(bg.part.chunk)[0].specs
+    n_unreached = sum(e.get("zone") == "unreached" for e in rep["btfly_stages"])
+    assert rep["plans"][plan]["consensus_bytes"] - want["consensus_bytes"] == (
+        8 * n_unreached if mode == "btfly" else 0)
+    assert got == want and (mode == "auto") != bool(got["stages"])
 
 
 def test_build_bfs_rejects_bad_input(graph):
@@ -197,7 +198,7 @@ def test_build_bfs_rejects_bad_input(graph):
     with pytest.raises(ValueError):
         dbfs.build_bfs(SimGrid(2, 3, "cpu"), bg)
     with pytest.raises(ValueError):
-        dbfs.build_bfs(grid, bg, dbfs.DistBFSConfig(mode="btfly"))
+        dbfs.build_bfs(grid, bg, dbfs.DistBFSConfig(mode="nope"))  # an unknown plan
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (2, 3), (1, 4)])

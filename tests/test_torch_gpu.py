@@ -440,3 +440,56 @@ def test_gat_int8_nonfinite_on_card_matches_cpu(cuda):
     assert torch.equal(card.isnan(), cpu.isnan()) and torch.equal(card.isinf(), cpu.isinf())
     peak = float(cpu[finite].abs().max())
     torch.testing.assert_close(card[finite], cpu[finite], rtol=0, atol=1e-3 * peak)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2), (2, 3)])
+def test_btfly_on_card_equals_auto(cuda, shape):
+    """Scale 16, four valid roots: the butterfly plan's trees equal the
+    direct plan's under every policy on the card (C = 2: one stage; C = 3:
+    fold, one stage, unfold), and the stage zones are in its ledger.  Chunks
+    are 4,096-multiples: at 2x3 the default 1,024-multiple chunk (11,264)
+    gives bucket capacities that are no 1,024-multiple, which the ladder
+    (as the reference's) refuses."""
+    from repro_torch.bench import teps
+
+    g = builder.build_csr(kronecker.kronecker_edges(16, seed=1), n=1 << 16)
+    bg = csr.partition_2d(g, *shape, chunk_multiple=4096)
+    grid = SimGrid(*shape, cuda)
+    roots = teps.valid_roots(g, 4, seed=2)
+    blocks = dbfs.shard_blocked(grid, bg, dbfs.DistBFSConfig(expand="hybrid"))
+    for policy in ("top_down", "bottom_up", "direction_opt"):
+        runs = {}
+        for mode in ("auto", "btfly"):
+            stats = CommStats()
+            cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand="hybrid")
+            runs[mode] = dbfs.build_bfs(grid, bg, cfg, stats=stats)(*blocks, roots)
+        (pa, la, da), (pb, lb, db) = runs["auto"], runs["btfly"]
+        assert torch.equal(pa, pb) and torch.equal(la, lb) and da == db, policy
+        zones = {r.phase.split("@")[0] for r in stats.records()}
+        assert "bfs/row[btfly:0]" in zones or "bfs/row-pull[btfly:0]" in zones, zones
+        if shape[1] == 3:
+            assert any(z.endswith("[btfly:fold]") for z in zones), zones
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["top_down", "bottom_up", "direction_opt"])
+def test_btfly_ledger_on_card_equals_replay(cuda, policy):
+    """Scale 16, 2x2, B=4 hub roots: the card's btfly ledger equals the
+    port's host replay (``bench.bfs_comm.simulate_batch``) zone for zone
+    and stage for stage, in the replay's conventions."""
+    from repro_torch.bench import bfs_comm
+    from repro_torch.core import validate
+
+    scale, r, c, b = 16, 2, 2, 4
+    g = builder.build_csr(kronecker.kronecker_edges(scale, seed=1), n=1 << scale)
+    roots = bfs.hub_roots(g.degrees(), b)
+    depth = max(int(validate.reference_bfs(g, int(x)).max()) for x in roots)
+    rep = bfs_comm.simulate_batch(scale, r, c, b, policy=policy, graph=g)
+    grid = SimGrid(r, c, cuda)
+    bg = csr.partition_2d(g, r, c)
+    cfg = dbfs.DistBFSConfig(mode="btfly", policy=policy, expand="hybrid", max_levels=depth)
+    stats = CommStats()
+    dbfs.build_bfs(grid, bg, cfg, stats=stats)(*dbfs.shard_blocked(grid, bg, cfg), roots)
+    got = bfs_comm.device_terms(stats, r, c)
+    assert got == bfs_comm.replay_terms(rep, "btfly", bg.part.chunk) and got["stages"]
