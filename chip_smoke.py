@@ -64,13 +64,26 @@ frontier algebras on both, and the 2D GNN forward with int8 payloads:
    ledger equal to the host replay ``bench.bfs_comm.simulate_batch`` zone
    for zone and stage for stage, the replay's document passing
    ``bench.check_comm``;
-8. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
+8. the process grid: 4 worker processes on the one card, one rank each of
+   a 2x2 grid over ``torch.distributed`` with gloo, exchanging through
+   host memory (``repro_torch.comm.procgrid``; the kernels are built by
+   step 2 before they start), at scale 18, one batch of 8 roots each of
+   ``auto`` + ``direction_opt`` + ``hybrid``, ``btfly`` + ``direction_opt``
+   + ``hybrid`` and ``sssp`` under ``auto``, after one uncounted warm-up
+   batch, the counts zeroed in each worker before and read after: values,
+   levels and level counts bit-identical to ``SimGrid`` on the card for the
+   same roots, every tree valid (SSSP: its certificate), the workers'
+   merged ledger equal to ``SimGrid``'s record for record, every kernel of
+   the distributed path launched in each worker; the batch times beside
+   ``SimGrid``'s, the staging share, and ``tree_betweenness`` of the first
+   batch on the card equal to the same function on the CPU;
+9. cross-checks at scale 16: ``top_down``, ``bottom_up`` and
    ``direction_opt`` on the card, single-device and on the 2x2 grid under
    ``raw``, ``bitmap``, ``auto`` and ``btfly``, and ``direction_opt`` on
    the CPU give bit-identical parents, levels and level counts; so do
    ``sssp`` and ``cc`` under every policy on the card, single-device and
    on the grid under every plan, against ``top_down`` on the CPU;
-9. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
+10. the frontier algebras at scale S (``hybrid`` + ``top_down``): the value
    kernel ``gspmm_min_planes`` and its ``interleave_values`` helper against
    their plain versions at the path's own inputs (a real SSSP level of 8
    planes, push and pull, both ops; one rank's slab of the 2x2 grid with its
@@ -85,7 +98,7 @@ frontier algebras on both, and the 2D GNN forward with int8 payloads:
    grid under ``auto`` equal the single-device ones (PageRank within a
    float32 bound), and the first SSSP batch again under ``raw`` gives the
    per-phase bytes of both plans;
-10. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
+11. the 2D GNN forward at full width (``repro_torch.bench.gnn``: GraphCast,
    16 layers, d_hidden 512, 227 variables, on the refinement-6 multimesh,
    40,962 nodes, over a simulated 2x2 grid): one int8 forward records the
    inputs the path gives the ``quantize`` kernel (the owned chunk and the
@@ -136,6 +149,13 @@ BTFLY_C3_CHUNK_MULTIPLE = 1 << 18
 #: the replay's numpy (seconds), with sparse buckets on every wire
 LEDGER_SCALE = 18
 LEDGER_BATCH = 4
+#: the process grid (step 8): one process per rank of GRID on the one card,
+#: gloo through host memory; scale 18 keeps its batches to seconds while
+#: the row wires still take their sparse buckets
+PROC_SCALE = 18
+PROC_CASES = ({"mode": "auto", "policy": "direction_opt"},
+              {"mode": "btfly", "policy": "direction_opt"},
+              {"mode": "auto", "policy": "top_down", "algebra": "sssp"})
 REPLACES = {
     "pack": "src/repro/kernels/bitpack/bitpack.py:50",
     "unpack": "src/repro/kernels/bitpack/bitpack.py:72",
@@ -1166,6 +1186,91 @@ def btfly_step(setup, roots, single, st, auto, card) -> tuple[dict, dict]:
     return counts, rows
 
 
+def procgrid_step(card) -> dict:
+    """The process grid (``ProcessGrid``): GRID's ranks as 4 worker
+    processes on the one card over gloo, at PROC_SCALE, one batch of 8
+    roots per PROC_CASES entry after an uncounted warm-up, each worker's
+    counts zeroed before and read after.  Every case equals ``SimGrid`` on
+    the card (values, levels, level count, the merged ledger record for
+    record), every tree is valid (SSSP: its certificate on the card), every
+    kernel of the distributed path launched in each worker; the batch times
+    and staging share are printed beside ``SimGrid``'s, and the first
+    batch's ``tree_betweenness`` on the card equals the CPU's.  Returns the
+    workers' launch counts, summed."""
+    import torch
+
+    from repro_torch.bench import algebras, distributed, graph500, teps
+    from repro_torch.comm import SimGrid, procgrid
+    from repro_torch.core import validate
+    from repro_torch.core.centrality import tree_betweenness
+
+    t0 = time.perf_counter()
+    g = graph500.generate(PROC_SCALE, 16, 1)[0]
+    roots = teps.valid_roots(g, 8, seed=2)
+    spec = {"scale": PROC_SCALE, "roots": roots.tolist(), "cases": PROC_CASES,
+            "warmup": PROC_CASES[:1]}
+    t1 = time.perf_counter()
+    procs = procgrid.spawn(distributed.proc_cases, *GRID, backend="gloo", device="cuda",
+                           args=(spec,), timeout_s=300)
+    spawn_s = time.perf_counter() - t1
+    st = distributed.setup(g, SimGrid(*GRID, device="cuda"), "hybrid")
+    distributed.run_case(st, roots, **PROC_CASES[0])  # the workers' warm-up
+    sim = [distributed.run_case(st, roots, **case) for case in PROC_CASES]
+    where = (f"{GRID[0] * GRID[1]} processes on one card over host memory (gloo), not a "
+             "multi-card figure")
+    src = torch.as_tensor(g.src, device="cuda")
+    dst = torch.as_tensor(g.dst, device="cuda")
+    for k, (case, want) in enumerate(zip(PROC_CASES, sim)):
+        name = "/".join(case.values())
+        got = procs[0]["cases"][k]
+        if not (np.array_equal(got["value"], want["value"].cpu().numpy())
+                and np.array_equal(got["level"], want["level"].cpu().numpy())):
+            raise AssertionError(f"process grid {name}: planes differ from SimGrid")
+        for proc in procs:
+            c = proc["cases"][k]
+            if c["n_levels"] != want["n_levels"]:
+                raise AssertionError(f"process grid {name} rank {proc['rank']}: "
+                                     f"{c['n_levels']} levels, SimGrid {want['n_levels']}")
+            if c["stats"].table() != want["stats"].table():
+                raise AssertionError(f"process grid {name} rank {proc['rank']}: merged "
+                                     "ledger differs from SimGrid's")
+        if case.get("algebra") == "sssp":
+            failures = algebras.sssp_certificate(src, dst, g.n, roots,
+                                                 torch.as_tensor(got["value"], device="cuda"))
+        else:
+            failures = [f"root {r}: {v.failures}" for r, v in (
+                (int(r), validate.validate_bfs_tree(g, got["value"][i], int(r), got["level"][i]))
+                for i, r in enumerate(roots)) if not v.ok]
+        if failures:
+            raise AssertionError(f"process grid {name}: invalid trees {failures[:4]}")
+        staging = max(p["cases"][k]["staging_s"] for p in procs)
+        print(f"process grid {name} scale {PROC_SCALE} 2x2 (8 roots, {want['n_levels']} "
+              f"levels): equal to SimGrid (planes, level count, {len(want['stats'].records())} "
+              f"ledger records), trees valid; batch {got['batch_s']:.4f} s ({where}) vs "
+              f"SimGrid {want['batch_s']:.4f} s (4 ranks simulated in one process); staging "
+              f"{staging:.4f} s, share {staging / got['batch_s']:.4f}, on {card}")
+    for proc in procs:
+        require_launched(proc["launches"], DIST_PATH + ALGEBRA_PATHS["sssp"],
+                         f"process grid (rank {proc['rank']})")
+    total: dict = {}
+    for proc in procs:
+        for name, n in proc["launches"].items():
+            total[name] = total.get(name, 0) + n
+    print(f"launches on the process grid, per worker: "
+          f"{[proc['launches'] for proc in procs]}")
+    parent, level = procs[0]["cases"][0]["value"], procs[0]["cases"][0]["level"]
+    bc = tree_betweenness(torch.as_tensor(parent, device="cuda"),
+                          torch.as_tensor(level, device="cuda"), g.n)
+    if not torch.equal(bc.cpu(), tree_betweenness(parent, level, g.n)):
+        raise AssertionError("tree_betweenness on the card differs from the CPU")
+    top = torch.sort(bc, descending=True, stable=True).indices[:5].cpu().tolist()
+    print(f"tree_betweenness on the card (8 trees, one index_add_ a level): equal to the "
+          f"CPU; top vertices {top}, centrality {[float(bc[v]) for v in top]}")
+    print(f"process grid step: {time.perf_counter() - t0:.1f}s (spawn and the workers' "
+          f"runs {spawn_s:.1f}s) on {card}")
+    return total
+
+
 def cross_check(card) -> None:
     """Scale CHECK_SCALE: every policy on the card, single-device and on the
     2x2 grid under every wire plan, equals direction_opt on the CPU."""
@@ -1795,6 +1900,7 @@ def main() -> int:
     launches["distributed"], dist_rows, st, auto = distributed_step(setup, roots, single, card)
     launches["btfly"], btfly_rows = btfly_step(setup, roots, single, st, auto, card)
     del auto
+    launches["procgrid"] = procgrid_step(card)
     cross_check(card)
     alg_launches, rows["gspmm_min_planes"], rows["interleave_values"] = algebra_step(
         setup, roots, st, card)

@@ -35,10 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.bench import distributed, graph500, teps
-from repro_torch.comm import CommStats, SimGrid
+from repro_torch.comm import SimGrid
 from repro_torch.core import algebra as algebra_mod
 from repro_torch.core import bfs as bfsmod
-from repro_torch.core import distributed_bfs as dbfs
 
 INF = algebra_mod.INF
 ALGEBRAS = ("sssp", "cc", "pagerank")
@@ -73,19 +72,10 @@ def run_single(setup: graph500.Graph500Setup, algebra: str, roots) -> dict:
 
 
 def run_grid(st: distributed.DistSetup, algebra: str, roots, mode: str = "auto") -> dict:
-    """One batch of ``algebra`` on the grid -> value and level planes over
-    the first ``n`` vertices, level count, seconds and the ledger."""
-    cfg = dbfs.DistBFSConfig(mode=mode, policy=POLICY, expand=st.expand,
-                             max_levels=MAX_LEVELS[algebra], algebra=algebra)
-    stats = CommStats()
-    fn = dbfs.build_bfs(st.grid, st.bg, cfg, stats=stats)
-    n = st.g.n
-    _sync(st.grid.device)
-    t0 = time.perf_counter()
-    value, level, depth = fn(*st.blocks, np.asarray(roots, np.int32))
-    _sync(st.grid.device)
-    return {"value": value[:, :n], "level": level[:, :n], "n_levels": depth,
-            "batch_s": time.perf_counter() - t0, "stats": stats}
+    """One batch of ``algebra`` on the grid (``distributed.run_case`` with
+    this harness's policy and level cap)."""
+    return distributed.run_case(st, roots, mode=mode, policy=POLICY, algebra=algebra,
+                                max_levels=MAX_LEVELS[algebra])
 
 
 def sssp_certificate(src: torch.Tensor, dst: torch.Tensor, n: int, roots,

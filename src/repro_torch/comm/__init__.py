@@ -1,11 +1,15 @@
 """The communication plane of the port: wire formats, bucket ladders, the
-adaptive exchange engine and its byte ledger, over a simulated grid.
+adaptive exchange engine and its byte ledger, over a simulated grid or
+one process per rank.
 
 * :mod:`.formats`     — wire-format geometry + pack/unpack (bitmap, PFOR16
   id stream, found-bitmap + parents, raw ids, dense, int8).
 * :mod:`.ladder`      — bucket ladders pruned by word count and the
   :mod:`.threshold` break-even (paper §5.4.3).
-* :mod:`.grid`        — :class:`SimGrid`, R x C ranks in one process.
+* :mod:`.grid`        — the grid's geometry (local ranks, the row-axis
+  fold) and :class:`SimGrid`, R x C ranks in one process.
+* :mod:`.procgrid`    — ``ProcessGrid``, one process per rank over
+  ``torch.distributed`` (gloo or nccl), and ``spawn`` (imported on its own).
 * :mod:`.engine`      — :class:`AdaptiveExchange`: per-group consensus,
   branch dispatch, byte-recording collectives.
 * :mod:`.stats`       — :class:`CommStats`, the per-phase byte ledger.

@@ -1,7 +1,7 @@
 """Butterfly row exchange: the log2(C)-stage merge-and-recompress wire plan.
 
 The port's counterpart of ``repro/comm/butterfly.py`` (ButterFly BFS,
-arXiv:2103.13577), over a :class:`repro_torch.comm.grid.SimGrid`.  The row
+arXiv:2103.13577), over a grid (:mod:`repro_torch.comm.grid`).  The row
 phase's direct all-to-all is replaced by a butterfly: each of log2(C)
 stages exchanges with ONE partner (``ppermute``) and re-compresses the
 merged candidate stream before the next hop, so the adaptive wire formats
@@ -32,9 +32,10 @@ ids: :func:`row_wire` sizes the ladder's payload class from the full vertex
 count and takes found-bitmap + packed global parents as the dense floor
 while that class stays below 32 bits (dense int32 at 32).
 
-Per-rank values are lists over the grid's ranks.  ``SimGrid.ppermute``
-hands a receiver the sender's own tensor, so every merge below is out of
-place: a rank never writes into a tensor another rank may hold.
+Per-rank values are lists over the grid's ranks; each stage's state is kept
+for the grid's local ranks.  ``SimGrid.ppermute`` hands a receiver the
+sender's own tensor, so every merge below is out of place: a rank never
+writes into a tensor another rank may hold.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from repro_torch.comm.formats import (
     DenseFormat,
     plane_wire_bytes,
 )
-from repro_torch.comm.grid import SimGrid
+from repro_torch.comm.grid import Grid
 from repro_torch.comm.ladder import BucketLadder
 from repro_torch.core.algebra import width_class
 
@@ -152,7 +153,7 @@ def stage_unit_bytes(s: int, n: int, fmt_name: str, zone: str = "row", b: int = 
 # ---------------------------------------------------------------------------
 
 
-def build_row_exchange(s: int, grid: SimGrid, axis, n_c: int, *, b: int = 1,
+def build_row_exchange(s: int, grid: Grid, axis, n_c: int, *, b: int = 1,
                        to_global: bool = False, stats=None, phase: str = "bfs/row",
                        alg=None):
     """Build ``fn(prop) -> out`` over per-rank lists: ``(b, c, s)`` int32
@@ -176,7 +177,7 @@ def build_row_exchange(s: int, grid: SimGrid, axis, n_c: int, *, b: int = 1,
     dense = DenseFormat(s)
     p, extra, slots = sched.p, sched.extra, sched.slots
     col = grid.axis_index(axis)
-    ranks = [q for g in grid.groups(axis) for q in g]
+    ranks = grid.local_ranks
 
     def exchange(blocks, perm, gate, zone):
         if is_sum:
@@ -255,7 +256,7 @@ def build_row_exchange(s: int, grid: SimGrid, axis, n_c: int, *, b: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def build_unreached_gather(s: int, grid: SimGrid, axis, *, b: int = 1, stats=None,
+def build_unreached_gather(s: int, grid: Grid, axis, *, b: int = 1, stats=None,
                            phase: str = "bfs/unreached"):
     """Build ``fn(bits) -> out`` over per-rank lists: ``(b, s)`` bool in,
     ``(b, c*s)`` bool out (chunk q of the grid row at ``[:, q*s:(q+1)*s]``),
@@ -266,7 +267,7 @@ def build_unreached_gather(s: int, grid: SimGrid, axis, *, b: int = 1, stats=Non
     ladder, _ = unreached_wire(s)
     p, extra, slots = sched.p, sched.extra, sched.slots
     col = grid.axis_index(axis)
-    ranks = [q for g in grid.groups(axis) for q in g]
+    ranks = grid.local_ranks
 
     def exchange(blocks, perm, gate, zone):
         ex = AdaptiveExchange(zone, grid, axis, ladder, stats, planes=b)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.comm.engine import AdaptiveExchange
-from repro_torch.comm.grid import SimGrid
+from repro_torch.comm.grid import Grid
 from repro_torch.comm.formats import (
     INF,
     BitmapFormat,
@@ -174,7 +174,7 @@ def _allgather_membership(ex: AdaptiveExchange, bits: list, ladder: BucketLadder
     return ex.dispatch(my_bucket, branches)
 
 
-def allgather_membership_planes(bits: list, grid: SimGrid, axis, ladder: BucketLadder,
+def allgather_membership_planes(bits: list, grid: Grid, axis, ladder: BucketLadder,
                                 *, stats: CommStats | None = None,
                                 phase: str = "bfs/column") -> list:
     """Adaptive all-gather of per-rank ``(B, s)`` membership planes over
@@ -191,7 +191,7 @@ def allgather_membership_planes(bits: list, grid: SimGrid, axis, ladder: BucketL
     return _allgather_membership(ex, bits, ladder, packed=True)
 
 
-def allgather_membership(bits: list, grid: SimGrid, axis, ladder: BucketLadder, *,
+def allgather_membership(bits: list, grid: Grid, axis, ladder: BucketLadder, *,
                          stats: CommStats | None = None, phase: str = "bfs/column") -> list:
     """Single-source column phase: per-rank ``(s,)`` -> ``(g*s,)``, with the
     two-word (count, exc) sideband."""
@@ -333,7 +333,7 @@ def _alltoall_min_candidates(ex: AdaptiveExchange, prop: list, ladder: BucketLad
     return ex.dispatch(my_bucket, branches)
 
 
-def alltoall_min_candidates_planes(prop: list, grid: SimGrid, axis, ladder: BucketLadder,
+def alltoall_min_candidates_planes(prop: list, grid: Grid, axis, ladder: BucketLadder,
                                    *, stats: CommStats | None = None,
                                    phase: str = "bfs/row", n_c: int | None = None) -> list:
     """Adaptive all-to-all + min-reduce over ``axis`` of per-rank
@@ -350,7 +350,7 @@ def alltoall_min_candidates_planes(prop: list, grid: SimGrid, axis, ladder: Buck
     return _alltoall_min_candidates(ex, prop, ladder, n_c, packed=True)
 
 
-def alltoall_min_candidates(prop: list, grid: SimGrid, axis, ladder: BucketLadder, *,
+def alltoall_min_candidates(prop: list, grid: Grid, axis, ladder: BucketLadder, *,
                             stats: CommStats | None = None, phase: str = "bfs/row",
                             n_c: int | None = None) -> list:
     """Single-source row phase: per-rank ``(c, s)`` -> ``(s,)``, with the

@@ -1,15 +1,16 @@
 """AdaptiveExchange: one engine behind every adaptive collective.
 
-The port's counterpart of ``repro/comm/engine.py``, over a
-:class:`repro_torch.comm.grid.SimGrid`:
+The port's counterpart of ``repro/comm/engine.py``, over a grid
+(:class:`repro_torch.comm.grid.SimGrid`, or one process per rank,
+:class:`repro_torch.comm.procgrid.ProcessGrid`):
 
 * :meth:`AdaptiveExchange.dispatch` — each rank's bucket choice (from the
   ladder) is made uniform inside each communicator group with a recorded
   ``pmax``.  Consensus is per group, not global: over ``"data"`` each of
-  the C column groups gets its own bucket.  The bucket of every group is
-  read to the host once, and each branch then runs over the groups that
-  chose it — where JAX's ``lax.switch`` runs one branch per group.  A
-  single-branch exchange skips the consensus.
+  the C column groups gets its own bucket.  The bucket of every group that
+  holds a local rank is read to the host once, and each branch then runs
+  over the groups that chose it — where JAX's ``lax.switch`` runs one
+  branch per group.  A single-branch exchange skips the consensus.
 * :meth:`all_gather` / :meth:`all_to_all` / :meth:`pmax` / :meth:`pmin` /
   :meth:`psum` / :meth:`ppermute` — the grid's collectives, each recording one rank's
   result-shape bytes per call as the reference engine does, with
@@ -18,20 +19,27 @@ The port's counterpart of ``repro/comm/engine.py``, over a
   ``2(g-1)/g`` volume.  With ``planes > 1`` payload bytes are attributed
   per plane under ``{phase}@p{k}``; the consensus stays under ``phase``.
 
+A call is recorded once for the local ranks that ran it, tagged with its
+call index (:meth:`repro_torch.comm.stats.CommStats.call_index`): the
+index of the top-level exchange and the call's position inside the
+branch, the same in every process, so that the ledgers of the processes
+of a grid merge into the one a single process of every rank records.
+
 Per-rank values are lists over the grid's ranks (``None`` for a rank
-outside the call); ``groups`` restricts a call to some of the axis's
-communicator groups.
+outside the call or not held here); ``groups`` restricts a call to some of
+the axis's communicator groups.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Sequence
 
 import torch
 
-from repro_torch.comm.grid import SimGrid
+from repro_torch.comm.grid import Grid
 from repro_torch.comm.ladder import BucketLadder
 from repro_torch.comm.stats import CommStats
 
@@ -48,7 +56,7 @@ class AdaptiveExchange:
     """One adaptive exchange site: phase name, grid axis, ladder, stats."""
 
     phase: str  # logical zone, e.g. "bfs/column"
-    grid: SimGrid
+    grid: Grid
     axis: Any  # grid axis name or tuple of names
     ladder: BucketLadder | None = None  # None -> single fixed format
     stats: CommStats | None = None
@@ -62,8 +70,10 @@ class AdaptiveExchange:
         return groups if groups is not None else self.grid.groups(self.axis)
 
     def ranks(self, groups=None) -> list[int]:
-        """The ranks of ``groups`` (default: every group of the axis)."""
-        return [p for g in self.groups(groups) for p in g]
+        """The local ranks of ``groups`` (default: every group of the axis
+        that holds one)."""
+        local = set(self.grid.local_ranks)
+        return [p for g in self.groups(groups) for p in g if p in local]
 
     # -- recording collective primitives ------------------------------------
 
@@ -73,6 +83,7 @@ class AdaptiveExchange:
             return
         ranks = self.ranks(groups)
         nbytes = nbytes_of(out[ranks[0]])
+        call = self.stats.call_index()
         if self.planes > 1 and per_plane:
             assert nbytes % self.planes == 0, (self.phase, nbytes, self.planes)
             share = nbytes // self.planes
@@ -83,10 +94,10 @@ class AdaptiveExchange:
                     if k == self.planes - 1:  # keep the moved total exact
                         m += moved - self.planes * (moved // self.planes)
                 self.stats.record(f"{self.phase}@p{k}", fmt, kind, part, share,
-                                  moved_bytes=m, ranks=len(ranks))
+                                  moved_bytes=m, ranks=len(ranks), call=call)
         else:
             self.stats.record(self.phase, fmt, kind, part, nbytes, moved_bytes=moved,
-                              ranks=len(ranks))
+                              ranks=len(ranks), call=call)
 
     def _peer_share(self, out: list, groups) -> int:
         """Result bytes minus the own chunk (gathers/all-to-alls keep 1/g)."""
@@ -152,16 +163,20 @@ class AdaptiveExchange:
         each rank's smallest usable bucket (0-d int32; ignored when only
         one branch exists).
         """
-        groups = self.groups()
-        if len(branches) == 1:
-            return branches[0](groups)
-        assert local_bucket is not None
-        bucket = self.pmax(local_bucket)
-        chosen = torch.stack([bucket[g[0]] for g in groups]).cpu().tolist()
-        out = [None] * self.grid.size
-        for b in sorted(set(chosen)):
-            part = branches[b]([g for g, c in zip(groups, chosen) if c == b])
-            for p, v in enumerate(part):
-                if v is not None:
-                    out[p] = v
-        return out
+        scope = (self.stats.exchange() if self.stats is not None
+                 else contextlib.nullcontext(lambda: None))
+        with scope as branch:
+            groups = self.groups()
+            if len(branches) == 1:
+                return branches[0](groups)
+            assert local_bucket is not None
+            bucket = self.pmax(local_bucket)
+            chosen = torch.stack([bucket[self.ranks([g])[0]] for g in groups]).cpu().tolist()
+            out = [None] * self.grid.size
+            for b in sorted(set(chosen)):
+                branch()  # each branch numbers its calls from the same place
+                part = branches[b]([g for g, c in zip(groups, chosen) if c == b])
+                for p, v in enumerate(part):
+                    if v is not None:
+                        out[p] = v
+            return out

@@ -22,8 +22,8 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ThresholdPolicy:
     """Decide whether a transfer should be compressed: the link model of the
-    paper's Table 7.5 (``modeled_speedup``) and the packed wire formats'
-    break-even (``should_pack``).
+    paper's Table 7.5 (``should_compress``, ``modeled_speedup``) and the
+    packed wire formats' break-even (``should_pack``).
 
     Attributes:
       min_ints: minimum element count before compression pays off.
@@ -41,8 +41,16 @@ class ThresholdPolicy:
     codec_speed_mips: float = 50_000.0
     codec_dspeed_mips: float = 50_000.0
 
-    def modeled_speedup(self, n_ints: int, ratio: float, same_host: bool = False) -> float:
-        """Transfer-time speedup of compressed against plain under this model."""
+    @classmethod
+    def paper_creek(cls) -> "ThresholdPolicy":
+        """The paper's environment: a CPU SIMD codec (Table 5.4's S4-BP128
+        speeds on Creek) and Gigabit Ethernet."""
+        return cls(link_bandwidth_gBps=0.125, codec_speed_mips=3200.0,
+                   codec_dspeed_mips=4700.0)
+
+    def _times(self, n_ints: int, ratio: float, same_host: bool) -> tuple[float, float]:
+        """(plain, compressed) seconds of ``n_ints`` 4-byte integers whose
+        compressed form is ``ratio`` times smaller."""
         bw = (self.same_host_bandwidth_gBps if same_host else self.link_bandwidth_gBps) * 1e9
         plain_s = n_ints * 4 / bw
         comp_s = (
@@ -50,6 +58,19 @@ class ThresholdPolicy:
             + n_ints * 4 / (ratio * bw)
             + n_ints / (self.codec_dspeed_mips * 1e6)
         )
+        return plain_s, comp_s
+
+    def should_compress(self, n_ints: int, ratio: float, same_host: bool = False) -> bool:
+        """The §5.4.3 gate: at least ``min_ints`` integers, and compressing,
+        sending and decompressing beats sending them plain."""
+        if n_ints < self.min_ints:
+            return False
+        plain_s, comp_s = self._times(n_ints, ratio, same_host)
+        return comp_s < plain_s
+
+    def modeled_speedup(self, n_ints: int, ratio: float, same_host: bool = False) -> float:
+        """Transfer-time speedup of compressed against plain under this model."""
+        plain_s, comp_s = self._times(n_ints, ratio, same_host)
         return plain_s / comp_s
 
     def should_pack(

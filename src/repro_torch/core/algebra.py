@@ -24,9 +24,10 @@ sum needs no mask.
 
 ``post_update`` serves both drivers: its planes are per-rank lists (one
 entry on the single device, which passes :data:`LOCAL_EXCHANGE`, whose
-all-reduces are identities), and ``ex`` is the grid's termination exchange
-on the distributed driver.  Every collective it runs feeds the next
-frontier or ``alive``.
+all-reduces are identities; ``None`` for a rank that a process of a grid
+does not hold, which :func:`per_rank` skips), and ``ex`` is the grid's
+termination exchange on the distributed driver.  Every collective it runs
+feeds the next frontier or ``alive``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,13 @@ def edge_weight(u, v, max_weight: int = 31):
     h = h ^ (h >> np.uint32(16))
     w = (h % np.uint32(max_weight)).astype(np.int32) + 1
     return w.reshape(np.broadcast_shapes(np.shape(u), np.shape(v)))
+
+
+def per_rank(fn, *xs) -> list:
+    """``fn`` over the per-rank entries of the lists ``xs``, position by
+    position; ``None`` where any of them is ``None`` (a rank this process
+    does not hold)."""
+    return [None if any(v is None for v in vals) else fn(*vals) for vals in zip(*xs)]
 
 
 class _LocalExchange:
@@ -175,8 +183,8 @@ class FrontierAlgebra:
         on every rank.  Default: fixed point — the frontier is what
         improved, and the program stops when nothing did (one recorded
         all-reduce of the per-plane counts, "termination")."""
-        counts = ex.psum([plane_counts(nw) for nw in new], fmt="termination")
-        return aux, new, counts, [(c > 0).any() for c in counts]
+        counts = ex.psum(per_rank(plane_counts, new), fmt="termination")
+        return aux, new, counts, per_rank(lambda c: (c > 0).any(), counts)
 
     def finalize(self, value: torch.Tensor) -> torch.Tensor:
         """The owned value plane in the algebra's output domain."""
@@ -239,17 +247,19 @@ class SsspAlgebra(FrontierAlgebra):
         return torch.minimum(value, cand), cand < value
 
     def post_update(self, ex, aux, value_prev, value, new, frontier_prev, plane_counts):
-        pending = [(a[0] & ~fp) | nw for a, fp, nw in zip(aux, frontier_prev, new)]
-        local_min = [torch.where(pd, v, INF).amin(dim=1).to(torch.int32)
-                     for pd, v in zip(pending, value)]  # (B,) window floor share
+        pending = per_rank(lambda a, fp, nw: (a[0] & ~fp) | nw, aux, frontier_prev, new)
+        local_min = per_rank(lambda pd, v: torch.where(pd, v, INF).amin(dim=1).to(torch.int32),
+                             pending, value)  # (B,) window floor share
         floor = ex.pmin(local_min, fmt="window")
-        frontier = []
-        for m, pd, v in zip(floor, pending, value):
+
+        def window(m, pd, v):
             thresh = torch.where(m >= INF - self.delta, INF, m + self.delta)
-            frontier.append(pd & (v <= thresh[:, None]))
-        counts = ex.psum([plane_counts(f) for f in frontier], fmt="frontier")
-        return ([(pd,) for pd in pending], frontier, counts,
-                [(c > 0).any() for c in counts])
+            return pd & (v <= thresh[:, None])
+
+        frontier = per_rank(window, floor, pending, value)
+        counts = ex.psum(per_rank(plane_counts, frontier), fmt="frontier")
+        return (per_rank(lambda pd: (pd,), pending), frontier, counts,
+                per_rank(lambda c: (c > 0).any(), counts))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,14 +317,15 @@ class PageRankAlgebra(FrontierAlgebra):
         return value_new, value_new != value
 
     def post_update(self, ex, aux, value_prev, value, new, frontier_prev, plane_counts):
-        res_local = [(self.dec(v) - self.dec(vp)).abs().sum(dim=1)
-                     for v, vp in zip(value, value_prev)]  # (B,) L1 share
+        res_local = per_rank(lambda v, vp: (self.dec(v) - self.dec(vp)).abs().sum(dim=1),
+                             value, value_prev)  # (B,) L1 share
         res = ex.psum(res_local, fmt="residual")
-        frontier = [torch.ones(v.shape, dtype=torch.bool, device=v.device) for v in value]
+        frontier = per_rank(lambda v: torch.ones(v.shape, dtype=torch.bool, device=v.device),
+                            value)
         # the frontier is dense every round: its counts are a local
         # constant, only the residual goes over the wire
-        return (aux, frontier, [plane_counts(f) for f in frontier],
-                [(r > self.tol).any() for r in res])
+        return (aux, frontier, per_rank(plane_counts, frontier),
+                per_rank(lambda r: (r > self.tol).any(), res))
 
     def finalize(self, value):
         return self.dec(value)

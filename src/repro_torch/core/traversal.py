@@ -21,7 +21,8 @@ expansion and merge the two passes with the algebra's combine.
 On the 2D grid (``repro/core/traversal.py:59-76,180-414``) a policy's
 ``expand_dist`` runs the local expansion of every rank's block and the row
 exchange of the wire plan, over per-rank lists; the pull direction first
-gathers the unreached membership of the grid row.  The default bottom-up
+gathers the unreached membership of the grid row.  A rank the process does
+not hold (a ``None`` entry) is skipped.  The default bottom-up
 entry density comes from the row ladder (:func:`ladder_alpha`), so one
 oracle decides the wire bucket and the direction.
 """
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.ladder import BucketLadder
-from repro_torch.core.algebra import ALGEBRAS, INF, LOCAL_EXCHANGE
+from repro_torch.core.algebra import ALGEBRAS, INF, LOCAL_EXCHANGE, per_rank
 from repro_torch.kernels.bitpack import ops as bp_ops
 from repro_torch.kernels.popcount import ops as pc_ops
 
@@ -194,6 +195,8 @@ class TopDownPolicy(TraversalPolicy):
         alg = ctx.algebra
         prop = [None] * len(f_col)
         for p, blk in enumerate(ctx.blocks):
+            if blk is None:  # a rank this process does not hold
+                continue
             col_base = ctx.col_index[p] * ctx.n_c
             if alg.payload_is_id:
                 local = ctx.expand.push_planes(blk, f_col[p])  # (B, n_r)
@@ -227,15 +230,15 @@ class BottomUpPolicy(TraversalPolicy):
         # grid row; exhausted planes are masked out so that their permanent
         # unreached set does not escalate the gather the live planes pay for
         alg = ctx.algebra
-        mask = []
-        for p, v in enumerate(value):
-            pm = active[p] if plane_mask is None else plane_mask[p] & active[p]
-            mask.append(alg.pull_mask(v) & pm[:, None])
+        pm = active if plane_mask is None else per_rank(torch.logical_and, plane_mask, active)
+        mask = per_rank(lambda v, m: alg.pull_mask(v) & m[:, None], value, pm)
         unreached = ctx.unreached_gather(mask)  # (B, n_r) per rank
         # id candidates stay column-LOCAL so the payload bit-packs at the
         # column-width class; the receiver globalizes per sender
         prop = [None] * len(f_col)
         for p, blk in enumerate(ctx.blocks):
+            if blk is None:
+                continue
             if alg.payload_is_id:
                 local = ctx.expand.pull_planes(blk, f_col[p], unreached[p])
             else:
@@ -293,23 +296,25 @@ class DirectionOptPolicy(TraversalPolicy):
         # group-uniform because the flags derive from psum-ed counts
         alg = ctx.algebra
         run_td, run_bu = passes
-        td_mask = [~u & a for u, a in zip(use_bu, active)]
-        bu_mask = [u & a for u, a in zip(use_bu, active)]
+        td_mask = per_rank(lambda u, a: ~u & a, use_bu, active)
+        bu_mask = per_rank(lambda u, a: u & a, use_bu, active)
+
+        def masked(planes):
+            return per_rank(lambda f, m: f & m[:, None], f_col, planes)
+
         out = None
         if run_td:
-            out = self._td.expand_dist(
-                ctx, value, [f & m[:, None] for f, m in zip(f_col, td_mask)],
-                use_bu, active, passes, x_col=x_col)
+            out = self._td.expand_dist(ctx, value, masked(td_mask), use_bu, active, passes,
+                                       x_col=x_col)
         if run_bu:
             # the pull pass's plane mask keeps push planes out of the
             # unreached bitmap, hence out of the pull wire's content
-            bu = self._bu.expand_dist(
-                ctx, value, [f & m[:, None] for f, m in zip(f_col, bu_mask)],
-                use_bu, active, passes, x_col=x_col, plane_mask=bu_mask)
-            out = bu if out is None else [alg.combine(a, b) for a, b in zip(out, bu)]
+            bu = self._bu.expand_dist(ctx, value, masked(bu_mask), use_bu, active, passes,
+                                      x_col=x_col, plane_mask=bu_mask)
+            out = bu if out is None else per_rank(alg.combine, out, bu)
         if out is None:
-            out = [torch.full((v.shape[0], ctx.s), alg.empty, dtype=torch.int32,
-                              device=v.device) for v in value]
+            out = per_rank(lambda v: torch.full((v.shape[0], ctx.s), alg.empty,
+                                                dtype=torch.int32, device=v.device), value)
         return out
 
     def next_direction(self, oracle, count, use_bu, m_f=None, m_u=None,

@@ -5,8 +5,10 @@ process per source, all started together) and linked into one shared
 library with a plain C interface, which :func:`library` loads with
 ``ctypes``.  The build lands in ``build/repro_torch/<hash>/`` at the repo
 root (git-ignored), keyed by a hash of the sources and flags, so a second
-process reuses it.  Nothing builds at import time: the CPU tests import
-every module on a machine without ``nvcc``.
+process reuses it; an ``fcntl`` lock on that directory makes processes
+that start together (the ranks of a process grid) wait for one build
+instead of compiling side by side.  Nothing builds at import time: the CPU
+tests import every module on a machine without ``nvcc``.
 
 Each kernel module (``bitpack``, ``popcount``, ``spmv``, ``quant``) has a
 plain PyTorch version in ``ref.py`` and a wrapper in ``ops.py``.  The
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -62,7 +65,9 @@ def build() -> tuple[Path, str]:
 
     Returns the library path and the compilers' output (``ptxas -v``
     register and shared-memory report; empty when the cached build was
-    reused).  Raises ``RuntimeError`` with nvcc's output on failure.
+    reused).  Raises ``RuntimeError`` with nvcc's output on failure.  One
+    process builds while the others wait on the directory's lock and then
+    reuse its library.
     """
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -73,8 +78,18 @@ def build() -> tuple[Path, str]:
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, ""
-    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if lib.exists():  # another process built it while this one waited
+            return lib, ""
+        return lib, _compile(sources, out_dir, lib)
+
+
+def _compile(sources: list[Path], out_dir: Path, lib: Path) -> str:
+    """nvcc every source into ``out_dir`` at once, link them into ``lib``;
+    the compilers' output."""
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         jobs = []
         for src in sources:
@@ -100,7 +115,7 @@ def build() -> tuple[Path, str]:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp_lib, lib)
-    return lib, "\n".join(logs)
+    return "\n".join(logs)
 
 
 def library() -> ctypes.CDLL:

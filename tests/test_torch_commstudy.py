@@ -103,6 +103,39 @@ def test_threshold_link_model_equals_reference():
                         == ref.modeled_speedup(n_ints, ratio, same_host))
 
 
+_POLICIES = {
+    "default": ({}, None),
+    "min1024": ({"min_ints": 1024}, None),
+    "cpu_on_ici": ({"codec_speed_mips": 3200, "codec_dspeed_mips": 4700}, None),
+    "creek": (None, "paper_creek"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_POLICIES))
+def test_threshold_gate_equals_reference(name):
+    """should_compress, modeled_speedup and _times over a grid of
+    (n_ints, ratio, same_host), the cases of tests/test_codecs.py among
+    them (100 and 2**20 ints, ratios 2 and 8, both links)."""
+    kw, ctor = _POLICIES[name]
+    if ctor:
+        port = getattr(threshold.ThresholdPolicy, ctor)()
+        ref = getattr(jthreshold.ThresholdPolicy, ctor)()
+    else:
+        port, ref = threshold.ThresholdPolicy(**kw), jthreshold.ThresholdPolicy(**kw)
+    assert port == threshold.ThresholdPolicy(**{f: getattr(ref, f) for f in (
+        "min_ints", "same_host_bandwidth_gBps", "link_bandwidth_gBps",
+        "codec_speed_mips", "codec_dspeed_mips")})
+    for n in (0, 100, 1023, 1024, 4095, 4096, 65536, 1 << 20, 1 << 26):
+        for ratio in (1.0, 1.5, 2.0, 4.0, 8.0, 32.0):
+            for same_host in (False, True):
+                assert port.should_compress(n, ratio, same_host) == ref.should_compress(
+                    n, ratio, same_host)
+                assert port._times(n, ratio, same_host) == ref._times(n, ratio, same_host)
+                if n:
+                    assert port.modeled_speedup(n, ratio, same_host) == ref.modeled_speedup(
+                        n, ratio, same_host)
+
+
 @pytest.fixture(scope="module")
 def doc(replays) -> dict:
     """The BENCH_comm document of the scale-15 2x2 replay."""

@@ -493,3 +493,43 @@ def test_btfly_ledger_on_card_equals_replay(cuda, policy):
     dbfs.build_bfs(grid, bg, cfg, stats=stats)(*dbfs.shard_blocked(grid, bg, cfg), roots)
     got = bfs_comm.device_terms(stats, r, c)
     assert got == bfs_comm.replay_terms(rep, "btfly", bg.part.chunk) and got["stages"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["auto", "btfly"])
+def test_process_grid_on_card_equals_simgrid(cuda, mode):
+    """Four processes on the one card over gloo (CUDA tensors staged through
+    host memory): the same planes, level count and merged ledger as
+    SimGrid on the card; the staged transport reports its copies' time,
+    and every worker launched the distributed path's kernels."""
+    from repro_torch.bench import distributed as dist_bench, graph500
+    from repro_torch.comm import procgrid
+
+    scale, roots = 16, [3, 17, 1000, 12345]
+    cases = [{"mode": mode, "policy": "direction_opt"}]
+    procs = procgrid.spawn(dist_bench.proc_cases, 2, 2, device="cuda", timeout_s=300,
+                           args=({"scale": scale, "roots": roots, "cases": cases},))
+    st = dist_bench.setup(graph500.generate(scale, 16, 1)[0], SimGrid(2, 2, cuda), "hybrid")
+    want = dist_bench.run_case(st, roots, **cases[0])
+    np.testing.assert_array_equal(procs[0]["cases"][0]["value"], want["value"].cpu().numpy())
+    np.testing.assert_array_equal(procs[0]["cases"][0]["level"], want["level"].cpu().numpy())
+    for proc in procs:
+        got = proc["cases"][0]
+        assert got["n_levels"] == want["n_levels"]
+        assert got["stats"].table() == want["stats"].table()
+        assert got["staging_s"] > 0
+        for name in ("pack", "unpack", "popcount_planes", "spmv_min_planes"):
+            assert proc["launches"].get(name, 0) > 0, (proc["rank"], name)
+
+
+@pytest.mark.gpu
+def test_tree_betweenness_on_card_equals_cpu(cuda):
+    """One index_add_ a level on the card gives the CPU's float64 sums."""
+    from repro_torch.core.centrality import tree_betweenness
+
+    g = builder.build_csr(kronecker.kronecker_edges(14, seed=1), n=1 << 14)
+    res = bfs.bfs(g.src, g.dst, np.asarray([3, 17, 1000, 12345], np.int32), g.n,
+                  policy="direction_opt", expand="hybrid", device=cuda)
+    got = tree_betweenness(res.parent, res.level, g.n)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), tree_betweenness(res.parent.cpu(), res.level.cpu(), g.n))
