@@ -4,7 +4,8 @@
 Drives the port's paths on one NVIDIA card: the single-device Graph500
 BFS, the paper's frontier and codec study, the 2D-distributed BFS on a
 simulated grid under the direct and the butterfly wire plans, the
-frontier algebras on both, and the 2D GNN forward with int8 payloads:
+frontier algebras on both, the 2D GNN forward with int8 payloads, and the
+GNN training step on the simulated grid and on one process per rank:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -107,14 +108,38 @@ frontier algebras on both, and the 2D GNN forward with int8 payloads:
    int8 requests, one fp32 forward and the single-device forward with the
    counts zeroed before and read after: ``quantize`` launched, every output
    finite, the fp32 2D output within ``GNN_FP32_REL`` of the single-device
-   one, and the int8 output within ``GNN_INT8_L2`` relative L2 of fp32.
+   one, and the int8 output within ``GNN_INT8_L2`` relative L2 of fp32;
+12. the GNN training step (``repro_torch.bench.gnn_train``): step 11's
+   GraphCast at its published width, depth cut to 4 layers (the saved
+   activations of 16 do not fit the card), cross-entropy over its 227
+   classes with targets from seed 0, over the simulated 2x2 grid: the fp32
+   2D loss and ``pmean``ed gradients against ``gnn.loss_fn``'s autograd on
+   the single device over the padded multimesh (within ``GNN_FP32_REL`` of
+   the gradients' peak); one uncounted int8 loss-and-gradient call records
+   the inputs the train path gives ``quantize``, each held against its plain
+   version exactly and timed beside its byte bound; then 4 int8 train steps
+   (forward + backward, gradient ``pmean``, AdamW with WSD) with the counts
+   zeroed before and read after: ``quantize`` launched, the first loss
+   within 5% of fp32, every gradient finite and nonzero, the loss after 3
+   AdamW updates below the first; ``dp_allreduce_int8`` over the 4 ranks of
+   a 4x1 grid on the fp32 step's per-rank gradients, within the int8 bound
+   of their fp32 mean, its ledger's int8 wire 3.879x fewer bytes than the
+   fp32 all-reduce's; and the process grid: 4 worker processes on the card
+   over gloo run one fp32 and one int8 train step, each after a warm-up:
+   the fp32 forward outputs, loss and gradients within ``GNN_FP32_REL`` of
+   ``SimGrid``'s, the int8 loss within 5% of the fp32 one and its gradients
+   finite and nonzero (their gaps to ``SimGrid``'s int8 printed), the int8
+   step's time beside ``SimGrid``'s and the staging share printed; the
+   seconds per step, the bytes and the peak memory beside the card.
 
     python3 chip_smoke.py [--scale 22]
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
 repo's package is missing.  The last two lines before the final one are
 the per-kernel JSON line and the card's name and power limit; the final
-line is ``{"ok": true, "device": {...}}``.
+line is ``{"ok": true, "device": {...}}``.  It fails, too, if a process it
+started (a worker of the process grid, or the resource tracker that the
+spawn method starts) is still alive before the result is printed.
 """
 
 from __future__ import annotations
@@ -227,6 +252,27 @@ GNN_INT8_L2 = 0.05
 #: device operations per quantized value (abs, max, divide, rint, two
 #: clamps, convert), for the bound; the bytes bound it
 QUANT_OPS_PER_VALUE = 7
+#: the GNN training step (step 12): step 11's GraphCast, its depth cut from
+#: 16 to 4 layers (the saved activations: ~1.85 GB a rank and layer on the
+#: 2x2 grid, so 16 layers need ~118 GB and 4 need ~30 GB of the card's 80)
+TRAIN_LAYERS = 4
+#: counted int8 train steps: the 4th step's loss follows 3 AdamW updates
+TRAIN_STEPS = 4
+#: the int8 train loss against fp32: the reference's own bar
+#: (tests/test_dist.py:137)
+TRAIN_INT8_LOSS_REL = 0.05
+#: the process grid's run of the train step (step 12, check 6): 4 workers
+#: on the one card over gloo, each case one uncounted warm-up and one train
+#: step.  fp32 is held to SimGrid's within GNN_FP32_REL; the int8 step to
+#: the int8 bar against SimGrid's fp32 loss: index_add_'s atomics sum in
+#: another order in each run, and a float-order flip upstream of a
+#: quantizer moves a code by one step (scale/127 of its group), which the
+#: following layers carry (on an H100 80GB HBM3 at 700 W the two grids'
+#: int8 outputs came 1.1-1.4% of their peak apart, the losses 2e-5-8e-5)
+TRAIN_PROC_SPEC = {"refine": 6, "seed": 0, "smoke": False, "layers": TRAIN_LAYERS,
+                   "steps": 1, "cases": [{"arch": "graphcast", "quantize": False},
+                                         {"arch": "graphcast", "quantize": True}],
+                   "capture": True}
 
 
 def card_line() -> str:
@@ -830,6 +876,22 @@ def require_launched(counts: dict, kernels_of_path, path: str) -> None:
     missing = [k for k in kernels_of_path if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of the {path} path never launched: {missing}")
+
+
+def require_no_children() -> None:
+    """Every process this one started has ended and been reaped."""
+    alive = []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) == os.getpid():
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    alive.append((int(d), f.read().replace(b"\0", b" ").decode()[:120]))
+        except (FileNotFoundError, ProcessLookupError):  # ended meanwhile
+            continue
+    if alive:
+        raise AssertionError(f"processes started here still alive: {alive}")
 
 
 @contextlib.contextmanager
@@ -1725,7 +1787,7 @@ def capture_quantize():
     real = q_ops.quantize
 
     def run(x):
-        kept[x.numel()] = x
+        kept[x.numel()] = x.detach()
         return real(x)
 
     q_ops.quantize = run
@@ -1829,6 +1891,240 @@ def gnn_step(card) -> tuple[dict, dict]:
     return counts, main
 
 
+def int8_mean_bound(xs) -> "torch.Tensor":
+    """The largest error of ``allreduce_int8``'s mean of the per-rank (n,)
+    vectors ``xs`` against their exact mean: each rank's 128-value groups
+    quantized (half a step, max|group| / 254, each), the reduced chunk
+    quantized again (half a step of its group, whose max is at most the
+    exact sum's plus the first errors), over the group size; 0.1% for the
+    float rounding of the sums and scales."""
+    import torch
+
+    def half_step(x):
+        return (x.abs().reshape(-1, 128).amax(1) / 254).repeat_interleave(128)
+
+    first = sum(half_step(x) for x in xs)
+    total = torch.stack(xs).sum(0)
+    second = ((total.abs() + first).reshape(-1, 128).amax(1) / 254).repeat_interleave(128)
+    return 1.001 * (first + second) / len(xs)
+
+
+def train_step(card) -> tuple[dict, list]:
+    """The GNN training step at full width (4 layers) on the refinement-6
+    multimesh over a simulated 2x2 grid, then over 4 processes: the six
+    checks of the module docstring's step 12.  Returns the launch counts
+    (the counted int8 steps and the int8 all-reduce; the process grid's
+    workers summed apart) and the quantize rows at the train path's inputs."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.bench import gnn as gnn_bench, gnn_train
+    from repro_torch.comm import CommStats, SimGrid, procgrid
+    from repro_torch.comm.engine import AdaptiveExchange
+    from repro_torch.comm.grid import ROW_AXIS, pmean_trees
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.optim import grad_compress
+    from repro_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    st = gnn_bench.setup(device="cuda", layers=TRAIN_LAYERS)
+    grid, part, cfg = st.grid, st.bg.part, st.cfg
+    targets_np = gnn_train.make_targets(part.n, cfg.d_out, 0)
+    targets = gnn_dist.shard_targets(grid, targets_np, part)
+    n_params = sum(x.numel() for x in tree.leaves(st.params))
+    print(f"train: {cfg.name} {cfg.n_layers} layers (cut from 16) d_hidden {cfg.d_hidden} "
+          f"d_in/out {cfg.d_in}/{cfg.d_out}, {n_params:,} parameters, cross-entropy over "
+          f"{cfg.d_out} classes, on the refinement-{st.refine} multimesh (n={st.n:,}, "
+          f"m={st.edges.shape[0]:,}) over a {GRID[0]}x{GRID[1]} grid: chunk {part.chunk:,}, "
+          f"n_pad {part.n:,}, e_cap {st.bg.e_cap:,}")
+
+    def value_and_grad(quantize):
+        return gnn_dist.value_and_grad_2d(grid, cfg, st.params, st.h_own, st.src_l, st.dst_l,
+                                          targets, part,
+                                          gnn_dist.Dist2DConfig(quantize_payload=quantize))
+
+    # 1. fp32 2D against single-device autograd over the padded multimesh
+    value_and_grad(False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    loss32, per_rank, out32 = value_and_grad(False)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t1
+    peak_2d = torch.cuda.max_memory_allocated()
+    mean32 = pmean_trees(grid, per_rank)[0]
+    sim32 = {"loss": float(loss32), "out": [o.cpu().numpy() for o in out32],
+             "grads": [g.cpu().numpy() for g in tree.leaves(mean32)]}
+    del out32
+    r, c = part.rows, part.cols
+    bg = st.bg
+    src = np.where(bg.src_local < part.n_c,
+                   bg.src_local + (np.arange(c) * part.n_c)[None, :, None], part.n).reshape(-1)
+    dst = np.where(bg.dst_local < part.n_r,
+                   bg.dst_local + (np.arange(r) * part.n_r)[:, None, None], part.n).reshape(-1)
+    batch = {"graph": gnn.Graph(nf=torch.from_numpy(st.nf).cuda(),
+                                src=torch.from_numpy(src).cuda(),
+                                dst=torch.from_numpy(dst).cuda()),
+             "targets": torch.from_numpy(targets_np).cuda()}
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    loss1, grads1 = tstep.value_and_grad(lambda p, b: gnn.loss_fn(cfg, p, b), st.params, batch)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t1
+    peak_1 = torch.cuda.max_memory_allocated()
+    del batch
+    want = tree.leaves(grads1)
+    g_peak = max(float(w.abs().max()) for w in want)
+    gaps = [float((a - w).abs().max()) / g_peak for a, w in zip(tree.leaves(mean32), want)]
+    loss_gap = abs(float(loss32) - float(loss1)) / abs(float(loss1))
+    if not (max(gaps) <= GNN_FP32_REL and loss_gap <= GNN_FP32_REL):
+        raise AssertionError(f"train: fp32 2D vs single-device: loss {float(loss32)} vs "
+                             f"{float(loss1)}, worst leaf gap {max(gaps)} of the gradients' "
+                             f"peak {g_peak} > {GNN_FP32_REL}")
+    print(f"train check 1: fp32 2D loss {float(loss32):.6f} vs single-device {float(loss1):.6f} "
+          f"(rel {loss_gap:.3e}); gradients' worst leaf max abs gap {max(gaps):.3e} of their "
+          f"peak {g_peak:.6e} (bound {GNN_FP32_REL}); forward+backward fp32 2D {fp32_s:.4f} s "
+          f"(4 ranks simulated on one card), single-device {single_s:.4f} s; peak memory 2D "
+          f"{peak_2d / 2**30:.2f} GiB, single-device {peak_1 / 2**30:.2f} GiB, on {card}")
+    del grads1, want
+
+    # 4. the quantize kernel at the train path's inputs
+    with capture_quantize() as kept:
+        value_and_grad(True)
+    kept_rows = {n: x for n, x in kept.items()}
+    del kept
+
+    # 2 and 3. the int8 train steps, counted
+    res = gnn_train.train(st, TRAIN_STEPS, True, 0, warmup=0, capture=True)
+    counts = dict(res["launches"])
+    require_launched(counts, GNN_PATH, "GNN training")
+    cap = res["captured"]
+    losses = [s["loss"] for s in res["steps"]]
+    rel = abs(cap["loss"] - float(loss32)) / abs(float(loss32))
+    if not rel < TRAIN_INT8_LOSS_REL:
+        raise AssertionError(f"train: int8 loss {cap['loss']} vs fp32 {float(loss32)}: "
+                             f"{rel} >= {TRAIN_INT8_LOSS_REL}")
+    bad = [k for k, g in enumerate(cap["grads"]) if not (np.isfinite(g).all() and np.abs(g).max() > 0)]
+    if bad:
+        raise AssertionError(f"train: int8 gradient leaves {bad} non-finite or zero")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall over 3 AdamW steps: {losses}")
+    print(f"train checks 2-4: int8 loss {cap['loss']:.6f} vs fp32 {float(loss32):.6f} (rel "
+          f"{rel:.3e}, bound {TRAIN_INT8_LOSS_REL}); {len(cap['grads'])} gradient leaves finite "
+          f"and nonzero; losses over {TRAIN_STEPS} steps {losses} (3 AdamW updates); "
+          f"launches {counts}")
+    step_s = [s["step_s"] for s in res["steps"]]
+    print(f"train int8 steps ({GRID[0] * GRID[1]} ranks simulated on one card): "
+          f"{[round(t, 4) for t in step_s]} s; forward+backward "
+          f"{[round(s['fwd_bwd_s'], 4) for s in res['steps']]}, pmean "
+          f"{[round(s['pmean_s'], 4) for s in res['steps']]}, AdamW "
+          f"{[round(s['adamw_s'], 4) for s in res['steps']]}; peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+    print(f"train bytes per step: forward int8 {res['fwd_int8_bytes']:,} vs fp32 "
+          f"{res['fwd_fp32_bytes']:,} ({res['fwd_fp32_bytes'] / res['fwd_int8_bytes']:.3f}x); "
+          f"backward fp32 {res['bwd_fp32_bytes']:,}; gradient pmean fp32 "
+          f"{res['grad_pmean_bytes']:,}")
+
+    # 5. the int8 error-feedback all-reduce over 4x1 on the per-rank gradients
+    g41 = SimGrid(4, 1, device="cuda")
+    grads = g41.local(lambda p: per_rank[p])
+    stats, stats32 = CommStats(), CommStats()
+    kernels.reset_launches()
+    with capture_quantize() as kept:
+        mean8, _ = grad_compress.dp_allreduce_int8(
+            g41, grads, g41.local(lambda p: grad_compress.init(grads[p])), ROW_AXIS, stats=stats)
+    counts["quantize"] = counts.get("quantize", 0) + kernels.LAUNCHES["quantize"]
+    for n, x in kept.items():
+        kept_rows.setdefault(n, x)
+    del kept
+    worst = 0.0
+    for k, leaves in enumerate(zip(*(tree.leaves(grads[p]) for p in range(4)))):
+        xs = [grad_compress._pad_to(x, 4 * 128)[0] for x in leaves]
+        n = leaves[0].numel()
+        exact = torch.stack(xs).sum(0)[:n] / 4
+        got = tree.leaves(mean8[0])[k].reshape(-1)
+        bound = int8_mean_bound(xs)[:n]
+        worst = max(worst, float(((got - exact).abs() / bound.clamp(min=1e-30)).max()))
+        AdaptiveExchange("grad/pmean", g41, ROW_AXIS, stats=stats32).psum(xs, fmt="fp32")
+    if not worst <= 1.0:
+        raise AssertionError(f"train: int8 all-reduce mean off its fp32 mean by {worst} of "
+                             "the int8 bound")
+    int8_bytes = sum(rec.nbytes for rec in stats.records())
+    fp32_bytes = sum(rec.hlo_bytes for rec in stats32.records())
+    if not round(fp32_bytes / int8_bytes, 3) == 3.879:
+        raise AssertionError(f"train: int8 wire {int8_bytes} vs fp32 {fp32_bytes}")
+    print(f"train check 5: dp_allreduce_int8 over 4x1 ({len(tree.leaves(mean8[0]))} leaves): "
+          f"mean within {worst:.3f} of the int8 bound of the fp32 mean; wire per rank int8 "
+          f"{int8_bytes:,} B (codes + scales, all-to-all + all-gather) vs fp32 all-reduce "
+          f"{fp32_bytes:,} B ({fp32_bytes / int8_bytes:.3f}x)")
+    del grads, mean8, per_rank, g41
+
+    rows = []
+    for n, x in sorted(kept_rows.items()):
+        rows.append(_quant_row(x, {"n": n, "input": "train path"}))
+    del kept_rows
+    for r in rows:
+        print(describe(r, card, " (train path)"))
+
+    # 6. the process grid: 4 workers on the card over gloo, fp32 then int8
+    sim_step_s = res["steps"][0]["step_s"]
+    del st, res
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    procs = procgrid.spawn(gnn_train.proc_train, *GRID, backend="gloo", device="cuda",
+                           args=(TRAIN_PROC_SPEC,), timeout_s=600)
+    spawn_s = time.perf_counter() - t1
+
+    def gaps(runs, sim) -> tuple[float, float, float]:
+        """(outputs, loss, gradients) of the workers against ``sim``: max
+        abs gaps over the outputs' and the gradients' peaks, the loss's
+        relative gap."""
+        out_peak = max(float(np.abs(o).max()) for o in sim["out"])
+        out = max(float(np.abs(run["captured"]["out"][run["rank"]]
+                               - sim["out"][run["rank"]]).max()) for run in runs) / out_peak
+        loss = max(abs(run["captured"]["loss"] - sim["loss"]) for run in runs) / abs(sim["loss"])
+        g_peak = max(float(np.abs(g).max()) for g in sim["grads"])
+        grads = max(float(np.abs(a - b).max()) for a, b in zip(runs[0]["captured"]["grads"],
+                                                              sim["grads"])) / g_peak
+        return out, loss, grads
+
+    fp32_runs, int8_runs = ([p[k] for p in procs] for k in range(2))
+    fp32_gaps = gaps(fp32_runs, sim32)
+    if not max(fp32_gaps) <= GNN_FP32_REL:
+        raise AssertionError(f"train: process grid fp32 against SimGrid (outputs, loss, "
+                             f"gradients): {fp32_gaps} > {GNN_FP32_REL}")
+    int8_gaps = gaps(int8_runs, cap)
+    int8_loss = int8_runs[0]["captured"]["loss"]
+    rel = abs(int8_loss - sim32["loss"]) / abs(sim32["loss"])
+    finite = all(np.isfinite(g).all() and np.abs(g).max() > 0
+                 for g in int8_runs[0]["captured"]["grads"])
+    if not (rel < TRAIN_INT8_LOSS_REL and finite):
+        raise AssertionError(f"train: process grid int8 loss {int8_loss} vs fp32 "
+                             f"{sim32['loss']} ({rel}), gradients finite and nonzero: {finite}")
+    total: dict = {}
+    for run in int8_runs:
+        for name, v in run["launches"].items():
+            total[name] = total.get(name, 0) + v
+    require_launched(total, GNN_PATH, "GNN training on the process grid")
+    proc_s = max(run["steps"][0]["step_s"] for run in int8_runs)
+    staging = max(run["staging_s"] for run in int8_runs)
+    print(f"train check 6: process grid ({GRID[0] * GRID[1]} processes on one card over host "
+          f"memory, gloo): fp32 outputs, loss and gradients within "
+          f"{', '.join(f'{x:.3e}' for x in fp32_gaps)} of SimGrid's (bound {GNN_FP32_REL}); "
+          f"int8 loss {int8_loss:.6f} within {rel:.3e} of the fp32 (bound "
+          f"{TRAIN_INT8_LOSS_REL}), gradients finite and nonzero, and "
+          f"{', '.join(f'{x:.3e}' for x in int8_gaps)} from SimGrid's int8 (outputs, loss, "
+          f"gradients); on {card}")
+    print(f"train process grid steps: fp32 {fp32_runs[0]['steps'][0]['step_s']:.4f} s, int8 "
+          f"{proc_s:.4f} s vs SimGrid int8 {sim_step_s:.4f} s ({proc_s / sim_step_s:.2f}x); "
+          f"staging {staging:.4f} s, share {staging / proc_s:.4f}; peak memory per process "
+          f"{[round(run['peak_bytes'] / 2**30, 2) for run in int8_runs]} GiB; launches per "
+          f"worker {[run['launches'] for run in int8_runs]}; spawn and runs {spawn_s:.1f}s, "
+          f"on {card}")
+    print(f"train step: {time.perf_counter() - t0:.1f}s")
+    return {"train": counts, "train_procgrid": total}, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -1907,6 +2203,9 @@ def main() -> int:
     launches.update(alg_launches)
     del setup, st, single
     launches["gnn"], rows["quantize"] = gnn_step(card)
+    train_launches, train_rows = train_step(card)
+    launches.update(train_launches)
+    rows["quantize"]["train_shapes"] = [brief(r) for r in train_rows]
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs
@@ -1919,6 +2218,7 @@ def main() -> int:
         per_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         r["launches"] = sum(per_path.values())
         r["launches_by_path"] = per_path
+    require_no_children()
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

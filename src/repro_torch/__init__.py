@@ -1,6 +1,8 @@
 """PyTorch + CUDA port of :mod:`repro`: the Graph500 BFS on one device and
-on a simulated 2D grid, the frontier algebras (SSSP, CC, PageRank), and
-the 2D-partitioned GNN forward (GraphCast, GAT) with int8 payloads.
+on a 2D grid (simulated, or one process per rank), the frontier algebras
+(SSSP, CC, PageRank), the 2D-partitioned GNN (GraphCast, GAT) with int8
+payloads, its training step, AdamW and the int8 error-feedback gradient
+all-reduce.
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:

@@ -39,6 +39,7 @@ import torch
 from repro_torch import kernels, resolve_device
 from repro_torch.bench import distributed
 from repro_torch.comm import Int8Format, SimGrid
+from repro_torch.comm.grid import Grid
 from repro_torch.configs import common as configs
 from repro_torch.core import csr
 from repro_torch.graphgen.builder import CSRGraph
@@ -50,13 +51,13 @@ ARCHS = ("graphcast", "gat-cora")
 @dataclasses.dataclass
 class GnnSetup:
     cfg: object  # model config (graphcast with edge_state off)
-    grid: SimGrid
+    grid: Grid  # a SimGrid, or this process's rank of a ProcessGrid
     bg: csr.BlockedGraph
     verts: np.ndarray  # (n, 3)
     edges: np.ndarray  # (m, 2) directed multimesh edges
     nf: np.ndarray  # (n_pad, d_in) fields, zero on the padded vertices
     params: dict
-    src_l: list  # per-rank edge blocks on the device
+    src_l: list  # per-rank edge blocks on the device (the local ranks')
     dst_l: list
     h_own: list  # per-rank owned fields on the device
     mesh_s: float  # host seconds: multimesh + partition
@@ -72,11 +73,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def model_config(arch: str, smoke: bool):
+def model_config(arch: str, smoke: bool, layers: int | None = None):
+    """The arch's published (or smoke) config, ``n_layers`` cut to
+    ``layers`` where given."""
     spec = configs.get(arch)
     cfg = spec.smoke_config() if smoke else spec.model_config()
     if isinstance(cfg, gnn.GraphCastConfig):  # the 2D path recomputes messages
         cfg = dataclasses.replace(cfg, edge_state=False)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     return cfg
 
 
@@ -99,21 +104,29 @@ def synthetic_fields(verts: np.ndarray, n_vars: int, seed: int) -> np.ndarray:
     return (base + 0.1 * rng.normal(size=(verts.shape[0], n_vars))).astype(np.float32)
 
 
-def setup(arch: str = "graphcast", refine: int = 6, grid: tuple[int, int] = (2, 2),
-          seed: int = 0, smoke: bool = False, device=None) -> GnnSetup:
-    dev = resolve_device(device)
+def setup(arch: str = "graphcast", refine: int = 6, grid: tuple[int, int] | Grid = (2, 2),
+          seed: int = 0, smoke: bool = False, device=None,
+          layers: int | None = None) -> GnnSetup:
+    """The multimesh partitioned onto ``grid`` — an R x C shape, simulated
+    on ``device`` (a :class:`SimGrid`), or a grid to run on (this
+    process's rank of a ``ProcessGrid``, on its device) — with the fields,
+    the parameters and the local ranks' blocks on the device."""
+    if isinstance(grid, Grid):
+        sim, dev = grid, grid.device
+    else:
+        dev = resolve_device(device)
+        sim = SimGrid(*grid, device=dev)
     if dev.type == "cuda":  # full float32 products: the gaps below assume them
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = model_config(arch, smoke)
+    cfg = model_config(arch, smoke, layers)
     t0 = time.perf_counter()
     verts, edges, g = multimesh_graph(refine)
-    bg = csr.partition_2d(g, *grid, chunk_multiple=1024)
+    bg = csr.partition_2d(g, sim.rows, sim.cols, chunk_multiple=1024)
     mesh_s = time.perf_counter() - t0
     part = bg.part
     nf = np.zeros((part.n, cfg.d_in), np.float32)
     nf[: g.n] = synthetic_fields(verts, cfg.d_in, seed)
     params = gnn.init(cfg, torch.Generator().manual_seed(seed), dev)
-    sim = SimGrid(*grid, device=dev)
     return GnnSetup(cfg=cfg, grid=sim, bg=bg, verts=verts, edges=edges, nf=nf,
                     params=params, src_l=gnn_dist.shard_edges(sim, bg.src_local),
                     dst_l=gnn_dist.shard_edges(sim, bg.dst_local),
@@ -130,22 +143,28 @@ def forward_2d(st: GnnSetup, quantize: bool) -> torch.Tensor:
     return torch.cat(out, dim=0)
 
 
+def exchange_passes(cfg, params) -> list[tuple[int, int]]:
+    """Each aggregation pass of one 2D forward as (d, dm): the gathered
+    width and the message width.  GraphCast has one pass of width d_hidden
+    per layer; GAT a max pass over the logits (d = heads x d_out, dm =
+    heads) and an exp-sum pass (d = dm = heads x d_out + heads)."""
+    if cfg.name == "graphcast":
+        return [(cfg.d_hidden, cfg.d_hidden)] * len(params["layers"])
+    passes = []
+    for lyr in params["layers"]:
+        heads, _, d_out = lyr["w"].shape
+        passes += [(heads * d_out, heads), (heads * (d_out + 1),) * 2]
+    return passes
+
+
 def payload_bytes(cfg, params, part: csr.Partition2D) -> dict:
     """One 2D forward's feature exchanges, from the shapes.  Per aggregation
-    pass, each rank sends three (s, d) payloads (the transpose, the row and
-    the column all-gathers) and one (c, s, dm) all-to-all, where d is the
-    gathered width and dm the message width: GraphCast has one pass of
-    width d_hidden per layer; GAT a max pass over the logits (d = heads x
-    d_out, dm = heads) and an exp-sum pass (d = dm = heads x d_out + heads).
-    Returns the int8 (``Int8Format(n).wire_bytes``) and fp32 (``4 n``)
-    bytes summed over every rank and call, and the number of calls."""
-    if cfg.name == "graphcast":
-        passes = [(cfg.d_hidden, cfg.d_hidden)] * len(params["layers"])
-    else:
-        passes = []
-        for lyr in params["layers"]:
-            heads, _, d_out = lyr["w"].shape
-            passes += [(heads * d_out, heads), (heads * (d_out + 1),) * 2]
+    pass (:func:`exchange_passes`), each rank sends three (s, d) payloads
+    (the transpose, the row and the column all-gathers) and one (c, s, dm)
+    all-to-all.  Returns the int8 (``Int8Format(n).wire_bytes``) and fp32
+    (``4 n``) bytes summed over every rank and call, and the number of
+    calls."""
+    passes = exchange_passes(cfg, params)
     s, ranks = part.chunk, part.rows * part.cols
     sent = [n for d, dm in passes for n in (s * d, s * d, s * d, part.cols * s * dm)]
     return {"int8": ranks * sum(Int8Format(n).wire_bytes for n in sent),

@@ -18,11 +18,14 @@ last kernel's end, idle gaps included) is printed apart, as a share of
 the wall time.  With ``--gnn`` the traced call is one int8 2D GraphCast
 forward of :mod:`repro_torch.bench.gnn` at ``--refine`` (after one
 warm-up forward), with the quantize kernel's and the matrix products'
-device time apart.
+device time apart; with ``--gnn-train`` it is one int8 loss-and-gradient
+call of the 2D train step (:mod:`repro_torch.bench.gnn_train`'s 4 layers),
+with the gathers' and the segment sums' kernels apart as well.
 
     python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
     python -m repro_torch.bench.trace --scale 22 --algebra sssp cc pagerank [--grid 2x2]
     python -m repro_torch.bench.trace --gnn [--refine 6]
+    python -m repro_torch.bench.trace --gnn-train [--refine 6]
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch.bench import algebras, distributed, graph500, teps
 from repro_torch.bench import gnn as gnn_bench
+from repro_torch.bench import gnn_train
 from repro_torch.comm import SimGrid
 from repro_torch.core import bfs as bfsmod
 from repro_torch.core import distributed_bfs as dbfs
@@ -90,10 +94,14 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--out", default=None, help="chrome trace output path (last algebra)")
     ap.add_argument("--gnn", action="store_true",
                     help="trace one int8 2D GraphCast forward instead (bench.gnn)")
-    ap.add_argument("--refine", type=int, default=6, help="--gnn: multimesh refinement")
+    ap.add_argument("--gnn-train", action="store_true",
+                    help="trace one int8 2D GraphCast train step's forward and backward "
+                         "instead (bench.gnn_train)")
+    ap.add_argument("--refine", type=int, default=6,
+                    help="--gnn, --gnn-train: multimesh refinement")
     args = ap.parse_args(argv)
 
-    if args.gnn:
+    if args.gnn or args.gnn_train:
         return [_trace_gnn(args)]
     if args.grid:
         g, _, _ = graph500.generate(args.scale)
@@ -108,17 +116,41 @@ def main(argv=None) -> list[dict]:
 def _trace_gnn(args) -> dict:
     """Warm up on one int8 2D forward of :mod:`repro_torch.bench.gnn`'s
     default model (``--grid``, default 2x2), trace the next; the quantize
-    kernel's and the matrix products' device time are printed apart."""
+    kernel's and the matrix products' device time are printed apart.  With
+    ``--gnn-train`` the call is the train step's loss and gradients
+    (``gnn_dist.value_and_grad_2d`` at :data:`gnn_train.LAYERS` layers)."""
+    from repro_torch.models import gnn_dist
+
     rows, cols = distributed.parse_grid(args.grid or "2x2")
-    st = gnn_bench.setup(refine=args.refine, grid=(rows, cols))
-    gnn_bench.forward_2d(st, True)
-    prof, wall_us, _ = _profiled(lambda: gnn_bench.forward_2d(st, True))
-    title = (f"{st.cfg.name} 2D forward (int8 payload) refinement {args.refine}, grid "
+    layers = gnn_train.LAYERS if args.gnn_train else None
+    st = gnn_bench.setup(refine=args.refine, grid=(rows, cols), layers=layers)
+    if args.gnn_train:
+        part = st.bg.part
+        targets = gnn_dist.shard_targets(
+            st.grid, gnn_train.make_targets(part.n, st.cfg.d_out, 0), part)
+
+        def call():
+            return gnn_dist.value_and_grad_2d(st.grid, st.cfg, st.params, st.h_own, st.src_l,
+                                              st.dst_l, targets, part,
+                                              gnn_dist.Dist2DConfig(quantize_payload=True))
+        what = f"{st.cfg.n_layers}-layer train step (forward + backward)"
+    else:
+        def call():
+            return gnn_bench.forward_2d(st, True)
+        what = "forward"
+    call()
+    prof, wall_us, _ = _profiled(call)
+    title = (f"{st.cfg.name} 2D {what}, int8 payload, refinement {args.refine}, grid "
              f"{rows}x{cols}, ranks simulated on one card")
     classes = {"quantize": lambda k: "quantize_kernel" in k,
                "gemm": lambda k: "gemm" in k}
+    if args.gnn_train:  # the gathers (index_select) and the segment sums and
+        # gathers' backward (index_add_)
+        classes.update({"gather": lambda k: "gather_kernel" in k or "indexselect" in k,
+                        "index_add": lambda k: "indexfunc" in k})
     return _report(prof, wall_us, title,
-                   {"gnn": st.cfg.name, "refine": args.refine, "grid": f"{rows}x{cols}"},
+                   {"gnn": st.cfg.name, "refine": args.refine, "grid": f"{rows}x{cols}",
+                    "train": args.gnn_train, "layers": getattr(st.cfg, "n_layers", None)},
                    phases=False, trace_out=args.out, classes=classes)
 
 

@@ -7,13 +7,15 @@ one process per rank.
 * :mod:`.ladder`      — bucket ladders pruned by word count and the
   :mod:`.threshold` break-even (paper §5.4.3).
 * :mod:`.grid`        — the grid's geometry (local ranks, the row-axis
-  fold) and :class:`SimGrid`, R x C ranks in one process.
+  fold), :class:`SimGrid`, R x C ranks in one process, and the
+  differentiable collectives of the GNN's training step.
 * :mod:`.procgrid`    — ``ProcessGrid``, one process per rank over
   ``torch.distributed`` (gloo or nccl), and ``spawn`` (imported on its own).
 * :mod:`.engine`      — :class:`AdaptiveExchange`: per-group consensus,
   branch dispatch, byte-recording collectives.
 * :mod:`.stats`       — :class:`CommStats`, the per-phase byte ledger.
-* :mod:`.collectives` — the BFS column and row exchanges.
+* :mod:`.collectives` — the BFS column and row exchanges, and the int8
+  gradient all-reduce.
 * :mod:`.registry`    — the ``raw`` / ``bitmap`` / ``auto`` wire plans and
   the host codec factory.
 * :mod:`.codecs`      — the paper's §5.2 host codecs (numpy: S4-BP128 with

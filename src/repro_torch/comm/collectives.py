@@ -21,8 +21,9 @@ Where the two wires are the same, the single-source form is the planes
 form on one plane.  The butterfly wire plan's stages
 (:mod:`repro_torch.comm.butterfly`) go through :func:`ppermute_min_block`
 and :func:`ppermute_membership_block`: one adaptive partner exchange per
-stage, re-bucketed on the merged stream.  The int8 all-reduce comes with a
-later slice.
+stage, re-bucketed on the merged stream.  :func:`allreduce_int8` is the
+gradient all-reduce of the data-parallel step, its payload quantized
+through the ``quantize`` kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from repro_torch.comm.formats import (
     BitmapParentFormat,
     DenseFormat,
     IdStreamFormat,
+    Int8Format,
     RawIdFormat,
     pack_plane_meta,
     unpack_plane_meta,
@@ -536,3 +538,46 @@ def ppermute_membership_block(ex: AdaptiveExchange, block: list, perm,
 
     branches = [sparse_branch(f) for f in ladder.formats()] + [bitmap_branch]
     return ex.dispatch(my_bucket, branches)
+
+
+# ---------------------------------------------------------------------------
+# beyond-paper: quantized all-reduce for data-parallel gradient sync
+# ---------------------------------------------------------------------------
+
+
+def allreduce_int8(grid: Grid, xs: list, axis, *, stats: CommStats | None = None,
+                   phase: str = "grad/allreduce") -> list:
+    """Two-phase int8-quantized all-reduce (all_to_all scatter + all_gather)
+    of each rank's (n,) float32 vector over ``axis``: the sum, per rank.
+
+    Phase 1 quantizes the rank's vector (``Int8Format.pack``: the
+    ``quantize`` kernel on the card; its 128-value groups never straddle
+    the group's n/g-value chunks, so one call over the vector equals the
+    reference's per-chunk ``vmap``), scatters the chunks with a tiled
+    ``all_to_all`` (every rank receives the group's copies of its own
+    chunk) and sums them locally; phase 2 re-quantizes the reduced chunk
+    and ``all_gather``s it.  Both transfers carry int8 codes + one f32
+    scale per 128 values, ~3.88x fewer bytes than fp32.  Lossy: pair with
+    error feedback (``optim.grad_compress``).  n must divide by
+    ``group_size * 128``.
+    """
+    ex = AdaptiveExchange(phase, grid, axis, ladder=None, stats=stats)
+    g = ex.group_size
+    n = xs[ex.ranks()[0]].shape[0]
+    fmt = Int8Format(n)
+    if n % (g * fmt.group):
+        raise ValueError(f"allreduce_int8: n={n} does not divide by {g} x {fmt.group}")
+
+    def pack_chunks(p):
+        q, sc = fmt.pack(xs[p])
+        return q.reshape(g, -1), sc.reshape(g, -1)
+
+    packed = grid.local(pack_chunks)
+    q_r = ex.all_to_all(grid.local(lambda p: packed[p][0]), fmt=fmt.name, part="q")
+    sc_r = ex.all_to_all(grid.local(lambda p: packed[p][1]), fmt=fmt.name, part="scales")
+    partial = grid.local(lambda p: torch.sum(
+        fmt.unpack(q_r[p].reshape(-1), sc_r[p].reshape(-1)).reshape(g, -1), dim=0))
+    packed = grid.local(lambda p: fmt.pack(partial[p]))
+    q_all = ex.all_gather(grid.local(lambda p: packed[p][0]), fmt=fmt.name, part="q")
+    sc_all = ex.all_gather(grid.local(lambda p: packed[p][1]), fmt=fmt.name, part="scales")
+    return grid.local(lambda p: fmt.unpack(q_all[p], sc_all[p]))

@@ -35,6 +35,16 @@ restricted to a subset of an axis's groups (an adaptive exchange's groups
 can pick different branches).  The grid moves no bytes itself and records
 nothing: :class:`repro_torch.comm.engine.AdaptiveExchange` keeps the
 ledger.
+
+The differentiable collectives (``ad_all_gather``, ``ad_all_to_all``,
+``ad_ppermute``, ``ad_psum``: autodiff counterparts of the grid's own, as
+``jax.grad`` transposes ``shard_map``'s collectives) run a grid's
+collective forward and its transpose backward, written with the grid's
+own collectives — a reduce-scatter as a ``psum`` and a slice, since gloo
+has no float reduce-scatter — so that float sums run in group order on
+both grids and ``SimGrid`` and ``ProcessGrid`` give the same gradients bit
+for bit on the CPU.  :func:`pmean_trees` means per-rank trees of tensors
+(gradients) over an axis.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 
 ROW_AXIS = "data"
 COL_AXIS = "model"
@@ -222,3 +232,115 @@ class SimGrid(Grid):
                 if a not in receivers:
                     out[p] = torch.zeros_like(xs[p])
         return out
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives: each backward is the collective's transpose,
+# written with the grid's own collectives, so that SimGrid and ProcessGrid
+# do the same float arithmetic (sums in group order) and agree bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _own(grid: Grid, xs: Sequence, avoid) -> list:
+    """The local ranks' entries of a per-rank list, each a tensor of its own:
+    an entry that is one of ``avoid`` or the same object as an earlier entry
+    is cloned (a custom autograd function must not return one tensor twice,
+    and a transpose must not hand back a cotangent it was given)."""
+    out, seen = [], {id(a) for a in avoid}
+    for p in grid.local_ranks:
+        y = xs[p]
+        if id(y) in seen:
+            y = y.clone()
+        seen.add(id(y))
+        out.append(y)
+    return out
+
+
+def _spread(grid: Grid, xs) -> list:
+    """The local ranks' tensors, in local-rank order, as a per-rank list."""
+    out = grid._new()
+    for p, x in zip(grid.local_ranks, xs):
+        out[p] = x
+    return out
+
+
+class _Collective(torch.autograd.Function):
+    """A collective over the local ranks' tensors whose backward runs
+    ``transpose`` over the cotangents."""
+
+    @staticmethod
+    def forward(ctx, grid, fwd, transpose, *xs):
+        ctx.grid, ctx.transpose = grid, transpose
+        return tuple(_own(grid, fwd(_spread(grid, xs)), xs))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        grid = ctx.grid
+        return (None, None, None, *_own(grid, ctx.transpose(_spread(grid, cts)), cts))
+
+
+def _differentiable(grid: Grid, xs: Sequence, fwd, transpose) -> list:
+    ranks = grid.local_ranks
+    if not (torch.is_grad_enabled() and any(xs[p].requires_grad for p in ranks)):
+        return fwd(xs)
+    return _spread(grid, _Collective.apply(grid, fwd, transpose, *(xs[p] for p in ranks)))
+
+
+def ad_all_gather(grid: Grid, xs: Sequence, axis) -> list:
+    """``grid.all_gather`` whose backward is a reduce-scatter: the group's
+    cotangents summed (``grid.psum``, group order), then this rank's slice."""
+    def transpose(cts):
+        summed = grid.psum(cts, axis)
+        idx, k = grid.axis_index(axis), grid.group_size(axis)
+        return grid.local(lambda p: torch.chunk(summed[p], k, dim=0)[idx[p]])
+
+    return _differentiable(grid, xs, lambda v: grid.all_gather(v, axis), transpose)
+
+
+def ad_all_to_all(grid: Grid, xs: Sequence, axis) -> list:
+    """``grid.all_to_all``; the tiled all-to-all is its own inverse, and so
+    its own transpose."""
+    def run(v):
+        return grid.all_to_all(v, axis)
+
+    return _differentiable(grid, xs, run, run)
+
+
+def ad_ppermute(grid: Grid, xs: Sequence, axis, perm) -> list:
+    """``grid.ppermute``; the transpose sends each pair back (a member that
+    sent nothing gets a zero cotangent)."""
+    back = [(dst, src) for src, dst in perm]
+    return _differentiable(grid, xs, lambda v: grid.ppermute(v, axis, perm),
+                           lambda v: grid.ppermute(v, axis, back))
+
+
+def ad_psum(grid: Grid, xs: Sequence, axis) -> list:
+    """``grid.psum``, whose transpose is ``psum``."""
+    def run(v):
+        return grid.psum(v, axis)
+
+    return _differentiable(grid, xs, run, run)
+
+
+def pmean_trees(grid: Grid, trees: Sequence, axis=None) -> list:
+    """The mean over ``axis`` (default: the whole grid) of each local rank's
+    tree of tensors, leaf by leaf: the leaves flattened into one vector, one
+    ``grid.psum`` (a float sum in group order), over the group size.
+    Returns a per-rank list of trees (the members of a group share theirs).
+    Not differentiable: it means gradients."""
+    axis = grid.all_axes if axis is None else axis
+    ranks = grid.local_ranks
+    shapes = [g.shape for g in tree.leaves(trees[ranks[0]])]
+    vec = grid.local(lambda p: torch.cat([g.reshape(-1) for g in tree.leaves(trees[p])]))
+    total = grid.psum(vec, axis)
+    k = grid.group_size(axis)
+    means: dict[int, object] = {}  # one per group's sum
+
+    def mean(p):
+        if id(total[p]) not in means:
+            parts = torch.split(total[p] / k, [math.prod(s) for s in shapes])
+            means[id(total[p])] = tree.flatten(trees[p])[1](
+                [x.view(s) for x, s in zip(parts, shapes)])
+        return means[id(total[p])]
+
+    return grid.local(mean)

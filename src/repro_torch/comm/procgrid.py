@@ -36,6 +36,7 @@ returns each rank's result.
 from __future__ import annotations
 
 import datetime
+import multiprocessing.resource_tracker
 import os
 import queue
 import tempfile
@@ -302,8 +303,15 @@ def spawn(fn: Callable, rows: int, cols: int, *, backend: str = "gloo", device=N
     (``fn`` a module-level function).  When any rank fails, the others get
     ``grace_s`` seconds to finish or fail before they are stopped, and a
     ``RuntimeError`` carries every rank's traceback; so does a rank that
-    dies without a word, or a run past ``timeout_s``."""
+    dies without a word, or a run past ``timeout_s``.
+
+    Nothing it starts outlives the call: the spawn method's first process
+    also starts multiprocessing's resource tracker, which would live until
+    the caller exits and end just after it, and a tracker that this call
+    started is stopped before it returns."""
     n = rows * cols
+    tracker = multiprocessing.resource_tracker._resource_tracker
+    tracker_was_running = tracker._fd is not None
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="procgrid-") as tmp:
@@ -350,6 +358,10 @@ def spawn(fn: Callable, rows: int, cols: int, *, backend: str = "gloo", device=N
                     p.terminate()
             for p in procs:
                 p.join()
+            results.close()
+            del results  # its semaphores unregister from the tracker
+            if not tracker_was_running:
+                tracker._stop()
     if errors:
         raise RuntimeError(f"{len(errors)} of {n} ranks failed:\n" + "\n".join(
             f"--- rank {rank}:\n{msg}" for rank, msg in sorted(errors.items())))

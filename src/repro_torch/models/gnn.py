@@ -15,8 +15,9 @@ Parameters are the reference's pytree as plain nested dicts and lists of
 tensors, with the same keys and shapes: :func:`params_from_numpy` carries
 the JAX package's parameters across, and :func:`init` makes new ones from
 a ``torch.Generator`` (other numbers than ``jax.random`` from the same
-seed).  EGNN and NequIP are not ported: :func:`init` and :func:`forward`
-raise ``TypeError`` for them, as for any unknown config.
+seed).  :func:`loss_fn` is the node-level loss of the training step.  EGNN
+and NequIP are not ported: :func:`init` and :func:`forward` (and so
+:func:`loss_fn`) raise ``TypeError`` for them, as for any unknown config.
 """
 
 from __future__ import annotations
@@ -89,10 +90,29 @@ def _mlp(params, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _Gather(torch.autograd.Function):
+    """``concat([h, 0])[idx]``, whose backward is one ``index_add_`` into
+    the n + 1 rows, the sentinel row dropped.  Autograd's own backward of
+    the indexing (``index_put_`` with accumulation) sums every padding
+    edge's row into the sentinel row in one serial run: 82% of a
+    full-width train step's device time on an H100 (PERF.md, the training
+    cell)."""
+
+    @staticmethod
+    def forward(ctx, h, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = h.shape[0]
+        return torch.cat([h, torch.zeros_like(h[:1])], dim=0)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return g.new_zeros((ctx.n + 1, *g.shape[1:])).index_add_(0, idx, g)[: ctx.n], None
+
+
 def _gather(h: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """Sentinel-safe node gather (idx == n -> zeros)."""
-    hz = torch.cat([h, torch.zeros_like(h[:1])], dim=0)
-    return hz[torch.clamp(idx.long(), max=n)]
+    return _Gather.apply(h, torch.clamp(idx.long(), max=n))
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +234,28 @@ def forward(cfg, params: Params, g: Graph) -> torch.Tensor:
     if isinstance(cfg, GATConfig):
         return gat_forward(cfg, params, g)
     raise TypeError(type(cfg))
+
+
+def loss_fn(cfg, params: Params, batch) -> torch.Tensor:
+    """Node-level loss: cross-entropy (over ``log_softmax`` in float32) when
+    the targets are integers, else MSE; ``batch["mask"]``, where given,
+    weights the nodes as in the reference.  ``batch["graph"]`` is a
+    :class:`Graph`.  EGNN and NequIP raise ``TypeError`` in :func:`forward`."""
+    g: Graph = batch["graph"]
+    out = forward(cfg, params, g)
+    tgt = batch["targets"]
+    mask = batch.get("mask")
+    if not tgt.is_floating_point():
+        logp = F.log_softmax(out.to(torch.float32), -1)
+        nll = -logp.gather(1, tgt.long()[:, None])[:, 0]
+        if mask is not None:
+            return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1)
+        return nll.mean()
+    err = (out.to(torch.float32) - tgt) ** 2
+    if mask is not None:
+        return (torch.sum(err * mask[:, None])
+                / torch.clamp(mask.sum() * err.shape[-1], min=1))
+    return err.mean()
 
 
 def params_from_numpy(tree, device=None):

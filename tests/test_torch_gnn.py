@@ -280,15 +280,17 @@ def test_unported_archs_raise():
 def test_single_device_forward_matches_jax(name, edge_state):
     """The smoke widths over the refinement-2 multimesh, with padding edges
     (src = dst = n) appended, against the JAX forward."""
-    from repro.configs import gat_cora as jgat_cfg, graphcast as jgc_cfg
+    # through the registry, which loads every config module: importing one
+    # module alone would leave the registry partial for later tests
+    from repro.configs import common as jconfigs
     from repro_torch.configs import gat_cora, graphcast
 
     if name == "graphcast":
-        jcfg, cfg = jgc_cfg.smoke_config(), graphcast.smoke_config()
+        jcfg, cfg = jconfigs.get("graphcast").smoke_config(), graphcast.smoke_config()
         jcfg = jcfg.__class__(**{**jcfg.__dict__, "edge_state": edge_state})
         cfg = cfg.__class__(**{**cfg.__dict__, "edge_state": edge_state})
     else:
-        jcfg, cfg = jgat_cfg.smoke_config(), gat_cora.smoke_config()
+        jcfg, cfg = jconfigs.get("gat-cora").smoke_config(), gat_cora.smoke_config()
     assert cfg.__dict__ == jcfg.__dict__
     verts, edges = icosahedron.multimesh(2)
     n = verts.shape[0]

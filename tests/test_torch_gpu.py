@@ -533,3 +533,76 @@ def test_tree_betweenness_on_card_equals_cpu(cuda):
     got = tree_betweenness(res.parent, res.level, g.n)
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), tree_betweenness(res.parent.cpu(), res.level.cpu(), g.n))
+
+
+@pytest.mark.gpu
+def test_ste_quant_backward_on_card(cuda):
+    """The straight-through quantizer on the card: its forward equals the
+    CPU's (the kernel is exact against the plain version), its backward
+    hands the cotangent through unchanged, and it launches the kernel."""
+    from repro_torch.models import gnn_dist
+
+    x = torch.randn(37, 9, generator=torch.Generator().manual_seed(5)) * 4
+    w = torch.randn(37, 9, generator=torch.Generator().manual_seed(6))
+    outs = []
+    for dev in (cuda, "cpu"):
+        xd = x.to(dev).requires_grad_(True)
+        kernels.reset_launches()
+        y = gnn_dist._ste_quant(xd)
+        (y * w.to(dev)).sum().backward()
+        assert torch.equal(xd.grad.cpu(), w)
+        outs.append((y.detach().cpu(), kernels.LAUNCHES["quantize"]))
+    assert torch.equal(outs[0][0], outs[1][0]) and not torch.equal(outs[0][0], x)
+    assert outs[0][1] == 1 and outs[1][1] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", [((4, 1), "data"), ((2, 2), ("data", "model"))])
+def test_allreduce_int8_on_card_matches_cpu(cuda, shape, axis):
+    """The int8 all-reduce on the card against the CPU: every value within
+    one quantization step of its group (the local sum of the received
+    chunks may round apart), the ledgers equal record for record, two
+    quantize launches a rank on the card."""
+    from repro_torch.comm import collectives as cc
+
+    gen = torch.Generator().manual_seed(9)
+    xs = [torch.randn(4 * 128 * 5, generator=gen) * (p + 1) for p in range(4)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        grid = SimGrid(*shape, dev)
+        stats = CommStats()
+        kernels.reset_launches()
+        out = cc.allreduce_int8(grid, [x.to(dev) for x in xs], axis, stats=stats)
+        runs.append(([o.cpu() for o in out], stats.table(), kernels.LAUNCHES["quantize"]))
+    (card, card_table, launched), (cpu, cpu_table, _) = runs
+    assert card_table == cpu_table and launched == 2 * 4
+    for a, b in zip(card, cpu):
+        step = (b.reshape(-1, 128).abs().amax(1) / 127).repeat_interleave(128)
+        assert bool(((a - b).abs() <= 1.001 * step).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,quantize", [("graphcast", False), ("graphcast", True),
+                                           ("gat-cora", False)])
+def test_train_step_on_card_matches_cpu(cuda, arch, quantize):
+    """The 2D train step (the harness's ``train``, one step, refinement 4,
+    smoke widths, 2x2) on the card against the CPU: the loss and every
+    ``pmean``ed gradient within 1e-5 of the gradients' peak in fp32 (the
+    card's index_add_ sums in another order), 1e-3 with int8 payloads (a
+    code can flip by one step); the int8 step launches quantize on the card
+    only."""
+    from repro_torch.bench import gnn as gnn_bench, gnn_train
+
+    runs = []
+    for dev in (cuda, "cpu"):
+        st = gnn_bench.setup(arch, refine=4, smoke=True, device=dev)
+        runs.append(gnn_train.train(st, 1, quantize, warmup=0, capture=True))
+    card, cpu = runs
+    tol = 1e-3 if quantize else 1e-5
+    assert abs(card["captured"]["loss"] - cpu["captured"]["loss"]) <= tol * abs(
+        cpu["captured"]["loss"])
+    peak = max(float(np.abs(g).max()) for g in cpu["captured"]["grads"])
+    for a, b in zip(card["captured"]["grads"], cpu["captured"]["grads"]):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol * peak)
+    assert (card["launches"].get("quantize", 0) > 0) == quantize
+    assert not cpu["launches"]

@@ -20,6 +20,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+# the training slice's packages are among them
+assert {"repro_torch.optim.adamw", "repro_torch.optim.grad_compress", "repro_torch.train.step",
+        "repro_torch.tree", "repro_torch.bench.gnn_train"} <= set(names), names
 """
 
 

@@ -299,6 +299,37 @@ def test_a_worker_failure_reaches_the_caller():
     assert "--- rank 0" in str(err.value)
 
 
+def _children() -> set[int]:
+    """This process's live child processes, from /proc."""
+    out = set()
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (FileNotFoundError, ProcessLookupError):  # ended meanwhile
+            continue
+        if int(fields[1]) == os.getpid():
+            out.add(int(d))
+    return out
+
+
+def _rank_of(grid):
+    return grid.rank
+
+
+@pytest.mark.skipif(not os.path.isdir("/proc"), reason="reads child processes from /proc")
+def test_spawn_leaves_no_process_running():
+    """Neither a run nor a failed run leaves a child behind: the workers are
+    joined, and the resource tracker that the spawn method starts is stopped
+    with them (it would otherwise live until the caller exits)."""
+    before = _children()
+    assert procgrid.spawn(_rank_of, 1, 2, device="cpu", timeout_s=60) == [0, 1]
+    assert _children() == before
+    with pytest.raises(RuntimeError):
+        procgrid.spawn(_fail_on_rank_1, 1, 2, device="cpu", timeout_s=60, grace_s=3)
+    assert _children() == before
+
+
 def test_tree_betweenness_path_graph():
     """tests/test_algebra.py's path 0-1-2-3: interior vertices carry the
     dependency mass, the root endpoint none."""
