@@ -4,8 +4,9 @@
 Drives the port's paths on one NVIDIA card: the single-device Graph500
 BFS, the paper's frontier and codec study, the 2D-distributed BFS on a
 simulated grid under the direct and the butterfly wire plans, the
-frontier algebras on both, the 2D GNN forward with int8 payloads, and the
-GNN training step on the simulated grid and on one process per rank:
+frontier algebras on both, the 2D GNN forward with int8 payloads, the
+GNN training step on the simulated grid and on one process per rank, and
+the equivariant GNNs (EGNN, NequIP) forward and trained:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -130,7 +131,37 @@ GNN training step on the simulated grid and on one process per rank:
    ``SimGrid``'s, the int8 loss within 5% of the fp32 one and its gradients
    finite and nonzero (their gaps to ``SimGrid``'s int8 printed), the int8
    step's time beside ``SimGrid``'s and the staging share printed; the
-   seconds per step, the bytes and the peak memory beside the card.
+   seconds per step, the bytes and the peak memory beside the card;
+13. EGNN (4 layers, d_hidden 64) and NequIP (5 layers, 32 channels per l,
+   l <= 2, 8 radial functions, cutoff 5) at their published widths on the
+   refinement-6 multimesh, its vertices on the unit sphere as positions,
+   over a simulated 2x2 grid: (1) one EGNN int8 forward records the inputs
+   the path gives ``quantize`` (the owned ``[h, x]`` chunk and the
+   all-to-all chunks), each held against its plain version exactly and
+   timed beside its byte bound; then 4 int8 requests, one fp32 forward and
+   the single-device forward, counts zeroed before and read after:
+   ``quantize`` launched, every output finite, fp32 2D within
+   ``GNN_FP32_REL`` of single-device, int8 within ``GNN_INT8_L2`` relative
+   L2 of fp32 (the coordinates are quantized with the features, as in the
+   reference); (2) the same forwards of NequIP: no ``quantize`` launch,
+   and its forward asked for int8 equal to its fp32 forward bit for bit
+   (under deterministic kernels); (3) positions rotated (EGNN: and
+   shifted): both models' single-device and 2D outputs invariant and EGNN's
+   single-device coordinates moved with them, within ``EQUIV_REL`` of each
+   peak; (4) the fp32 2D loss and ``pmean``ed gradients (cross-entropy over
+   16 classes, targets from seed 0) within ``GNN_FP32_REL`` of the
+   gradients' peak from single-device autograd over the padded multimesh,
+   both under deterministic kernels; then 4 AdamW steps (WSD, as in step
+   12): the loss after 3 updates below the first, every gradient finite
+   and nonzero but those of the leaves the loss does not read (zero in the
+   single-device gradients too); (5) one fp32 step of each arch on 4
+   worker processes over gloo under deterministic kernels: outputs, loss
+   and gradients within ``GNN_FP32_REL`` of ``SimGrid``'s; (6) 4 steps of
+   ``train.step.make_train_step`` on the ``molecule`` batch
+   (``data.graphs.molecule_batch(128, 30, 64, 16)``, float targets: MSE)
+   for both archs: the loss falls, the gradient norms are finite.  Seconds
+   per forward and per step, bytes, peak memory and the gaps beside the
+   card.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -273,6 +304,33 @@ TRAIN_PROC_SPEC = {"refine": 6, "seed": 0, "smoke": False, "layers": TRAIN_LAYER
                    "steps": 1, "cases": [{"arch": "graphcast", "quantize": False},
                                          {"arch": "graphcast", "quantize": True}],
                    "capture": True}
+#: the equivariant archs (step 13), at their published widths and depths
+EQUIVARIANT_ARCHS = ("egnn", "nequip")
+#: rotation and shift invariance (equivariance of EGNN's coordinates): the
+#: reference's bar (tests/test_models.py, atol 1e-4), here over the
+#: output's peak
+EQUIV_REL = 1e-4
+#: the fixed proper rotation (about z by 0.7, then about x by -1.2, the
+#: reference's two test angles) and EGNN's shift (the reference's)
+EQUIV_ANGLES = (0.7, -1.2)
+EGNN_SHIFT = (1.0, -2.0, 0.5)
+#: the process grid's run of the equivariant archs' train step (step 13,
+#: check 5): 4 workers on the one card over gloo, one fp32 step each with
+#: no warm-up (nothing of it is timed against another run), under
+#: deterministic kernels, held to SimGrid's (run so too) within
+#: GNN_FP32_REL.  With the card's atomic sums NequIP's gradients
+#: moved 3.9e-5 of their peak between two runs of the same step (H100 80GB
+#: HBM3, 700 W): its outputs reach ~7e5, so the cross-entropy's softmax is
+#: saturated and a node whose two largest logits nearly tie turns a float
+#: rounding into a change of its gradient term
+EQUIV_PROC_SPEC = {"refine": 6, "seed": 0, "smoke": False, "layers": None, "steps": 1,
+                   "warmup": 0,
+                   "cases": [{"arch": "egnn", "quantize": False, "deterministic": True},
+                             {"arch": "nequip", "quantize": False, "deterministic": True}],
+                   "capture": True}
+#: the molecule shape (configs/common.py GNN_SHAPES): 128 molecules of 30
+#: atoms and 64 edges, 16 features; float targets (the MSE branch)
+MOLECULE = (128, 30, 64, 16)
 
 
 def card_line() -> str:
@@ -1909,6 +1967,29 @@ def int8_mean_bound(xs) -> "torch.Tensor":
     return 1.001 * (first + second) / len(xs)
 
 
+def padded_batch(st, targets_np) -> dict:
+    """The single-device loss batch over ``st``'s padded multimesh: every
+    rank block's edges at their global ids (padding edges at the sentinel
+    n), the fields, the positions (zero on the padded vertices) and the
+    targets, on the grid's device."""
+    import torch
+    from repro_torch.models import gnn
+
+    part, bg, dev = st.bg.part, st.bg, st.grid.device
+    r, c = part.rows, part.cols
+    src = np.where(bg.src_local < part.n_c,
+                   bg.src_local + (np.arange(c) * part.n_c)[None, :, None], part.n).reshape(-1)
+    dst = np.where(bg.dst_local < part.n_r,
+                   bg.dst_local + (np.arange(r) * part.n_r)[:, None, None], part.n).reshape(-1)
+    pos = np.zeros((part.n, 3), np.float32)
+    pos[: st.n] = st.verts
+    return {"graph": gnn.Graph(nf=torch.from_numpy(st.nf).to(dev),
+                               src=torch.from_numpy(src).to(dev),
+                               dst=torch.from_numpy(dst).to(dev),
+                               pos=torch.from_numpy(pos).to(dev)),
+            "targets": torch.from_numpy(targets_np).to(dev)}
+
+
 def train_step(card) -> tuple[dict, list]:
     """The GNN training step at full width (4 layers) on the refinement-6
     multimesh over a simulated 2x2 grid, then over 4 processes: the six
@@ -1956,16 +2037,7 @@ def train_step(card) -> tuple[dict, list]:
     sim32 = {"loss": float(loss32), "out": [o.cpu().numpy() for o in out32],
              "grads": [g.cpu().numpy() for g in tree.leaves(mean32)]}
     del out32
-    r, c = part.rows, part.cols
-    bg = st.bg
-    src = np.where(bg.src_local < part.n_c,
-                   bg.src_local + (np.arange(c) * part.n_c)[None, :, None], part.n).reshape(-1)
-    dst = np.where(bg.dst_local < part.n_r,
-                   bg.dst_local + (np.arange(r) * part.n_r)[:, None, None], part.n).reshape(-1)
-    batch = {"graph": gnn.Graph(nf=torch.from_numpy(st.nf).cuda(),
-                                src=torch.from_numpy(src).cuda(),
-                                dst=torch.from_numpy(dst).cuda()),
-             "targets": torch.from_numpy(targets_np).cuda()}
+    batch = padded_batch(st, targets_np)
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     loss1, grads1 = tstep.value_and_grad(lambda p, b: gnn.loss_fn(cfg, p, b), st.params, batch)
@@ -2125,6 +2197,293 @@ def train_step(card) -> tuple[dict, list]:
     return {"train": counts, "train_procgrid": total}, rows
 
 
+def equivariance_rotation() -> np.ndarray:
+    """The fixed proper rotation of the equivariance checks."""
+    a, b = EQUIV_ANGLES
+    rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+    rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+    return (rz @ rx).astype(np.float32)
+
+
+def nequip_int8_check(st) -> tuple[bool, int]:
+    """NequIP's 2D forward asked for int8 and its fp32 forward, each under
+    ``gnn_train.deterministic`` (the card's atomic sums would differ from
+    run to run): (bit for bit equal, quantize launches of the int8-asked
+    forward)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.bench import gnn as gnn_bench, gnn_train
+
+    with gnn_train.deterministic():
+        before = kernels.LAUNCHES.get("quantize", 0)
+        q = gnn_bench.forward_2d(st, True)
+        launched = kernels.LAUNCHES.get("quantize", 0) - before
+        f = gnn_bench.forward_2d(st, False)
+    return bool(torch.equal(q, f)), launched
+
+
+def equivariance_gaps(st) -> dict:
+    """Rotate the positions by :func:`equivariance_rotation` (EGNN: and
+    shift them by :data:`EGNN_SHIFT`) and rerun the fp32 forwards: the max
+    abs gaps, over each output's peak, of the single-device and 2D outputs
+    (invariant) and, for EGNN, of the single-device coordinates against the
+    rotated and shifted ones (equivariant)."""
+    import torch
+    from repro_torch.bench import gnn as gnn_bench
+    from repro_torch.models import gnn, gnn_dist
+
+    rot = equivariance_rotation()
+    shift = np.float32(EGNN_SHIFT) if st.cfg.name == "egnn" else np.zeros(3, np.float32)
+    moved = st.verts.astype(np.float32) @ rot.T + shift
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    with torch.inference_mode():
+        if st.cfg.name == "egnn":
+            (h1, x1), (h2, x2) = (gnn.egnn_forward(st.cfg, st.params, gnn_bench.single_graph(st, p))
+                                  for p in (None, moved))
+            want = x1 @ torch.from_numpy(rot.T).to(x1.device) + torch.from_numpy(shift).to(
+                x1.device)
+            gaps = {"single": rel(h2, h1), "coords": rel(x2, want)}
+        else:
+            one = gnn.forward(st.cfg, st.params, gnn_bench.single_graph(st))
+            gaps = {"single": rel(gnn.forward(st.cfg, st.params,
+                                              gnn_bench.single_graph(st, moved)), one)}
+        out = gnn_bench.forward_2d(st, False)[: st.n]
+        kept = st.pos
+        pos = np.zeros((st.bg.part.n, 3), np.float32)
+        pos[: st.n] = moved
+        st.pos = gnn_dist.shard_nodes(st.grid, pos, st.bg.part)
+        try:
+            gaps["2d"] = rel(gnn_bench.forward_2d(st, False)[: st.n], out)
+        finally:
+            st.pos = kept
+    return gaps
+
+
+def _peak_mib() -> str:
+    import torch
+
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def equivariant_step(card) -> tuple[dict, list]:
+    """EGNN and NequIP at their published widths on the refinement-6
+    multimesh over a simulated 2x2 grid, then on 4 processes and on the
+    molecule batch: the six checks of the module docstring's step 13.
+    Returns the launch counts per path and the quantize rows at EGNN's
+    inputs."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.bench import gnn as gnn_bench, gnn_train
+    from repro_torch.comm import procgrid
+    from repro_torch.comm.grid import pmean_trees
+    from repro_torch.configs import common as configs
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, rows, sim = {}, [], {}
+    for arch in EQUIVARIANT_ARCHS:
+        st = gnn_bench.setup(arch, device="cuda")
+        part, cfg = st.bg.part, st.cfg
+        n_params = sum(x.numel() for x in tree.leaves(st.params))
+        print(f"{arch}: {cfg.n_layers} layers d_hidden {cfg.d_hidden} d_in/out "
+              f"{cfg.d_in}/{cfg.d_out}, {n_params:,} parameters, on the refinement-{st.refine} "
+              f"multimesh (n={st.n:,}, m={st.edges.shape[0]:,}, positions on the unit sphere) "
+              f"over a {GRID[0]}x{GRID[1]} grid: chunk {part.chunk:,}, n_pad {part.n:,}, e_cap "
+              f"{st.bg.e_cap:,}; multimesh + partition {st.mesh_s:.3f}s")
+
+        # 1 and 2: the forwards (EGNN: quantize at its inputs first)
+        if arch == "egnn":
+            with capture_quantize() as kept:
+                gnn_bench.forward_2d(st, True)
+            if not kept:
+                raise AssertionError("egnn: the int8 forward gave quantize no input")
+            d = cfg.d_hidden
+            for n, x in sorted(kept.items()):
+                what = ("owned [h, x] chunk" if n == part.chunk * (d + 3) else
+                        "all-to-all chunks" if n == part.cols * part.chunk * (d + 4) else
+                        "payload")
+                rows.append(_quant_row(x, {"n": n, "input": what}))
+            del kept
+            for r in rows:
+                print(describe(r, card, " (EGNN path)"))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        res = gnn_bench.run(st, requests=4)
+        counts = dict(kernels.LAUNCHES)
+        launches[arch] = counts
+        fwd_peak = _peak_mib()
+        if not res["finite"]:
+            raise AssertionError(f"{arch}: non-finite outputs")
+        gap = res["fp32_vs_single_max_abs"] / res["single_max_abs"]
+        if not gap <= GNN_FP32_REL:
+            raise AssertionError(f"{arch}: fp32 2D vs single-device {gap} > {GNN_FP32_REL}")
+        if arch == "egnn":
+            require_launched(counts, GNN_PATH, "EGNN")
+            if not res["int8_rel_l2"] < GNN_INT8_L2:
+                raise AssertionError(f"egnn: int8 vs fp32 relative L2 {res['int8_rel_l2']} >= "
+                                     f"{GNN_INT8_L2}")
+            int8_note = (f"int8 vs fp32 relative L2 {res['int8_rel_l2']:.6e} (bound "
+                         f"{GNN_INT8_L2}; the coordinates quantized with the features, as in "
+                         f"the reference)")
+        else:
+            same, q_launched = nequip_int8_check(st)
+            if counts.get("quantize", 0) or q_launched or not same:
+                raise AssertionError(f"nequip: asked for int8 it launched quantize "
+                                     f"{counts.get('quantize', 0)} + {q_launched} times, equal "
+                                     f"to fp32 bit for bit: {same}")
+            int8_note = ("asked for int8: 0 quantize launches, equal to its fp32 forward bit "
+                         "for bit (deterministic index_add_)")
+        print(f"{arch} forwards: int8 {[round(t, 4) for t in res['int8_s']]} s, fp32 "
+              f"{res['fp32_s']:.4f} s, single-device {res['single_s']:.4f} s ({GRID[0] * GRID[1]} "
+              f"ranks simulated on one card); payload bytes per forward int8 "
+              f"{res['int8_payload_bytes']:,} vs fp32 {res['fp32_payload_bytes']:,}; peak memory "
+              f"{fwd_peak}; launches {counts}; on {card}")
+        print(f"{arch} checks 1-2: {int8_note}; fp32 2D vs single-device max abs "
+              f"{res['fp32_vs_single_max_abs']:.6e} of max |out| {res['single_max_abs']:.6e} "
+              f"({gap:.3e}, bound {GNN_FP32_REL}); outputs finite")
+        del res
+
+        # 3: equivariance on the card
+        gaps = equivariance_gaps(st)
+        if not max(gaps.values()) <= EQUIV_REL:
+            raise AssertionError(f"{arch}: equivariance gaps {gaps} > {EQUIV_REL}")
+        print(f"{arch} check 3: under a rotation{' and shift' if arch == 'egnn' else ''}, "
+              f"outputs moved by {gaps['single']:.3e} (single-device) and {gaps['2d']:.3e} (2D)"
+              + (f", coordinates off their rotated and shifted selves by {gaps['coords']:.3e}"
+                 if arch == "egnn" else "")
+              + f" of their peaks (bound {EQUIV_REL})")
+
+        # 4: training on SimGrid: fp32 against single-device autograd (both
+        # under deterministic kernels, which also give check 5's reference),
+        # then AdamW steps with the card's default kernels, timed
+        targets_np = gnn_train.make_targets(part.n, cfg.d_out, 0)
+        targets = gnn_dist.shard_targets(st.grid, targets_np, part)
+        torch.cuda.empty_cache()
+        with gnn_train.deterministic():
+            loss32, per_rank, out32 = gnn_dist.value_and_grad_2d(
+                st.grid, cfg, st.params, st.h_own, st.src_l, st.dst_l, targets, part,
+                gnn_dist.Dist2DConfig(), pos=st.pos)
+            mean32 = tree.leaves(pmean_trees(st.grid, per_rank)[0])
+            del per_rank
+            torch.cuda.reset_peak_memory_stats()
+            loss1, grads1 = tstep.value_and_grad(lambda p, b: gnn.loss_fn(cfg, p, b), st.params,
+                                                 padded_batch(st, targets_np))
+            torch.cuda.synchronize()
+        peak_1 = _peak_mib()
+        sim[arch] = {"loss": float(loss32), "out": [o.cpu().numpy() for o in out32],
+                     "grads": [g.cpu().numpy() for g in mean32]}
+        want = tree.leaves(grads1)
+        g_peak = max(float(w.abs().max()) for w in want)
+        leaf_gap = max(float((a - w).abs().max()) for a, w in zip(mean32, want)) / g_peak
+        loss_gap = abs(float(loss32) - float(loss1)) / abs(float(loss1))
+        unread = [k for k, w in enumerate(want) if not w.any()]
+        if not (leaf_gap <= GNN_FP32_REL and loss_gap <= GNN_FP32_REL):
+            raise AssertionError(f"{arch} train: fp32 2D vs single-device loss {float(loss32)} "
+                                 f"vs {float(loss1)}, worst leaf gap {leaf_gap} of the "
+                                 f"gradients' peak {g_peak} > {GNN_FP32_REL}")
+        del grads1, want, mean32, out32
+        torch.cuda.empty_cache()
+        res = gnn_train.train(st, TRAIN_STEPS, False, 0, warmup=0, capture=True)
+        cap = res["captured"]
+        losses = [r["loss"] for r in res["steps"]]
+        bad = [k for k, g in enumerate(cap["grads"])
+               if not np.isfinite(g).all() or (k not in unread) != bool(np.abs(g).max() > 0)]
+        if bad or not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch} train: leaves {bad} non-finite, or zero where the "
+                                 f"single-device gradient is not (or the reverse); losses "
+                                 f"{losses}")
+        launches[f"{arch}_train"] = res["launches"]
+        print(f"{arch} check 4: fp32 2D loss {float(loss32):.6f} vs single-device "
+              f"{float(loss1):.6f} (rel {loss_gap:.3e}); gradients' worst leaf {leaf_gap:.3e} of "
+              f"their peak {g_peak:.6e} (bound {GNN_FP32_REL}; both under deterministic "
+              f"kernels); single-device peak memory {peak_1}; the AdamW steps' {len(cap['grads'])} "
+              f"leaves finite, zero exactly where the loss does not read them ({unread}, as in "
+              f"the reference); the loss falls")
+        step_s = [r["step_s"] for r in res["steps"]]
+        print(f"{arch} train steps (fp32 payloads, {GRID[0] * GRID[1]} ranks simulated on one "
+              f"card): losses {losses}; {[round(t, 4) for t in step_s]} s; forward+backward "
+              f"{[round(r['fwd_bwd_s'], 4) for r in res['steps']]}, pmean "
+              f"{[round(r['pmean_s'], 4) for r in res['steps']]}, AdamW "
+              f"{[round(r['adamw_s'], 4) for r in res['steps']]}; bytes per step forward "
+              f"{res['fwd_fp32_bytes']:,}, backward {res['bwd_fp32_bytes']:,}, gradient pmean "
+              f"{res['grad_pmean_bytes']:,}; peak memory {res['peak_bytes'] / 2**30:.2f} GiB; "
+              f"on {card}")
+        del st, res, targets
+        torch.cuda.empty_cache()
+
+    # 5: one fp32 step of each on 4 processes over gloo, against SimGrid's,
+    # both under deterministic kernels
+    t1 = time.perf_counter()
+    procs = procgrid.spawn(gnn_train.proc_train, *GRID, backend="gloo", device="cuda",
+                           args=(EQUIV_PROC_SPEC,), timeout_s=600)
+    spawn_s = time.perf_counter() - t1
+    for k, case in enumerate(EQUIV_PROC_SPEC["cases"]):
+        arch, runs, want = case["arch"], [p[k] for p in procs], sim[case["arch"]]
+        out_peak = max(float(np.abs(o).max()) for o in want["out"])
+        out_gap = max(float(np.abs(run["captured"]["out"][run["rank"]]
+                                   - want["out"][run["rank"]]).max()) for run in runs) / out_peak
+        loss_gap = max(abs(run["captured"]["loss"] - want["loss"]) for run in runs) / abs(
+            want["loss"])
+        g_peak = max(float(np.abs(g).max()) for g in want["grads"])
+        grad_gap = max(float(np.abs(a - b).max()) for a, b in zip(runs[0]["captured"]["grads"],
+                                                                  want["grads"])) / g_peak
+        if not max(out_gap, loss_gap, grad_gap) <= GNN_FP32_REL:
+            raise AssertionError(f"{arch}: process grid against SimGrid (outputs, loss, "
+                                 f"gradients, deterministic kernels): {out_gap}, {loss_gap}, "
+                                 f"{grad_gap}")
+        total: dict = {}
+        for run in runs:
+            for name, v in run["launches"].items():
+                total[name] = total.get(name, 0) + v
+        launches[f"{arch}_procgrid"] = total
+        proc_s = max(run["steps"][0]["step_s"] for run in runs)
+        staging = max(run["staging_s"] for run in runs)
+        print(f"{arch} check 5: process grid ({GRID[0] * GRID[1]} processes on one card over "
+              f"host memory, gloo), one fp32 step, deterministic kernels: outputs, loss and "
+              f"gradients within {out_gap:.3e}, {loss_gap:.3e}, {grad_gap:.3e} of SimGrid's "
+              f"(bound {GNN_FP32_REL}); step {proc_s:.4f} s (deterministic kernels), staging "
+              f"{staging:.4f} s (share {staging / proc_s:.4f}); peak memory per process "
+              f"{[round(run['peak_bytes'] / 2**30, 2) for run in runs]} GiB; on {card}")
+    print(f"equivariant process grid: spawn and runs {spawn_s:.1f}s")
+    del procs
+
+    # 6: make_train_step on the molecule batch, one device, MSE
+    mb = graphs.molecule_batch(*MOLECULE, seed=0)
+    batch = {"graph": gnn.Graph(nf=torch.from_numpy(mb.nf).cuda(),
+                                src=torch.from_numpy(mb.src).cuda(),
+                                dst=torch.from_numpy(mb.dst).cuda(),
+                                pos=torch.from_numpy(mb.pos).cuda()),
+             "targets": torch.from_numpy(mb.targets).cuda()}
+    for arch in EQUIVARIANT_ARCHS:
+        cfg = configs.get(arch).model_config()
+        fn = tstep.make_train_step(lambda p, b, cfg=cfg: gnn.loss_fn(cfg, p, b),
+                                   adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=50))
+        state = tstep.init_state(gnn.init(cfg, torch.Generator().manual_seed(0), "cuda"))
+        losses, norms, secs = [], [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fn(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t1)
+        if not (losses[-1] < losses[0] and np.isfinite(norms).all()):
+            raise AssertionError(f"{arch} molecule: losses {losses}, gradient norms {norms}")
+        print(f"{arch} check 6: molecule batch ({MOLECULE[0]} molecules of {MOLECULE[1]} atoms "
+              f"and {MOLECULE[2]} edges, MSE on float targets), {TRAIN_STEPS} steps of "
+              f"make_train_step: losses {[round(x, 6) for x in losses]}, gradient norms finite "
+              f"{[round(x, 4) for x in norms]}; {[round(t, 4) for t in secs]} s on {card}")
+    print(f"equivariant step: {time.perf_counter() - t0:.1f}s")
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -2206,6 +2565,9 @@ def main() -> int:
     train_launches, train_rows = train_step(card)
     launches.update(train_launches)
     rows["quantize"]["train_shapes"] = [brief(r) for r in train_rows]
+    equiv_launches, egnn_rows = equivariant_step(card)
+    launches.update(equiv_launches)
+    rows["quantize"]["egnn_shapes"] = [brief(r) for r in egnn_rows]
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

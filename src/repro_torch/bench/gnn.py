@@ -1,25 +1,28 @@
-"""2D-partitioned GNN forward harness: GraphCast on its multimesh, int8 halo
-payloads, on a simulated grid.
+"""2D-partitioned GNN forward harness: GraphCast, GAT, EGNN or NequIP on the
+multimesh, int8 halo payloads, on a simulated grid.
 
 Builds GraphCast's processor graph, the refined icosahedral multimesh
 (:func:`repro_torch.models.icosahedron.multimesh`), partitions it onto a
 2D :class:`~repro_torch.comm.SimGrid` (``core.csr.partition_2d``, owned
 chunks a multiple of 1024), makes synthetic smooth fields from ``--seed``
 (a random linear function of each node's position plus noise, as
-``examples/train_gnn.py`` makes them) and parameters from a
-``torch.Generator`` seeded the same, then answers ``--requests`` forwards
-with the int8 payload on, one with it off, and the single-device forward
-once on the whole multimesh.  Every forward is timed with device
+``examples/train_gnn.py`` makes them), the positions EGNN and NequIP read
+(the multimesh vertices on the unit sphere, zero on the padded vertices)
+and parameters from a ``torch.Generator`` seeded the same, then answers
+``--requests`` forwards with the int8 payload on, one with it off, and
+the single-device forward once on the whole multimesh.  Every forward is timed with device
 synchronization, after one untimed warm-up forward.  It reports:
 
 * the payload bytes of one forward's feature exchanges, int8
   (``Int8Format(n).wire_bytes``) against fp32 (``4 n``), for each rank's
-  contribution to every collective (:func:`payload_bytes`, from the shapes);
+  contribution to every collective (:func:`payload_bytes`, from the shapes;
+  NequIP's payload stays fp32 when int8 is asked for);
 * the relative L2 gap between the int8 and fp32 outputs;
 * the max abs gap between the fp32 2D output and the single-device output.
 
     python -m repro_torch.bench.gnn                     # graphcast, refinement 6, cuda
-    python -m repro_torch.bench.gnn --device cpu --refine 2 --smoke
+    python -m repro_torch.bench.gnn --arch nequip        # egnn, nequip, gat-cora
+    python -m repro_torch.bench.gnn --device cpu --refine 2 --smoke [--arch egnn]
 
 Every rank runs on the same card, one after another: a forward's time is
 that of R*C ranks simulated on one card, not a multi-card figure.
@@ -45,7 +48,7 @@ from repro_torch.core import csr
 from repro_torch.graphgen.builder import CSRGraph
 from repro_torch.models import gnn, gnn_dist, icosahedron
 
-ARCHS = ("graphcast", "gat-cora")
+ARCHS = ("graphcast", "gat-cora", "egnn", "nequip")
 
 
 @dataclasses.dataclass
@@ -60,6 +63,7 @@ class GnnSetup:
     src_l: list  # per-rank edge blocks on the device (the local ranks')
     dst_l: list
     h_own: list  # per-rank owned fields on the device
+    pos: list  # per-rank owned positions (s, 3) on the device (EGNN, NequIP)
     mesh_s: float  # host seconds: multimesh + partition
     refine: int  # multimesh refinement
 
@@ -110,7 +114,8 @@ def setup(arch: str = "graphcast", refine: int = 6, grid: tuple[int, int] | Grid
     """The multimesh partitioned onto ``grid`` — an R x C shape, simulated
     on ``device`` (a :class:`SimGrid`), or a grid to run on (this
     process's rank of a ``ProcessGrid``, on its device) — with the fields,
-    the parameters and the local ranks' blocks on the device."""
+    the positions, the parameters and the local ranks' blocks on the
+    device."""
     if isinstance(grid, Grid):
         sim, dev = grid, grid.device
     else:
@@ -126,11 +131,14 @@ def setup(arch: str = "graphcast", refine: int = 6, grid: tuple[int, int] | Grid
     part = bg.part
     nf = np.zeros((part.n, cfg.d_in), np.float32)
     nf[: g.n] = synthetic_fields(verts, cfg.d_in, seed)
+    pos = np.zeros((part.n, 3), np.float32)
+    pos[: g.n] = verts
     params = gnn.init(cfg, torch.Generator().manual_seed(seed), dev)
     return GnnSetup(cfg=cfg, grid=sim, bg=bg, verts=verts, edges=edges, nf=nf,
                     params=params, src_l=gnn_dist.shard_edges(sim, bg.src_local),
                     dst_l=gnn_dist.shard_edges(sim, bg.dst_local),
-                    h_own=gnn_dist.shard_nodes(sim, nf, part), mesh_s=mesh_s,
+                    h_own=gnn_dist.shard_nodes(sim, nf, part),
+                    pos=gnn_dist.shard_nodes(sim, pos, part), mesh_s=mesh_s,
                     refine=refine)
 
 
@@ -139,17 +147,25 @@ def forward_2d(st: GnnSetup, quantize: bool) -> torch.Tensor:
     dcfg = gnn_dist.Dist2DConfig(quantize_payload=quantize)
     with torch.inference_mode():
         out = gnn_dist.forward_2d(st.grid, st.cfg, st.params, st.h_own, st.src_l,
-                                  st.dst_l, st.bg.part, dcfg)
+                                  st.dst_l, st.bg.part, dcfg, pos=st.pos)
     return torch.cat(out, dim=0)
 
 
 def exchange_passes(cfg, params) -> list[tuple[int, int]]:
     """Each aggregation pass of one 2D forward as (d, dm): the gathered
     width and the message width.  GraphCast has one pass of width d_hidden
-    per layer; GAT a max pass over the logits (d = heads x d_out, dm =
+    per layer; EGNN one of (d + 3, d + 4) (features and coordinates out,
+    messages, coordinate deltas and the degree back); NequIP one of
+    (13c + 3, 13c) (the l<=2 irreps and the position out, the irreps'
+    messages back); GAT a max pass over the logits (d = heads x d_out, dm =
     heads) and an exp-sum pass (d = dm = heads x d_out + heads)."""
+    n_layers = len(params["layers"])
     if cfg.name == "graphcast":
-        return [(cfg.d_hidden, cfg.d_hidden)] * len(params["layers"])
+        return [(cfg.d_hidden, cfg.d_hidden)] * n_layers
+    if cfg.name == "egnn":
+        return [(cfg.d_hidden + 3, cfg.d_hidden + 4)] * n_layers
+    if cfg.name == "nequip":
+        return [(13 * cfg.d_hidden + 3, 13 * cfg.d_hidden)] * n_layers
     passes = []
     for lyr in params["layers"]:
         heads, _, d_out = lyr["w"].shape
@@ -161,24 +177,34 @@ def payload_bytes(cfg, params, part: csr.Partition2D) -> dict:
     """One 2D forward's feature exchanges, from the shapes.  Per aggregation
     pass (:func:`exchange_passes`), each rank sends three (s, d) payloads
     (the transpose, the row and the column all-gathers) and one (c, s, dm)
-    all-to-all.  Returns the int8 (``Int8Format(n).wire_bytes``) and fp32
-    (``4 n``) bytes summed over every rank and call, and the number of
-    calls."""
+    all-to-all.  Returns the bytes with int8 asked for
+    (``Int8Format(n).wire_bytes``; fp32 for the archs whose payload is
+    never quantized, ``gnn_dist.FP32_PAYLOAD``) and the fp32 (``4 n``)
+    bytes, summed over every rank and call, and the number of calls."""
     passes = exchange_passes(cfg, params)
     s, ranks = part.chunk, part.rows * part.cols
     sent = [n for d, dm in passes for n in (s * d, s * d, s * d, part.cols * s * dm)]
-    return {"int8": ranks * sum(Int8Format(n).wire_bytes for n in sent),
-            "fp32": ranks * sum(4 * n for n in sent), "calls": 4 * len(passes)}
+    fp32 = ranks * sum(4 * n for n in sent)
+    int8 = (fp32 if cfg.name in gnn_dist.FP32_PAYLOAD
+            else ranks * sum(Int8Format(n).wire_bytes for n in sent))
+    return {"int8": int8, "fp32": fp32, "calls": 4 * len(passes)}
 
 
 def forward_single(st: GnnSetup) -> torch.Tensor:
     """The single-device forward on the whole (unpadded) multimesh."""
-    dev = st.grid.device
-    g = gnn.Graph(nf=torch.from_numpy(st.nf[: st.n]).to(dev),
-                  src=torch.from_numpy(st.edges[:, 0]).to(dev),
-                  dst=torch.from_numpy(st.edges[:, 1]).to(dev))
     with torch.inference_mode():
-        return gnn.forward(st.cfg, st.params, g)
+        return gnn.forward(st.cfg, st.params, single_graph(st))
+
+
+def single_graph(st: GnnSetup, pos: np.ndarray | None = None) -> gnn.Graph:
+    """The whole (unpadded) multimesh as one graph on the grid's device,
+    at the vertices' positions (or ``pos`` (n, 3))."""
+    dev = st.grid.device
+    return gnn.Graph(nf=torch.from_numpy(st.nf[: st.n]).to(dev),
+                     src=torch.from_numpy(st.edges[:, 0]).to(dev),
+                     dst=torch.from_numpy(st.edges[:, 1]).to(dev),
+                     pos=torch.from_numpy(np.ascontiguousarray(
+                         st.verts if pos is None else pos, np.float32)).to(dev))
 
 
 def _timed(dev, fn):

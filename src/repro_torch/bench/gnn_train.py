@@ -1,18 +1,19 @@
-"""2D GNN training harness: the 2D train step with straight-through int8
-payloads and AdamW (WSD) on the multimesh, on a simulated grid or as one
-process per rank.
+"""2D GNN training harness: the 2D train step (straight-through int8
+payloads for GraphCast) and AdamW (WSD) on the multimesh, on a simulated
+grid or as one process per rank.
 
 The counterpart of ``examples/train_gnn.py`` and of ``launch/cells.py``'s
-``graph_train_2d`` cell (``gnn_dist.build_2d_train_step`` with int8
-payloads for ``graphcast``).  It reuses :mod:`repro_torch.bench.gnn`'s
-set-up — the refinement-r multimesh partitioned onto an R x C grid, the
-synthetic fields and parameters from ``--seed`` — and adds integer
-targets over ``d_out`` classes made from the same seed, and trains
-GraphCast with int8 payloads, as the cell does.  Depth is cut to
-:data:`LAYERS` (4: the saved activations of 16 full-width layers exceed
-one card).  After one uncounted warm-up step (loss and gradients,
-no update), each of ``--steps`` steps runs, each part timed with device
-synchronization:
+``graph_train_2d`` cell (``gnn_dist.build_2d_train_step``, int8 payloads
+for ``graphcast``, fp32 for ``egnn`` and ``nequip``: :data:`INT8_ARCHS`).
+It reuses :mod:`repro_torch.bench.gnn`'s set-up — the refinement-r
+multimesh partitioned onto an R x C grid, the synthetic fields, the
+positions and parameters from ``--seed`` — and adds integer targets over
+``d_out`` classes made from the same seed (cross-entropy, as the
+reference's 2D step computes it), and trains ``--arch`` as the cell does.
+GraphCast's depth is cut to :data:`LAYERS` (4: the saved activations of 16
+full-width layers exceed one card); EGNN and NequIP keep theirs.  After
+one uncounted warm-up step (loss and gradients, no update), each of
+``--steps`` steps runs, each part timed with device synchronization:
 
 * forward + backward: :func:`repro_torch.models.gnn_dist.value_and_grad_2d`
   (the loss ``pmean``ed over the grid, each rank's gradients through the
@@ -28,8 +29,9 @@ counted from the shapes; the peak device memory; and, with ``--procs``,
 each process's staging seconds (host copies of gloo's CUDA tensors).
 
     python -m repro_torch.bench.gnn_train                # graphcast, 4 layers, refinement 6, 2x2
+    python -m repro_torch.bench.gnn_train --arch nequip  # egnn, nequip (fp32 payloads)
     python -m repro_torch.bench.gnn_train --procs 4      # the 2x2 grid as 4 processes (gloo)
-    python -m repro_torch.bench.gnn_train --device cpu --refine 2 --smoke
+    python -m repro_torch.bench.gnn_train --device cpu --refine 2 --smoke [--arch egnn]
 
 On ``SimGrid`` the R*C ranks run on one card one after another; under
 ``--procs`` the R*C processes share the one card and exchange through host
@@ -40,6 +42,7 @@ float32 with TF32 off.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -54,6 +57,16 @@ from repro_torch.models import gnn_dist
 from repro_torch.optim import adamw
 
 LAYERS = 4  # 16 full-width layers' saved activations need ~118 GB (PERF.md)
+ARCHS = ("graphcast", "egnn", "nequip")
+#: the archs whose 2D cell trains with int8 payloads (launch/cells.py:349
+#: also names gat-cora, whose int8 loss is NaN in the reference)
+INT8_ARCHS = ("graphcast",)
+
+
+def arch_layers(arch: str) -> int | None:
+    """The depth the harness trains ``arch`` at: :data:`LAYERS` for
+    GraphCast, the published depth (``None``) otherwise."""
+    return LAYERS if arch == "graphcast" else None
 
 
 def opt_config(steps: int) -> adamw.AdamWConfig:
@@ -85,6 +98,22 @@ def cotangent_bytes(cfg, params, part) -> dict:
             "grad_pmean": ranks * 4 * n_params}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """While active, PyTorch takes its deterministic kernels: on the card
+    ``index_add_`` (the segment sums and the gathers' backward) sums in a
+    fixed order instead of by atomics, so that two runs of the same
+    arithmetic, in one process or in several, agree bit for bit.  They are
+    slower; the harness times nothing under them."""
+    mode, warn = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -106,7 +135,7 @@ def train(st: gnn_bench.GnnSetup, steps: int, quantize: bool, seed: int = 0,
 
     def value_and_grad(params):
         return gnn_dist.value_and_grad_2d(grid, st.cfg, params, st.h_own, st.src_l,
-                                          st.dst_l, targets, part, dcfg)
+                                          st.dst_l, targets, part, dcfg, pos=st.pos)
 
     params, opt = st.params, adamw.init(st.params)
     for _ in range(warmup):
@@ -156,9 +185,11 @@ def train(st: gnn_bench.GnnSetup, steps: int, quantize: bool, seed: int = 0,
 
 def proc_train(grid: Grid, spec: dict) -> list:
     """One process of a grid running ``spec``'s cases (``arch``,
-    ``quantize``) on the multimesh of ``spec["refine"]``: :func:`train`
-    with ``spec``'s steps, seed, widths and depth.  Module-level, so that
-    it pickles for ``procgrid.spawn``."""
+    ``quantize``, optionally ``deterministic``) on the multimesh of
+    ``spec["refine"]``: :func:`train` with ``spec``'s steps, seed, widths,
+    depth and warm-up calls (``spec["warmup"]``, default 1), under
+    :func:`deterministic` where the case asks.  Module-level, so that it
+    pickles for ``procgrid.spawn``."""
     setups: dict[str, gnn_bench.GnnSetup] = {}
     out = []
     for case in spec["cases"]:
@@ -166,8 +197,10 @@ def proc_train(grid: Grid, spec: dict) -> list:
             setups[case["arch"]] = gnn_bench.setup(case["arch"], spec["refine"], grid,
                                                    spec["seed"], spec["smoke"],
                                                    layers=spec["layers"])
-        out.append(train(setups[case["arch"]], spec["steps"], case["quantize"], spec["seed"],
-                         capture=spec.get("capture", False)))
+        with deterministic() if case.get("deterministic") else contextlib.nullcontext():
+            out.append(train(setups[case["arch"]], spec["steps"], case["quantize"],
+                             spec["seed"], warmup=spec.get("warmup", 1),
+                             capture=spec.get("capture", False)))
     return out
 
 
@@ -189,19 +222,22 @@ def _print(res: dict, where: str) -> None:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="graphcast", choices=ARCHS)
     ap.add_argument("--refine", type=int, default=6)
     ap.add_argument("--grid", default="2x2", help="R x C of the grid")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--smoke", action="store_true", help="GraphCast's smoke widths")
+    ap.add_argument("--smoke", action="store_true", help="the arch's smoke widths")
     ap.add_argument("--procs", type=int, default=0,
                     help="run one process per rank (R*C of them, gloo) instead of a SimGrid")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     rows, cols = distributed.parse_grid(args.grid)
-    spec = {"refine": args.refine, "seed": args.seed, "smoke": args.smoke, "layers": LAYERS,
-            "steps": args.steps, "cases": [{"arch": "graphcast", "quantize": True}]}
+    quantize = args.arch in INT8_ARCHS
+    layers = arch_layers(args.arch)
+    spec = {"refine": args.refine, "seed": args.seed, "smoke": args.smoke, "layers": layers,
+            "steps": args.steps, "cases": [{"arch": args.arch, "quantize": quantize}]}
     dev = torch.device("cuda" if args.device is None else args.device)
     on = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
     if args.procs:
@@ -215,9 +251,9 @@ def main(argv=None) -> list:
         where = (f"{args.procs} processes on {'one card' if dev.type == 'cuda' else 'the CPU'} "
                  f"over gloo ({on})")
     else:
-        st = gnn_bench.setup("graphcast", args.refine, (rows, cols), args.seed, args.smoke,
-                             args.device, LAYERS)
-        results = [train(st, args.steps, True, args.seed)]
+        st = gnn_bench.setup(args.arch, args.refine, (rows, cols), args.seed, args.smoke,
+                             args.device, layers)
+        results = [train(st, args.steps, quantize, args.seed)]
         where = f"{rows * cols} ranks simulated on one device ({on})"
     res = results[0]
     _print(res, where)

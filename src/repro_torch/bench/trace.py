@@ -15,17 +15,19 @@ expansion, each as a share of the busy time.  The last two come from
 profiler ranges around ``compact_ids`` and the backend's push/pull, set
 only for the trace.  A range's device span (its first kernel's start to its
 last kernel's end, idle gaps included) is printed apart, as a share of
-the wall time.  With ``--gnn`` the traced call is one int8 2D GraphCast
-forward of :mod:`repro_torch.bench.gnn` at ``--refine`` (after one
-warm-up forward), with the quantize kernel's and the matrix products'
-device time apart; with ``--gnn-train`` it is one int8 loss-and-gradient
-call of the 2D train step (:mod:`repro_torch.bench.gnn_train`'s 4 layers),
-with the gathers' and the segment sums' kernels apart as well.
+the wall time.  With ``--gnn`` the traced call is one int8 2D forward of
+``--arch`` (GraphCast by default; NequIP's payload stays fp32) of
+:mod:`repro_torch.bench.gnn` at ``--refine`` (after one warm-up forward),
+with the quantize kernel's and the matrix products' device time apart;
+with ``--gnn-train`` it is one loss-and-gradient call of the 2D train step
+at :mod:`repro_torch.bench.gnn_train`'s depth and payload for the arch
+(GraphCast 4 layers, int8; EGNN and NequIP at their depth, fp32), with the
+gathers' and the segment sums' kernels apart as well.
 
     python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
     python -m repro_torch.bench.trace --scale 22 --algebra sssp cc pagerank [--grid 2x2]
-    python -m repro_torch.bench.trace --gnn [--refine 6]
-    python -m repro_torch.bench.trace --gnn-train [--refine 6]
+    python -m repro_torch.bench.trace --gnn [--refine 6] [--arch egnn]
+    python -m repro_torch.bench.trace --gnn-train [--refine 6] [--arch nequip]
 """
 
 from __future__ import annotations
@@ -93,10 +95,12 @@ def main(argv=None) -> list[dict]:
                     choices=["bfs", "sssp", "cc", "pagerank"])
     ap.add_argument("--out", default=None, help="chrome trace output path (last algebra)")
     ap.add_argument("--gnn", action="store_true",
-                    help="trace one int8 2D GraphCast forward instead (bench.gnn)")
+                    help="trace one int8 2D GNN forward instead (bench.gnn)")
     ap.add_argument("--gnn-train", action="store_true",
-                    help="trace one int8 2D GraphCast train step's forward and backward "
+                    help="trace one 2D GNN train step's forward and backward "
                          "instead (bench.gnn_train)")
+    ap.add_argument("--arch", default="graphcast", choices=gnn_train.ARCHS,
+                    help="--gnn, --gnn-train: the GNN arch")
     ap.add_argument("--refine", type=int, default=6,
                     help="--gnn, --gnn-train: multimesh refinement")
     args = ap.parse_args(argv)
@@ -114,16 +118,18 @@ def main(argv=None) -> list[dict]:
 
 
 def _trace_gnn(args) -> dict:
-    """Warm up on one int8 2D forward of :mod:`repro_torch.bench.gnn`'s
-    default model (``--grid``, default 2x2), trace the next; the quantize
-    kernel's and the matrix products' device time are printed apart.  With
-    ``--gnn-train`` the call is the train step's loss and gradients
-    (``gnn_dist.value_and_grad_2d`` at :data:`gnn_train.LAYERS` layers)."""
+    """Warm up on one int8 2D forward of ``--arch`` (``--grid``, default
+    2x2), trace the next; the quantize kernel's and the matrix products'
+    device time are printed apart.  With ``--gnn-train`` the call is the
+    train step's loss and gradients (``gnn_dist.value_and_grad_2d`` at
+    ``gnn_train.arch_layers`` layers, int8 for ``gnn_train.INT8_ARCHS``)."""
     from repro_torch.models import gnn_dist
 
     rows, cols = distributed.parse_grid(args.grid or "2x2")
-    layers = gnn_train.LAYERS if args.gnn_train else None
-    st = gnn_bench.setup(refine=args.refine, grid=(rows, cols), layers=layers)
+    layers = gnn_train.arch_layers(args.arch) if args.gnn_train else None
+    st = gnn_bench.setup(args.arch, refine=args.refine, grid=(rows, cols), layers=layers)
+    quantize = (args.arch in gnn_train.INT8_ARCHS if args.gnn_train
+                else args.arch not in gnn_dist.FP32_PAYLOAD)
     if args.gnn_train:
         part = st.bg.part
         targets = gnn_dist.shard_targets(
@@ -132,16 +138,17 @@ def _trace_gnn(args) -> dict:
         def call():
             return gnn_dist.value_and_grad_2d(st.grid, st.cfg, st.params, st.h_own, st.src_l,
                                               st.dst_l, targets, part,
-                                              gnn_dist.Dist2DConfig(quantize_payload=True))
+                                              gnn_dist.Dist2DConfig(quantize_payload=quantize),
+                                              pos=st.pos)
         what = f"{st.cfg.n_layers}-layer train step (forward + backward)"
     else:
         def call():
-            return gnn_bench.forward_2d(st, True)
+            return gnn_bench.forward_2d(st, quantize)
         what = "forward"
     call()
     prof, wall_us, _ = _profiled(call)
-    title = (f"{st.cfg.name} 2D {what}, int8 payload, refinement {args.refine}, grid "
-             f"{rows}x{cols}, ranks simulated on one card")
+    title = (f"{st.cfg.name} 2D {what}, {'int8' if quantize else 'fp32'} payload, refinement "
+             f"{args.refine}, grid {rows}x{cols}, ranks simulated on one card")
     classes = {"quantize": lambda k: "quantize_kernel" in k,
                "gemm": lambda k: "gemm" in k}
     if args.gnn_train:  # the gathers (index_select) and the segment sums and

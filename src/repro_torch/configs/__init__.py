@@ -1,4 +1,5 @@
-"""Architecture configs of the ported models (``graphcast``, ``gat-cora``).
+"""Architecture configs of the ported models (``graphcast``, ``gat-cora``,
+``egnn``, ``nequip``).
 
 ``get(arch_id)`` / ``list_archs()`` — see :mod:`repro_torch.configs.common`.
 """

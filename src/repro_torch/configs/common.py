@@ -97,8 +97,7 @@ def register(spec: ArchSpec) -> ArchSpec:
 
 
 def get(arch_id: str) -> ArchSpec:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()  # every module, also after one was imported on its own
     try:
         return _REGISTRY[arch_id]
     except KeyError:
@@ -106,11 +105,10 @@ def get(arch_id: str) -> ArchSpec:
 
 
 def list_archs() -> list[str]:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()  # every module, also after one was imported on its own
     return sorted(_REGISTRY)
 
 
 def _load_all() -> None:
     # import for registration side effects: only the ported archs
-    from repro_torch.configs import gat_cora, graphcast  # noqa: F401
+    from repro_torch.configs import egnn, gat_cora, graphcast, nequip  # noqa: F401

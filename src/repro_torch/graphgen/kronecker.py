@@ -47,3 +47,31 @@ def kronecker_edges(
         ij = perm[ij]
         ij = ij[:, rng.permutation(m)]
     return ij.T.copy()
+
+
+def rmat_edges(
+    scale: int,
+    edgefactor: int = 16,
+    seed: int = 1,
+    a: float = A,
+    b: float = B,
+    c: float = C,
+    permute: bool = True,
+) -> np.ndarray:
+    """General RMAT with tunable skew (used by benchmarks to vary gap entropy)."""
+    n = 1 << scale
+    m = n * edgefactor
+    rng = np.random.default_rng(seed)
+    ab = a + b
+    c_norm = c / (1.0 - ab)
+    a_norm = a / ab
+    ij = np.zeros((2, m), dtype=np.int64)
+    for ib in range(scale):
+        ii_bit = rng.random(m) > ab
+        jj_bit = rng.random(m) > np.where(ii_bit, c_norm, a_norm)
+        ij[0] += (1 << ib) * ii_bit
+        ij[1] += (1 << ib) * jj_bit
+    if permute:
+        perm = rng.permutation(n)
+        ij = perm[ij]
+    return ij.T.copy()

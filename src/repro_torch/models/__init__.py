@@ -1,4 +1,5 @@
-"""Graph neural networks: the single-device GraphCast and GAT forwards
-(:mod:`.gnn`), their 2D-partitioned forwards on a simulated grid with the
-optional int8 payload (:mod:`.gnn_dist`), and GraphCast's multimesh
+"""Graph neural networks: the single-device GraphCast, GAT, EGNN and NequIP
+forwards (:mod:`.gnn`), their 2D-partitioned forwards and train step over a
+grid of ranks with the optional int8 payload (:mod:`.gnn_dist`), NequIP's
+Cartesian l<=2 irreps (:mod:`.irreps`), and GraphCast's multimesh
 (:mod:`.icosahedron`, a numpy copy)."""

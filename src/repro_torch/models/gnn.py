@@ -1,23 +1,25 @@
 """Graph neural networks via segment-sum message passing, in PyTorch.
 
-The port's counterpart of ``repro/models/gnn.py`` for GraphCast and GAT:
-every aggregator is a gather over an edge index followed by a segment
-reduction over destinations (``index_add_`` / ``scatter_reduce_``).
-Padding edges use the sentinel (src = dst = n) and fall into segment n,
-which is dropped.
+The port's counterpart of ``repro/models/gnn.py``: every aggregator is a
+gather over an edge index followed by a segment reduction over
+destinations (``index_add_`` / ``scatter_reduce_``).  Padding edges use the
+sentinel (src = dst = n) and fall into segment n, which is dropped.
 
 * ``graphcast`` — encode-process-decode stack of interaction networks
                   (edge MLP + node MLP + residual), sum aggregation.
 * ``gat-cora``  — multi-head attention aggregation (SDDMM -> edge softmax
                   -> SpMM, all as segment ops).
+* ``egnn``      — E(n)-equivariant: messages from invariants (h_i, h_j,
+                  |x_i - x_j|^2), coordinate updates along displacements.
+* ``nequip``    — E(3)-equivariant l<=2 tensor-product convolutions
+                  (see :mod:`repro_torch.models.irreps`).
 
-Parameters are the reference's pytree as plain nested dicts and lists of
-tensors, with the same keys and shapes: :func:`params_from_numpy` carries
-the JAX package's parameters across, and :func:`init` makes new ones from
-a ``torch.Generator`` (other numbers than ``jax.random`` from the same
-seed).  :func:`loss_fn` is the node-level loss of the training step.  EGNN
-and NequIP are not ported: :func:`init` and :func:`forward` (and so
-:func:`loss_fn`) raise ``TypeError`` for them, as for any unknown config.
+EGNN and NequIP read the graph's ``pos`` (n, 3).  Parameters are the
+reference's pytree as plain nested dicts and lists of tensors, with the
+same keys and shapes: :func:`params_from_numpy` carries the JAX package's
+parameters across, and :func:`init` makes new ones from a
+``torch.Generator`` (other numbers than ``jax.random`` from the same
+seed).  :func:`loss_fn` is the node-level loss of the training step.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models import irreps as ir
 
 Params = dict[str, Any]
 
@@ -213,6 +216,163 @@ def gat_forward(cfg: GATConfig, params: Params, g: Graph) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# EGNN (E(n)-equivariant)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EGNNConfig:
+    name: str = "egnn"
+    n_layers: int = 4
+    d_hidden: int = 64
+    d_in: int = 16
+    d_out: int = 16
+
+
+def init_egnn(cfg: EGNNConfig, gen: torch.Generator, device=None) -> Params:
+    d = cfg.d_hidden
+    return {
+        "embed": _mlp_params(gen, (cfg.d_in, d), device),
+        "layers": [
+            {"edge": _mlp_params(gen, (2 * d + 1, d, d), device),
+             "coord": _mlp_params(gen, (d, d, 1), device),
+             "node": _mlp_params(gen, (2 * d, d, d), device)}
+            for _ in range(cfg.n_layers)
+        ],
+        "out": _mlp_params(gen, (d, cfg.d_out), device),
+    }
+
+
+def egnn_forward(cfg: EGNNConfig, params: Params, g: Graph):
+    """Returns (node outputs (n, d_out), updated coordinates (n, 3))."""
+    if g.pos is None:
+        raise ValueError("egnn_forward: the graph has no pos")
+    n = g.n
+    h = _mlp(params["embed"], g.nf)
+    x = g.pos
+    valid = (g.src < n)[:, None]
+    deg = torch.clamp(seg_sum(valid.to(x.dtype), g.dst, n), min=1.0)
+    for lyr in params["layers"]:
+        hs, hd = _gather(h, g.src, n), _gather(h, g.dst, n)
+        xs, xd = _gather(x, g.src, n), _gather(x, g.dst, n)
+        diff = xd - xs
+        d2 = torch.sum(diff * diff, -1, keepdim=True)
+        m_ij = _mlp(lyr["edge"], torch.cat([hs, hd, d2], -1)) * valid
+        # E(n) coordinate update: x_i += mean_j (x_i - x_j) * phi_x(m_ij)
+        w = torch.tanh(_mlp(lyr["coord"], m_ij))  # bounded for stability
+        x = x + seg_sum(-diff * w * valid, g.dst, n) / deg
+        agg = seg_sum(m_ij, g.dst, n)
+        h = h + _mlp(lyr["node"], torch.cat([h, agg], -1))
+    return _mlp(params["out"], h), x
+
+
+# ---------------------------------------------------------------------------
+# NequIP (E(3)-equivariant tensor-product convolutions, l <= 2)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NequIPConfig:
+    name: str = "nequip"
+    n_layers: int = 5
+    d_hidden: int = 32  # channels per l
+    l_max: int = 2
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    d_in: int = 16  # species embedding width
+    d_out: int = 1  # per-atom energy
+
+
+def init_nequip(cfg: NequIPConfig, gen: torch.Generator, device=None) -> Params:
+    c = cfg.d_hidden
+
+    def square():
+        return (torch.randn((c, c), generator=gen) / c**0.5).to(device)
+
+    layers = [
+        {
+            # radial MLP -> per-path weights (3 paths x channels)
+            "radial": _mlp_params(gen, (cfg.n_rbf, c, 3 * c), device),
+            "w_s": square(), "w_v": square(), "w_t": square(),
+            "gate": _mlp_params(gen, (c, 2 * c), device),
+        }
+        for _ in range(cfg.n_layers)
+    ]
+    return {
+        "embed": _mlp_params(gen, (cfg.d_in, c), device),
+        "layers": layers,
+        "readout": _mlp_params(gen, (c, c, cfg.d_out), device),
+    }
+
+
+def nequip_messages(w: torch.Tensor, s: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
+                    y1: torch.Tensor, y2: torch.Tensor, c: int):
+    """The tensor-product messages of one NequIP layer: the source
+    features (s (m, c), v (m, c, 3), t (m, c, 3, 3)) (x) the edge's
+    harmonics (y1 (m, 3), y2 (m, 3, 3)), weighted per path by the radial
+    MLP's ``w`` (m, 3c).  Returns (m_s, m_v, m_t)."""
+    w0, w1, w2 = w[:, :c], w[:, c: 2 * c], w[:, 2 * c:]
+    m_s = w0 * (s + ir.p_vv_s(v, y1[:, None, :]))  # 0x0->0, 1x1->0
+    m_v = w1[..., None] * (
+        s[..., None] * y1[:, None, :]  # 0x1->1
+        + v  # 0(r)x1 identity path
+        + ir.p_tv_v(t, y1[:, None, :])  # 2x1->1
+    )
+    m_t = w2[..., None, None] * (
+        s[..., None, None] * y2[:, None]  # 0x2->2
+        + ir.p_vv_t(v, y1[:, None, :])  # 1x1->2
+        + t  # identity path
+    )
+    return m_s, m_v, m_t
+
+
+def nequip_update(lyr, feats: ir.Irreps, agg: ir.Irreps, c: int) -> ir.Irreps:
+    """One NequIP layer's self-interaction, gate and residual on the
+    aggregated messages."""
+    mixed = ir.linear(agg, lyr["w_s"], lyr["w_v"], lyr["w_t"])
+    gates = _mlp(lyr["gate"], mixed.s)
+    out = ir.gate(mixed, gates[:, :c], gates[:, c:])
+    return ir.Irreps(s=feats.s + out.s, v=feats.v + out.v, t=feats.t + out.t)
+
+
+def edge_geometry(xs: torch.Tensor, xd: torch.Tensor):
+    """(r (m,), y1 (m, 3), y2 (m, 3, 3)) of the displacements xd - xs."""
+    disp = xd - xs
+    r = torch.sqrt(torch.sum(disp * disp, -1) + 1e-12)
+    rhat = disp / r[:, None]
+    return r, ir.sph_l1(rhat), ir.sph_l2(rhat)
+
+
+def nequip_forward(cfg: NequIPConfig, params: Params, g: Graph) -> torch.Tensor:
+    """Per-node scalar outputs (invariant); internal features are l<=2."""
+    if g.pos is None:
+        raise ValueError("nequip_forward: the graph has no pos")
+    n, c = g.n, cfg.d_hidden
+    s = _mlp(params["embed"], g.nf)
+    feats = ir.Irreps(s=s, v=s.new_zeros((n, c, 3)), t=s.new_zeros((n, c, 3, 3)))
+    valid_e = g.src < n
+    r, y1, y2 = edge_geometry(_gather(g.pos, g.src, n), _gather(g.pos, g.dst, n))
+    rbf = ir.bessel_rbf(r, cfg.n_rbf, cfg.cutoff) * valid_e[:, None]
+
+    for lyr in params["layers"]:
+        w = _mlp(lyr["radial"], rbf)  # (m, 3c)
+        hs = ir.Irreps(
+            s=_gather(feats.s, g.src, n),
+            v=_gather(feats.v.reshape(n, -1), g.src, n).reshape(-1, c, 3),
+            t=_gather(feats.t.reshape(n, -1), g.src, n).reshape(-1, c, 3, 3),
+        )
+        # tensor-product messages: neighbor features (x) SH(rhat), radial-weighted
+        m_s, m_v, m_t = nequip_messages(w, hs.s, hs.v, hs.t, y1, y2, c)
+        agg = ir.Irreps(
+            s=seg_sum(m_s, g.dst, n),
+            v=seg_sum(m_v.reshape(g.m, -1), g.dst, n).reshape(n, c, 3),
+            t=seg_sum(m_t.reshape(g.m, -1), g.dst, n).reshape(n, c, 3, 3),
+        )
+        feats = nequip_update(lyr, feats, agg, c)
+    return _mlp(params["readout"], feats.s)
+
+
+# ---------------------------------------------------------------------------
 # unified facade
 # ---------------------------------------------------------------------------
 
@@ -225,6 +385,10 @@ def init(cfg, gen: torch.Generator, device=None) -> Params:
         return init_graphcast(cfg, gen, device)
     if isinstance(cfg, GATConfig):
         return init_gat(cfg, gen, device)
+    if isinstance(cfg, EGNNConfig):
+        return init_egnn(cfg, gen, device)
+    if isinstance(cfg, NequIPConfig):
+        return init_nequip(cfg, gen, device)
     raise TypeError(type(cfg))
 
 
@@ -233,6 +397,10 @@ def forward(cfg, params: Params, g: Graph) -> torch.Tensor:
         return graphcast_forward(cfg, params, g)
     if isinstance(cfg, GATConfig):
         return gat_forward(cfg, params, g)
+    if isinstance(cfg, EGNNConfig):
+        return egnn_forward(cfg, params, g)[0]
+    if isinstance(cfg, NequIPConfig):
+        return nequip_forward(cfg, params, g)
     raise TypeError(type(cfg))
 
 
@@ -240,7 +408,8 @@ def loss_fn(cfg, params: Params, batch) -> torch.Tensor:
     """Node-level loss: cross-entropy (over ``log_softmax`` in float32) when
     the targets are integers, else MSE; ``batch["mask"]``, where given,
     weights the nodes as in the reference.  ``batch["graph"]`` is a
-    :class:`Graph`.  EGNN and NequIP raise ``TypeError`` in :func:`forward`."""
+    :class:`Graph` (with ``pos`` for EGNN and NequIP).  An unknown config
+    raises ``TypeError`` in :func:`forward`."""
     g: Graph = batch["graph"]
     out = forward(cfg, params, g)
     tgt = batch["targets"]

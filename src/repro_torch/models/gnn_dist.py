@@ -30,7 +30,11 @@ The exchanges go through the grid's differentiable collectives
 :func:`build_2d_train_step` differentiates through them on either grid.
 Aggregations support sum and max, so attention (GAT) runs as two passes: a
 max pass (softmax stability), then a fused exp-sum pass.  EGNN and NequIP
-are not ported yet.
+take each rank's owned positions (``pos``): EGNN sends ``[h, x]`` and
+quantizes the whole payload, coordinates included, under
+``quantize_payload``, as the reference does; NequIP sends its flattened
+l<=2 irreps and positions and never quantizes them (the config is forced
+to fp32, as in the reference).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from repro_torch.comm.grid import (COL_AXIS, Grid, ad_all_gather, ad_all_to_all,
 from repro_torch.core.csr import Partition2D
 from repro_torch.kernels.quant import ops as quant
 from repro_torch.models import gnn
+from repro_torch.models import irreps as ir
 
 NEG = -1e30
 
@@ -152,7 +157,7 @@ def _n_layers(grid: Grid, params: list) -> int:
     return len(params[grid.local_ranks[0]]["layers"])
 
 
-def graphcast_2d(grid, params, h_own, src_l, dst_l, part, dcfg):
+def graphcast_2d(grid, cfg_m, params, h_own, src_l, dst_l, part, dcfg):
     """Interaction-network stack, sum aggregation (edge state omitted in the
     distributed variant: messages recomputed per layer)."""
     h = grid.local(lambda p: gnn._mlp(params[p]["encoder"], h_own[p]))
@@ -167,7 +172,7 @@ def graphcast_2d(grid, params, h_own, src_l, dst_l, part, dcfg):
     return grid.local(lambda p: gnn._mlp(params[p]["decoder"], h[p]))
 
 
-def gat_2d(grid, params, h_own, src_l, dst_l, part, dcfg):
+def gat_2d(grid, cfg_m, params, h_own, src_l, dst_l, part, dcfg):
     """GAT: max pass (stability) then fused exp-sum pass per layer."""
     h = h_own
     n_layers = _n_layers(grid, params)
@@ -206,13 +211,98 @@ def gat_2d(grid, params, h_own, src_l, dst_l, part, dcfg):
     return h
 
 
-_FWD_2D = {"graphcast": graphcast_2d, "gat-cora": gat_2d}
+def egnn_2d(grid, cfg_m, params, h_own, pos_own, src_l, dst_l, part, dcfg):
+    """EGNN: payload = [h, x]; messages, coordinate deltas and the degree
+    in one pass of width d + 4."""
+    h = grid.local(lambda p: gnn._mlp(params[p]["embed"], h_own[p]))
+    x = pos_own
+    d = cfg_m.d_hidden
+    for li in range(_n_layers(grid, params)):
+        def edge_fn(p, ps, pd, li=li):
+            lyr = params[p]["layers"][li]
+            hs, xs = ps[:, :d], ps[:, d: d + 3]
+            hd, xd = pd[:, :d], pd[:, d: d + 3]
+            diff = xd - xs
+            d2 = torch.sum(diff * diff, -1, keepdim=True)
+            m = gnn._mlp(lyr["edge"], torch.cat([hs, hd, d2], -1))
+            w = torch.tanh(gnn._mlp(lyr["coord"], m))
+            return torch.cat([m, -diff * w, torch.ones_like(d2)], -1)
+
+        agg = aggregate_2d(grid, h, edge_fn, src_l, dst_l, part, dcfg, op="sum", h_aux_own=x)
+        x = grid.local(lambda p: x[p] + agg[p][:, d: d + 3]
+                       / torch.clamp(agg[p][:, d + 3:], min=1.0))
+        h = grid.local(lambda p: h[p] + gnn._mlp(params[p]["layers"][li]["node"],
+                                                 torch.cat([h[p], agg[p][:, :d]], -1)))
+    return grid.local(lambda p: gnn._mlp(params[p]["out"], h[p]))
 
 
-def _arch(model_cfg, who: str):
-    if model_cfg.name not in _FWD_2D:
-        raise TypeError(f"{who}: arch {model_cfg.name!r} is not ported")
-    return _FWD_2D[model_cfg.name]
+def nequip_2d(grid, cfg_m, params, h_own, pos_own, src_l, dst_l, part, dcfg):
+    """NequIP: the l<=2 irreps flattened into the payload with the
+    positions, [s, v, t, pos] (13c + 3 floats a node); a message is 13c.
+
+    Payload quantization is forced off: lossy wire formats break exact
+    equivariance."""
+    dcfg = dataclasses.replace(dcfg, quantize_payload=False)
+    c = cfg_m.d_hidden
+
+    def embed(p):
+        s = gnn._mlp(params[p]["embed"], h_own[p])
+        n = s.shape[0]
+        return ir.Irreps(s=s, v=s.new_zeros((n, c, 3)), t=s.new_zeros((n, c, 3, 3)))
+
+    feats = grid.local(embed)
+    for li in range(_n_layers(grid, params)):
+        def edge_fn(p, ps, pd, li=li):
+            m = ps.shape[0]
+            r, y1, y2 = gnn.edge_geometry(ps[:, 13 * c:], pd[:, 13 * c:])
+            w = gnn._mlp(params[p]["layers"][li]["radial"],
+                         ir.bessel_rbf(r, cfg_m.n_rbf, cfg_m.cutoff))
+            m_s, m_v, m_t = gnn.nequip_messages(
+                w, ps[:, :c], ps[:, c: 4 * c].reshape(m, c, 3),
+                ps[:, 4 * c: 13 * c].reshape(m, c, 3, 3), y1, y2, c)
+            return torch.cat([m_s, m_v.reshape(m, -1), m_t.reshape(m, -1)], -1)
+
+        payload = grid.local(lambda p: torch.cat(
+            [feats[p].s, feats[p].v.flatten(1), feats[p].t.flatten(1), pos_own[p]], -1))
+        agg = aggregate_2d(grid, payload, edge_fn, src_l, dst_l, part, dcfg, op="sum")
+
+        def update(p, li=li):
+            a, n = agg[p], agg[p].shape[0]
+            a = ir.Irreps(s=a[:, :c], v=a[:, c: 4 * c].reshape(n, c, 3),
+                          t=a[:, 4 * c:].reshape(n, c, 3, 3))
+            return gnn.nequip_update(params[p]["layers"][li], feats[p], a, c)
+
+        feats = grid.local(update)
+    return grid.local(lambda p: gnn._mlp(params[p]["readout"], feats[p].s))
+
+
+_FWD_2D = {"graphcast": graphcast_2d, "gat-cora": gat_2d, "egnn": egnn_2d,
+           "nequip": nequip_2d}
+#: the archs whose 2D forward reads each rank's owned positions
+NEEDS_POS = ("egnn", "nequip")
+#: the archs whose payload stays fp32 whatever ``quantize_payload`` asks
+FP32_PAYLOAD = ("nequip",)
+
+
+def _arch(model_cfg, who: str) -> str:
+    """The arch's name; an unknown config raises ``TypeError``."""
+    name = getattr(model_cfg, "name", None)
+    if name not in _FWD_2D:
+        raise TypeError(f"{who}: unknown GNN arch {name!r}")
+    return name
+
+
+def _forward(grid, model_cfg, params, nf, pos, src_l, dst_l, part, dcfg, who: str) -> list:
+    """The arch's 2D forward; ``pos`` goes to the archs that read it (which
+    raise ``TypeError`` without it) and is ignored by the others, as in the
+    reference."""
+    name = _arch(model_cfg, who)
+    fwd = _FWD_2D[name]
+    if name in NEEDS_POS:
+        if pos is None:
+            raise TypeError(f"{who}: arch {name!r} needs each rank's owned positions (pos)")
+        return fwd(grid, model_cfg, params, nf, pos, src_l, dst_l, part, dcfg)
+    return fwd(grid, model_cfg, params, nf, src_l, dst_l, part, dcfg)
 
 
 def shard_nodes(grid: Grid, x: np.ndarray, part: Partition2D) -> list:
@@ -237,20 +327,21 @@ def shard_edges(grid: Grid, e_local: np.ndarray) -> list:
 
 
 def forward_2d(grid: Grid, model_cfg, params, nf: list, src_l: list, dst_l: list,
-               part: Partition2D, dcfg: Dist2DConfig | None = None) -> list:
-    """The 2D forward of ``model_cfg`` (``graphcast`` or ``gat-cora``): the
-    forward inside the reference's ``build_2d_train_step`` (``local``),
-    without the loss and gradients.
+               part: Partition2D, dcfg: Dist2DConfig | None = None,
+               pos: list | None = None) -> list:
+    """The 2D forward of ``model_cfg`` (``graphcast``, ``gat-cora``,
+    ``egnn`` or ``nequip``): the forward inside the reference's
+    ``build_2d_train_step`` (``local``), without the loss and gradients.
 
     Per-rank lists (:func:`shard_nodes`, :func:`shard_edges`): ``nf`` the
-    (s, d_in) owned features, ``src_l`` / ``dst_l`` the local edge blocks;
-    ``params`` one tree on the grid's device, shared by the ranks.  The
-    reference's ``pos`` (EGNN and NequIP) is not taken: neither ported arch
-    reads it.  Returns per-rank (s, d_out) outputs.
+    (s, d_in) owned features, ``src_l`` / ``dst_l`` the local edge blocks,
+    ``pos`` the (s, 3) owned positions, which EGNN and NequIP need (a
+    ``TypeError`` without them) and the others ignore; ``params`` one tree
+    on the grid's device, shared by the ranks.  Returns per-rank (s, d_out)
+    outputs.
     """
-    fwd = _arch(model_cfg, "forward_2d")
-    return fwd(grid, grid.local(lambda p: params), nf, src_l, dst_l, part,
-               dcfg or Dist2DConfig())
+    return _forward(grid, model_cfg, grid.local(lambda p: params), nf, pos, src_l, dst_l,
+                    part, dcfg or Dist2DConfig(), "forward_2d")
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +350,8 @@ def forward_2d(grid: Grid, model_cfg, params, nf: list, src_l: list, dst_l: list
 
 
 def value_and_grad_2d(grid: Grid, model_cfg, params, nf: list, src_l: list, dst_l: list,
-                      targets: list, part: Partition2D, dcfg: Dist2DConfig | None = None):
+                      targets: list, part: Partition2D, dcfg: Dist2DConfig | None = None,
+                      pos: list | None = None):
     """The loss and each local rank's gradients, before their mean: the
     body of the reference's ``local`` up to ``jax.value_and_grad``.
 
@@ -267,16 +359,16 @@ def value_and_grad_2d(grid: Grid, model_cfg, params, nf: list, src_l: list, dst_
     as in the reference) is ``pmean``ed over the whole grid; that is the
     loss, and each rank differentiates it (seed 1) with respect to its own
     leaf copy of ``params``, through the grid's transposed collectives.
-    Returns the loss (0-d), the per-rank gradient trees and the per-rank
-    forward outputs (s, d_out), both detached.
+    ``pos`` as in :func:`forward_2d`.  Returns the loss (0-d), the per-rank
+    gradient trees and the per-rank forward outputs (s, d_out), both
+    detached.
     """
-    fwd = _arch(model_cfg, "build_2d_train_step")
     flat, unflatten = tree.flatten(params)
     ranks = grid.local_ranks
     mine = {p: [x.detach().requires_grad_() for x in flat] for p in ranks}
     with torch.enable_grad():
-        out = fwd(grid, grid.local(lambda p: unflatten(mine[p])), nf, src_l, dst_l, part,
-                  dcfg or Dist2DConfig())
+        out = _forward(grid, model_cfg, grid.local(lambda p: unflatten(mine[p])), nf, pos,
+                       src_l, dst_l, part, dcfg or Dist2DConfig(), "build_2d_train_step")
 
         def nll_mean(p):
             logp = F.log_softmax(out[p].to(torch.float32), -1)
@@ -284,7 +376,10 @@ def value_and_grad_2d(grid: Grid, model_cfg, params, nf: list, src_l: list, dst_
 
         total = ad_psum(grid, grid.local(nll_mean), grid.all_axes)
         loss = [total[p] / grid.size for p in ranks]
-        grads = torch.autograd.grad(loss, [x for p in ranks for x in mine[p]])
+        # zeros for a leaf the loss does not read (NequIP's last gate and
+        # l>0 mixes), as under jax.grad
+        grads = torch.autograd.grad(loss, [x for p in ranks for x in mine[p]],
+                                    materialize_grads=True)
     k, at = len(flat), {p: i * len(flat) for i, p in enumerate(ranks)}
     per_rank = grid.local(lambda p: unflatten(list(grads[at[p]: at[p] + k])))
     return loss[0].detach(), per_rank, grid.local(lambda p: out[p].detach())
@@ -294,17 +389,18 @@ def build_2d_train_step(model_cfg, part: Partition2D, dcfg: Dist2DConfig | None 
     """The counterpart of the reference's ``build_2d_train_step`` (without
     the mesh, which the grid replaces, and the unused ``e_cap`` and
     ``n_classes``): returns ``step(grid, params, nf, src_l, dst_l,
-    targets) -> (loss, grads)``, the loss ``pmean``ed over the grid
-    (:func:`value_and_grad_2d`) and the gradients ``pmean``ed over every
-    axis (``comm.grid.pmean_trees``), one tree the same on every rank.  The per-rank
-    lists are :func:`shard_nodes`, :func:`shard_edges` and
-    :func:`shard_targets`.  It takes no ``pos``: EGNN and NequIP, which read
-    it, raise ``TypeError`` as in :func:`forward_2d`."""
+    targets, pos=None) -> (loss, grads)``, the loss ``pmean``ed over the
+    grid (:func:`value_and_grad_2d`) and the gradients ``pmean``ed over
+    every axis (``comm.grid.pmean_trees``), one tree the same on every
+    rank.  The per-rank lists are :func:`shard_nodes` (features and
+    positions), :func:`shard_edges` and :func:`shard_targets`; EGNN and
+    NequIP need ``pos`` (a ``TypeError`` without it), the others ignore it.
+    An unknown arch raises ``TypeError`` here."""
     _arch(model_cfg, "build_2d_train_step")
 
-    def step(grid, params, nf, src_l, dst_l, targets):
+    def step(grid, params, nf, src_l, dst_l, targets, pos=None):
         loss, grads, _ = value_and_grad_2d(grid, model_cfg, params, nf, src_l, dst_l,
-                                           targets, part, dcfg)
+                                           targets, part, dcfg, pos)
         return loss, pmean_trees(grid, grads)[grid.local_ranks[0]]
 
     return step

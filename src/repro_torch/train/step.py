@@ -38,12 +38,13 @@ def init_state(params: Any, with_ef: bool = False) -> TrainState:
 
 def value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor], params: Any,
                    batch) -> tuple[torch.Tensor, Any]:
-    """``loss_fn(params, batch)`` and its gradient tree, both detached."""
+    """``loss_fn(params, batch)`` and its gradient tree, both detached; a
+    leaf the loss does not read gets zeros, as under ``jax.grad``."""
     flat, unflatten = tree.flatten(params)
     leaves = [x.detach().requires_grad_() for x in flat]
     with torch.enable_grad():
         loss = loss_fn(unflatten(leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss.detach(), unflatten(list(grads))
 
 

@@ -386,14 +386,15 @@ def test_quantize_kernel_matches_plain_on_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("refine", [2, 4])
-@pytest.mark.parametrize("arch", ["graphcast", "gat-cora"])
+@pytest.mark.parametrize("arch", ["graphcast", "gat-cora", "egnn", "nequip"])
 def test_gnn_forward_on_card_matches_cpu(cuda, arch, refine):
     """The smoke widths on the multimesh over a 2x2 grid (refinement 2: one
     block holds every edge; 4: all four blocks do): the card's fp32 2D and
     single-device forwards equal the CPU's within float32 reassociation
     (1e-5 of the output's peak); the int8 forward launches the quantize
-    kernel on the card."""
+    kernel on the card, except NequIP's, whose payload stays fp32."""
     from repro_torch.bench import gnn as gnn_bench
+    from repro_torch.models import gnn_dist
 
     runs = {}
     for dev in (cuda, "cpu"):
@@ -408,7 +409,66 @@ def test_gnn_forward_on_card_matches_cpu(cuda, arch, refine):
         peak = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * peak)
     assert torch.isfinite(card[2]).all() or arch == "gat-cora"
-    assert card[3] > 0 and cpu[3] == 0
+    assert (card[3] > 0) == (arch not in gnn_dist.FP32_PAYLOAD) and cpu[3] == 0
+
+
+@pytest.mark.gpu
+def test_nequip_int8_is_its_fp32_forward_on_card(cuda):
+    """NequIP asked for int8 on the card (smoke widths, refinement 4, 2x2):
+    no quantize launch, and its output equals the fp32 forward's bit for
+    bit under deterministic kernels (``chip_smoke.nequip_int8_check``)."""
+    import chip_smoke
+    from repro_torch.bench import gnn as gnn_bench
+
+    st = gnn_bench.setup("nequip", refine=4, smoke=True, device=cuda)
+    assert chip_smoke.nequip_int8_check(st) == (True, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["egnn", "nequip"])
+def test_equivariance_on_card(cuda, arch):
+    """Rotating (EGNN: and shifting) the positions on the card leaves the
+    single-device and 2D outputs within ``chip_smoke.EQUIV_REL`` of their
+    peak, and EGNN's coordinates move with the rotation and shift
+    (``chip_smoke.equivariance_gaps``; smoke widths, refinement 4)."""
+    import chip_smoke
+    from repro_torch.bench import gnn as gnn_bench
+
+    st = gnn_bench.setup(arch, refine=4, smoke=True, device=cuda)
+    gaps = chip_smoke.equivariance_gaps(st)
+    assert set(gaps) == ({"single", "2d", "coords"} if arch == "egnn" else {"single", "2d"})
+    assert max(gaps.values()) <= chip_smoke.EQUIV_REL, gaps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["egnn", "nequip"])
+def test_molecule_train_step_on_card_matches_cpu(cuda, arch):
+    """Two ``make_train_step`` steps on the molecule batch at the published
+    widths (MSE on float targets): the card's losses and gradient norms
+    equal the CPU's within 1e-5."""
+    import chip_smoke
+    from repro_torch.configs import common as configs
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    cfg = configs.get(arch).model_config()
+    mb = graphs.molecule_batch(*chip_smoke.MOLECULE, seed=0)
+    runs = []
+    for dev in (cuda, "cpu"):
+        batch = {"graph": gnn.Graph(*(torch.from_numpy(x).to(dev)
+                                      for x in (mb.nf, mb.src, mb.dst, mb.pos))),
+                 "targets": torch.from_numpy(mb.targets).to(dev)}
+        fn = tstep.make_train_step(lambda p, b: gnn.loss_fn(cfg, p, b),
+                                   adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=50))
+        state = tstep.init_state(gnn.init(cfg, torch.Generator().manual_seed(0), dev))
+        out = []
+        for _ in range(2):
+            state, m = fn(state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(out)
+    np.testing.assert_allclose(np.array(runs[0]), np.array(runs[1]), rtol=1e-5)
 
 
 @pytest.mark.gpu
@@ -583,7 +643,8 @@ def test_allreduce_int8_on_card_matches_cpu(cuda, shape, axis):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,quantize", [("graphcast", False), ("graphcast", True),
-                                           ("gat-cora", False)])
+                                           ("gat-cora", False), ("egnn", False), ("egnn", True),
+                                           ("nequip", False)])
 def test_train_step_on_card_matches_cpu(cuda, arch, quantize):
     """The 2D train step (the harness's ``train``, one step, refinement 4,
     smoke widths, 2x2) on the card against the CPU: the loss and every

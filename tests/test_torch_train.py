@@ -4,9 +4,11 @@ Distributed: the 2D train step (``gnn_dist.build_2d_train_step``) on
 ``SimGrid(2, 2, "cpu")`` against the reference's under ``shard_map`` in a
 4-device subprocess started when the module starts, on the scale-9
 Kronecker set-up of ``tests/test_dist.py`` (``chunk_multiple=256``,
-``d_in`` 12, targets over 16 classes, parameters from ``PRNGKey(0)``):
-the loss and every gradient leaf of ``graphcast`` and ``gat-cora`` in fp32
-and of ``graphcast`` with int8 payloads; ``gat-cora`` with int8 payloads,
+``d_in`` 12, positions and targets over 16 classes from its draws,
+parameters from ``PRNGKey(0)``): the loss and every gradient leaf of
+``graphcast``, ``gat-cora``, ``egnn`` and ``nequip`` in fp32 and of
+``graphcast`` and ``egnn`` with int8 payloads (``nequip`` asked for int8
+equals its fp32 step bit for bit); ``gat-cora`` with int8 payloads,
 whose loss is NaN in the reference (ROADMAP Queue 3), NaN in the port at
 the same places.  The same step on ``ProcessGrid`` — 4 gloo CPU processes
 on 2x2, spawned once for the module through the harness's worker
@@ -14,7 +16,9 @@ on 2x2, spawned once for the module through the harness's worker
 smoke widths — equals ``SimGrid``'s bit for bit: losses of every step,
 forward outputs and ``pmean``ed gradients.  Single device:
 ``make_train_step`` (5 AdamW steps of the GraphCast smoke config on the
-refinement-2 multimesh) against JAX ``make_train_step``; data parallel:
+refinement-2 multimesh) against JAX ``make_train_step``, and 4 steps each
+of EGNN and NequIP at their published widths on ``data.graphs``'
+``molecule`` batch (float targets: the MSE branch); data parallel:
 ``make_dp_train_step`` over a 4x1 grid against JAX ``make_dp_train_step``
 on ``tests/test_dist.py``'s regression, int8 with error feedback and a
 plain ``pmean``, and its loss under 1e-2 after 150 steps, as there.
@@ -69,11 +73,20 @@ D_IN = 12
 CONFIGS = {
     "graphcast": dict(n_layers=2, d_hidden=16, d_in=D_IN, d_out=16, edge_state=False),
     "gat-cora": dict(n_layers=2, d_hidden=8, n_heads=2, d_in=D_IN, d_out=16),
+    "egnn": dict(n_layers=2, d_hidden=16, d_in=D_IN, d_out=16),
+    "nequip": dict(n_layers=2, d_hidden=4, n_rbf=4, d_in=D_IN, d_out=16),
 }
+CLASSES = {"graphcast": gnn.GraphCastConfig, "gat-cora": gnn.GATConfig,
+           "egnn": gnn.EGNNConfig, "nequip": gnn.NequIPConfig}
+#: the molecule shape (configs/common.py GNN_SHAPES): 128 molecules of 30
+#: atoms and 64 edges, 16 features
+MOLECULE = dict(n_mols=128, nodes_per=30, edges_per=64, d_feat=16)
+MOLECULE_STEPS = 4
 DP_STEPS = 6
 #: the process grid's cases (the harness's worker, refinement 4, smoke widths)
 PROC_CASES = [{"arch": "graphcast", "quantize": True}, {"arch": "graphcast", "quantize": False},
-              {"arch": "gat-cora", "quantize": False}]
+              {"arch": "gat-cora", "quantize": False}, {"arch": "egnn", "quantize": False},
+              {"arch": "nequip", "quantize": False}]
 PROC_SPEC = {"refine": 4, "seed": 0, "smoke": True, "layers": None, "steps": 2,
              "cases": PROC_CASES, "capture": True}
 
@@ -85,7 +98,11 @@ from repro.graphgen import builder, kronecker
 from repro.models import gnn, gnn_dist
 from repro.optim import adamw
 from repro.train import step as tstep
-configs, d_in, dp_steps, out = json.loads(sys.argv[1])
+configs, d_in, dp_steps, molecule, mol_steps, out = json.loads(sys.argv[1])
+from repro.configs import common as jconfigs
+from repro.data import graphs as dgraphs
+CLASSES = {"graphcast": gnn.GraphCastConfig, "gat-cora": gnn.GATConfig,
+           "egnn": gnn.EGNNConfig, "nequip": gnn.NequIPConfig}
 mesh = jax.make_mesh((2, 2), ("data", "model"))
 g = builder.build_csr(kronecker.kronecker_edges(9, seed=5), n=1 << 9)
 bg = csrmod.partition_2d(g, rows=2, cols=2, chunk_multiple=256)
@@ -97,7 +114,7 @@ pos = rng.normal(size=(part.n, 3)).astype(np.float32)
 targets = rng.integers(0, 16, part.n).astype(np.int32)
 res = {}
 for name, kw in configs.items():
-    cfg = gnn.GraphCastConfig(**kw) if name == "graphcast" else gnn.GATConfig(**kw)
+    cfg = CLASSES[name](**kw)
     params = gnn.init(cfg, jax.random.PRNGKey(0))
     for q in (False, True):
         stepf, _ = gnn_dist.build_2d_train_step(mesh, cfg, part, bg.e_cap,
@@ -108,6 +125,24 @@ for name, kw in configs.items():
         res[f"{name}/{int(q)}/loss"] = np.asarray(loss)
         for k, x in enumerate(jax.tree.leaves(grads)):
             res[f"{name}/{int(q)}/grad{k}"] = np.asarray(x)
+# make_train_step on the molecule batch at the published widths (MSE)
+mb = dgraphs.molecule_batch(**molecule, seed=0)
+mgraph = gnn.Graph(nf=jnp.asarray(mb.nf), src=jnp.asarray(mb.src), dst=jnp.asarray(mb.dst),
+                   pos=jnp.asarray(mb.pos))
+for name in ("egnn", "nequip"):
+    cfg = jconfigs.get(name).model_config()
+    params = jax.jit(lambda k: gnn.init(cfg, k))(jax.random.PRNGKey(3))
+    for k, x in enumerate(jax.tree.leaves(params)):
+        res[f"mol/{name}/param{k}"] = np.asarray(x)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=50)
+    stepf = jax.jit(tstep.make_train_step(lambda p, b: gnn.loss_fn(cfg, p, b), ocfg))
+    state = tstep.init_state(params)
+    for i in range(mol_steps):
+        state, m = stepf(state, {"graph": mgraph, "targets": jnp.asarray(mb.targets)})
+        res[f"mol/{name}/loss{i}"] = np.asarray(m["loss"])
+        res[f"mol/{name}/grad_norm{i}"] = np.asarray(m["grad_norm"])
+    for k, x in enumerate(jax.tree.leaves(state.params)):
+        res[f"mol/{name}/final{k}"] = np.asarray(x)
 # the data-parallel regression of tests/test_dist.py
 dmesh = jax.make_mesh((4,), ("data",))
 
@@ -141,7 +176,8 @@ def jax_train(tmp_path_factory):
     env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
            "PYTHONPATH": os.path.join(ROOT, "src"), "JAX_PLATFORMS": "cpu"}
     proc = subprocess.Popen([sys.executable, "-c", _JAX_RUN,
-                             json.dumps([CONFIGS, D_IN, DP_STEPS, str(out)])],
+                             json.dumps([CONFIGS, D_IN, DP_STEPS, MOLECULE, MOLECULE_STEPS,
+                                         str(out)])],
                             env=env, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     cache = {}
@@ -162,26 +198,24 @@ def jax_train(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def kron():
-    """tests/test_dist.py's set-up: the scale-9 graph on 2x2, features and
-    targets (the ``pos`` draw between them kept, unused)."""
+    """tests/test_dist.py's set-up: the scale-9 graph on 2x2, features,
+    positions and targets."""
     g = builder.build_csr(kronecker.kronecker_edges(9, seed=5), n=1 << 9)
     bg = csr.partition_2d(g, 2, 2, chunk_multiple=256)
     rng = np.random.default_rng(0)
     nf = rng.normal(size=(bg.part.n, D_IN)).astype(np.float32)
-    rng.normal(size=(bg.part.n, 3))
+    pos = rng.normal(size=(bg.part.n, 3)).astype(np.float32)
     targets = rng.integers(0, 16, bg.part.n).astype(np.int32)
-    return bg, nf, targets
+    return bg, nf, targets, pos
 
 
 def _cfgs(name):
     kw = CONFIGS[name]
-    if name == "graphcast":
-        return jgnn.GraphCastConfig(**kw), gnn.GraphCastConfig(**kw)
-    return jgnn.GATConfig(**kw), gnn.GATConfig(**kw)
+    return getattr(jgnn, CLASSES[name].__name__)(**kw), CLASSES[name](**kw)
 
 
 def _step_2d(kron, name, quantize, grid=None):
-    bg, nf, targets = kron
+    bg, nf, targets, pos = kron
     jcfg, cfg = _cfgs(name)
     params = gnn.params_from_numpy(jax.tree.map(np.asarray, jgnn.init(jcfg,
                                                                       jax.random.PRNGKey(0))),
@@ -192,12 +226,16 @@ def _step_2d(kron, name, quantize, grid=None):
     return step(grid, params, gnn_dist.shard_nodes(grid, nf, bg.part),
                 gnn_dist.shard_edges(grid, bg.src_local),
                 gnn_dist.shard_edges(grid, bg.dst_local),
-                gnn_dist.shard_targets(grid, targets, bg.part))
+                gnn_dist.shard_targets(grid, targets, bg.part),
+                pos=gnn_dist.shard_nodes(grid, pos, bg.part))
 
 
-@pytest.mark.parametrize("name,quantize", [("graphcast", False), ("graphcast", True),
-                                           ("gat-cora", False)],
-                         ids=["graphcast-fp32", "graphcast-int8", "gat-cora-fp32"])
+STEP_CASES = [("graphcast", False), ("graphcast", True), ("gat-cora", False), ("egnn", False),
+              ("egnn", True), ("nequip", False)]
+
+
+@pytest.mark.parametrize("name,quantize", STEP_CASES,
+                         ids=[f"{n}-{'int8' if q else 'fp32'}" for n, q in STEP_CASES])
 def test_2d_train_step_matches_jax(jax_train, kron, name, quantize):
     ref = jax_train()
     loss, grads = _step_2d(kron, name, quantize)
@@ -214,6 +252,26 @@ def test_2d_train_step_matches_jax(jax_train, kron, name, quantize):
         assert abs(float(loss) - float(ref[f"{name}/0/loss"])) > 1e-4
 
 
+def test_2d_train_step_nequip_int8_is_its_fp32_step(jax_train, kron):
+    """NequIP's payload is never quantized: asked for int8, the step's loss
+    and gradients equal its fp32 step bit for bit, in the port as in the
+    reference; the leaves the loss does not read (the last layer's gate
+    and its l>0 mixes, the l=2 mix before it) have zero gradients in both."""
+    ref = jax_train()
+    loss8, grads8 = _step_2d(kron, "nequip", True)
+    loss, grads = _step_2d(kron, "nequip", False)
+    assert float(ref["nequip/1/loss"]) == float(ref["nequip/0/loss"])
+    assert torch.equal(loss8, loss)
+    zero = []
+    for k, (a, b) in enumerate(zip(tree.leaves(grads8), tree.leaves(grads))):
+        np.testing.assert_array_equal(ref[f"nequip/1/grad{k}"], ref[f"nequip/0/grad{k}"])
+        assert torch.equal(a, b)
+        if not np.abs(ref[f"nequip/0/grad{k}"]).any():
+            zero.append(k)
+            assert not a.any()
+    assert zero, "no leaf the loss does not read"
+
+
 def test_2d_train_step_gat_int8_is_nan_where_jax_is(jax_train, kron):
     """The reference's int8 GAT forward is non-finite (its max pass
     quantizes the -1e30 identity of empty rows with real maxima), so its
@@ -226,12 +284,12 @@ def test_2d_train_step_gat_int8_is_nan_where_jax_is(jax_train, kron):
         np.testing.assert_array_equal(got.isnan().numpy(), np.isnan(ref[f"gat-cora/1/grad{k}"]))
 
 
-@pytest.mark.parametrize("name", ["graphcast", "gat-cora"])
+@pytest.mark.parametrize("name", ["graphcast", "gat-cora", "egnn", "nequip"])
 def test_2d_train_step_matches_single_device(kron, name):
     """The 2D gradients are the gradients of the single-device loss over the
     padded graph (the padded vertices' NLL counts in both), in the port
     alone: no factor from the loss's ``pmean`` or its transpose."""
-    bg, nf, targets = kron
+    bg, nf, targets, pos = kron
     part = bg.part
     loss, grads = _step_2d(kron, name, False)
     r, c = part.rows, part.cols
@@ -244,7 +302,7 @@ def test_2d_train_step_matches_single_device(kron, name):
                                                                       jax.random.PRNGKey(0))),
                                    "cpu")
     batch = {"graph": gnn.Graph(nf=torch.from_numpy(nf), src=torch.from_numpy(src),
-                                dst=torch.from_numpy(dst)),
+                                dst=torch.from_numpy(dst), pos=torch.from_numpy(pos)),
              "targets": torch.from_numpy(targets)}
     one, want = tstep.value_and_grad(lambda p, b: gnn.loss_fn(cfg, p, b), params, batch)
     np.testing.assert_allclose(float(loss), float(one), rtol=FP32_TOL)
@@ -254,11 +312,24 @@ def test_2d_train_step_matches_single_device(kron, name):
 
 
 def test_build_2d_train_step_refuses_unported_archs(kron):
-    class EGNNConfig:
-        name = "egnn"
+    """An unknown config raises ``TypeError`` when the step is built; EGNN
+    and NequIP's steps raise ``TypeError`` naming the arch without
+    positions."""
+    class UnknownConfig:
+        name = "schnet"
 
-    with pytest.raises(TypeError):
-        gnn_dist.build_2d_train_step(EGNNConfig(), kron[0].part)
+    with pytest.raises(TypeError, match="schnet"):
+        gnn_dist.build_2d_train_step(UnknownConfig(), kron[0].part)
+    bg, nf, targets, _ = kron
+    grid = SimGrid(2, 2, "cpu")
+    for name in ("egnn", "nequip"):
+        _, cfg = _cfgs(name)
+        step = gnn_dist.build_2d_train_step(cfg, bg.part)
+        with pytest.raises(TypeError, match=name):
+            step(grid, gnn.init(cfg, torch.Generator().manual_seed(0), "cpu"),
+                 gnn_dist.shard_nodes(grid, nf, bg.part), gnn_dist.shard_edges(grid, bg.src_local),
+                 gnn_dist.shard_edges(grid, bg.dst_local),
+                 gnn_dist.shard_targets(grid, targets, bg.part))
 
 
 # ---------------------------------------------------------------------------
@@ -410,7 +481,7 @@ def test_cotangent_bytes_count_every_exchange():
             self._count(xs)
             return super().psum(xs, *a, **kw)
 
-    for arch in ("graphcast", "gat-cora"):
+    for arch in ("graphcast", "gat-cora", "egnn", "nequip"):
         st = gnn_bench.setup(arch, 3, (2, 2), 0, True, "cpu")
         grid = Counting(2, 2, "cpu")
         part = st.bg.part
@@ -419,7 +490,8 @@ def test_cotangent_bytes_count_every_exchange():
         gnn_dist.value_and_grad_2d(grid, st.cfg, st.params, gnn_dist.shard_nodes(grid, st.nf, part),
                                    gnn_dist.shard_edges(grid, st.bg.src_local),
                                    gnn_dist.shard_edges(grid, st.bg.dst_local), targets, part,
-                                   gnn_dist.Dist2DConfig(quantize_payload=True))
+                                   gnn_dist.Dist2DConfig(quantize_payload=True),
+                                   pos=st.pos)
         fwd = gnn_bench.payload_bytes(st.cfg, st.params, part)
         bwd = gnn_train.cotangent_bytes(st.cfg, st.params, part)
         assert len(grid.sent) == fwd["calls"] + 1 + bwd["calls"]
@@ -474,6 +546,47 @@ def test_make_train_step_matches_jax():
     assert losses[-1] < losses[0]
     for a, b in zip(tree.leaves(state.params), jax.tree.leaves(jstate.params)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["egnn", "nequip"])
+def test_make_train_step_on_molecule_batch_matches_jax(jax_train, name):
+    """4 AdamW steps (lr 1e-3, no warmup) of ``name`` at its published
+    widths on the ``molecule`` batch (``data.graphs.molecule_batch``, float
+    targets: ``loss_fn``'s MSE branch) from the reference's parameters:
+    losses and gradient norms at ``rtol = 1e-5``, the parameters after the
+    steps within ``1e-5`` of their peak; the loss falls, every gradient is
+    finite."""
+    from repro_torch.configs import common as configs
+    from repro_torch.data import graphs
+
+    ref = jax_train()
+    cfg = configs.get(name).model_config()
+    mb = graphs.molecule_batch(**MOLECULE, seed=0)
+    assert mb.targets.dtype == np.float32 and mb.targets.shape == (mb.nf.shape[0], 1)
+    batch = {"graph": gnn.Graph(nf=torch.from_numpy(mb.nf), src=torch.from_numpy(mb.src),
+                                dst=torch.from_numpy(mb.dst), pos=torch.from_numpy(mb.pos)),
+             "targets": torch.from_numpy(mb.targets)}
+    params = gnn.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    _, unflatten = tree.flatten(params)  # jax.tree's leaf order
+    n_leaves = len(tree.leaves(params))
+    params = unflatten([torch.from_numpy(ref[f"mol/{name}/param{k}"]) for k in range(n_leaves)])
+    fn = tstep.make_train_step(lambda p, b: gnn.loss_fn(cfg, p, b),
+                               adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=50))
+    state = tstep.init_state(params)
+    losses = []
+    for i in range(MOLECULE_STEPS):
+        state, m = fn(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(ref[f"mol/{name}/loss{i}"]),
+                                   rtol=FP32_TOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(ref[f"mol/{name}/grad_norm{i}"]),
+                                   rtol=FP32_TOL)
+        assert np.isfinite(float(m["grad_norm"]))
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0]
+    for k, a in enumerate(tree.leaves(state.params)):
+        want = ref[f"mol/{name}/final{k}"]
+        np.testing.assert_allclose(a.numpy(), want, rtol=0,
+                                   atol=FP32_TOL * max(1.0, np.abs(want).max()))
 
 
 def _dp_run(compress: bool, steps: int):
