@@ -5,8 +5,9 @@ Drives the port's paths on one NVIDIA card: the single-device Graph500
 BFS, the paper's frontier and codec study, the 2D-distributed BFS on a
 simulated grid under the direct and the butterfly wire plans, the
 frontier algebras on both, the 2D GNN forward with int8 payloads, the
-GNN training step on the simulated grid and on one process per rank, and
-the equivariant GNNs (EGNN, NequIP) forward and trained:
+GNN training step on the simulated grid and on one process per rank, the
+equivariant GNNs (EGNN, NequIP) forward and trained, and the LM archs
+served through the slot-batched decode engine:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -161,7 +162,30 @@ the equivariant GNNs (EGNN, NequIP) forward and trained:
    (``data.graphs.molecule_batch(128, 30, 64, 16)``, float targets: MSE)
    for both archs: the loss falls, the gradient norms are finite.  Seconds
    per forward and per step, bytes, peak memory and the gaps beside the
-   card.
+   card;
+14. LM serving through the slot-batched decode engine
+   (``repro_torch.bench.serve``; no kernel of the ten runs on this path, as
+   in the reference), one model at a time, random fp32 weights from a CUDA
+   generator and bf16 compute as the configs set them: (1) gemma-2b at its
+   published widths and full depth (18 layers, 3.03B parameters) serves 12
+   requests of 16-256 prompt tokens and 32 new tokens over 8 slots of a
+   32,768-token cache (the ``decode_32k`` shape's length, its batch of 128
+   cut to 8 slots), counts zeroed before and read after: every request
+   finishes with 32 tokens below the vocab and the engine drains; (2) in
+   fp32 with TF32 off, a 64-token prompt alone in the 8-slot engine: its
+   first token is the argmax of ``forward``'s last position, the last prompt
+   tick's logits within ``SERVE_FP32_REL`` of the peak of ``forward``'s,
+   and its tokens the same beside 7 other requests; (3) minicpm-2b (40
+   layers), deepseek-coder-33b (8 of 62), dbrx-132b (2 of 40) and
+   deepseek-v2-236b (2 of 60) at their published widths serve 8 requests of
+   16-64 prompt tokens and 16 new tokens over 8 slots of a 2,048-token
+   cache, every request finishing; then each one's decode on one slot equals
+   its teacher-forced ``forward`` in fp32 (the MoE archs with a capacity
+   factor of their expert count, drop-free) within ``SERVE_FP32_REL`` of
+   the peak at every position (the logits of the vocab: padded ones hold
+   -1e9).  Ticks,
+   generated tokens per second, the median ms per tick, the weights' bytes
+   and the peak memory beside the card.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -331,6 +355,24 @@ EQUIV_PROC_SPEC = {"refine": 6, "seed": 0, "smoke": False, "layers": None, "step
 #: the molecule shape (configs/common.py GNN_SHAPES): 128 molecules of 30
 #: atoms and 64 edges, 16 features; float targets (the MSE branch)
 MOLECULE = (128, 30, 64, 16)
+#: LM serving (step 14): gemma-2b at full depth first, then the other four
+#: archs at their serving cells' depths (bench.serve.CELLS)
+SERVE_ARCHS = ("gemma-2b", "minicpm-2b", "deepseek-coder-33b", "dbrx-132b", "deepseek-v2-236b")
+#: decode against the teacher-forced forward in fp32 with TF32 off: the
+#: same products in other shapes and orders (M = 8 or 1 rows against the
+#: prompt's), over the logits' peak (~1e-6 at the smoke widths on the CPU)
+SERVE_FP32_REL = 1e-4
+#: gemma-2b's check (2): the prompt, the new tokens, the cache length
+SERVE_CHECK_PROMPT = 64
+SERVE_CHECK_NEW = 4
+SERVE_CHECK_SEQ = 128
+#: the cut archs' teacher-forced prompt.  The MoE archs take a capacity
+#: factor of n_experts there, which makes every expert's capacity the whole
+#: routing group, so no choice is dropped (one slot decodes with cap 1, its
+#: group): the reference's drop-free factor of 8 leaves deepseek-v2-236b's
+#: 32-token group a capacity of 9 per expert, which its random router
+#: overflows (the forward then drops choices that decode keeps)
+SERVE_TF_PROMPT = 32
 
 
 def card_line() -> str:
@@ -2484,6 +2526,137 @@ def equivariant_step(card) -> tuple[dict, list]:
     return launches, rows
 
 
+@contextlib.contextmanager
+def no_tf32():
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rel(got, want, vocab: int) -> float:
+    """Max abs gap over the peak of ``want``, on the logits of the vocab
+    (the padded ones hold -1e9)."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def serve_step(card) -> dict:
+    """The LM archs served through the engine: the three checks of the
+    module docstring's step 14.  Returns the serve path's launch counts."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.bench import serve as serve_bench
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import engine as eng
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    for arch in SERVE_ARCHS:
+        t1 = time.perf_counter()
+        cell = serve_bench.CELLS[arch]
+        cfg, params = serve_bench.model(arch, cell["layers"], device="cuda")
+        n = sum(x.numel() for x in params["layers"].values()) + sum(
+            params[k].numel() for k in ("embed", "final_norm", "lm_head"))
+        if cfg.padded_vocab == cfg.vocab and n != cfg.n_params():
+            raise AssertionError(f"{arch}: {n} parameters, the config counts {cfg.n_params()}")
+        prompts = serve_bench.prompts(cfg.vocab, cell["requests"], *cell["prompt_len"])
+        kernels.reset_launches()
+        res = serve_bench.serve(cfg, params, prompts, serve_bench.SLOTS, cell["max_seq"],
+                                cell["max_new"], device="cuda")
+        for name, c in kernels.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + c
+        e = res["engine"]
+        outs = [r.out for r in res["requests"]]
+        if not (all(r.done for r in res["requests"]) and not e.pending
+                and all(r is None for r in e.slot_req)
+                and all(len(o) == cell["max_new"] and max(o) < cfg.vocab for o in outs)):
+            raise AssertionError(f"{arch}: requests unfinished or tokens out of range: {outs}")
+        weights, copy = serve_bench.weight_bytes(params, e.params)
+        print(f"{arch}: {cfg.n_layers} layers d_model {cfg.d_model}, bf16 compute, "
+              f"{res['ticks']} ticks, {res['prompt_tokens']} prompt and "
+              f"{res['generated_tokens']} generated tokens, {res['tokens_per_s']:.2f} generated "
+              f"tokens/s, median {res['median_tick_ms']:.3f} ms per tick, wall "
+              f"{res['wall_s']:.3f} s; weights {weights:,} B fp32 + {copy:,} B bf16 copy; peak "
+              f"memory {res['peak_bytes'] / 2**30:.2f} GiB; on {card}; {len(outs)} requests "
+              f"over {serve_bench.SLOTS} slots of a {cell['max_seq']:,}-token cache "
+              f"({e.cache.numel() * e.cache.element_size():,} B), every one finished with "
+              f"{cell['max_new']} tokens below the vocab")
+        del res, e
+        torch.cuda.empty_cache()
+
+        with no_tf32():
+            if arch == "gemma-2b":
+                cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+                prompt = serve_bench.prompts(cfg.vocab, 1, SERVE_CHECK_PROMPT,
+                                             SERVE_CHECK_PROMPT, seed=1)[0]
+                ref = tfm.forward(cfg32, params, torch.from_numpy(prompt).cuda()[None])[0][0, -1]
+                e = eng.Engine(cfg32, params, serve_bench.SLOTS, SERVE_CHECK_SEQ, device="cuda")
+                solo = eng.Request(rid=0, prompt=prompt, max_new=SERVE_CHECK_NEW)
+                e.submit(solo)
+                while not solo.out:
+                    e.tick()
+                gap = _rel(e.logits[0], ref, cfg.vocab)
+                e.run_until_drained()
+                del e
+                others = serve_bench.prompts(cfg.vocab, serve_bench.SLOTS - 1, 16,
+                                             SERVE_CHECK_PROMPT, seed=2)
+                e = eng.Engine(cfg32, params, serve_bench.SLOTS, SERVE_CHECK_SEQ, device="cuda")
+                reqs = [eng.Request(rid=i, prompt=p, max_new=SERVE_CHECK_NEW)
+                        for i, p in enumerate(others + [prompt])]
+                for r in reqs:
+                    e.submit(r)
+                e.run_until_drained()
+                del e
+                first = int(torch.argmax(ref))
+                if not (solo.out[0] == first and gap <= SERVE_FP32_REL
+                        and reqs[-1].out == solo.out):
+                    raise AssertionError(f"gemma-2b fp32: first token {solo.out[0]} vs the "
+                                         f"forward's argmax {first}, logits gap {gap}, alone "
+                                         f"{solo.out} vs beside 7 others {reqs[-1].out}")
+                print(f"gemma-2b check 2 (fp32, TF32 off): a {SERVE_CHECK_PROMPT}-token prompt "
+                      f"alone in the {serve_bench.SLOTS}-slot engine: first token {first} = the "
+                      f"forward's argmax, the last prompt tick's logits {gap:.3e} of the "
+                      f"forward's peak (bound {SERVE_FP32_REL}); tokens {solo.out}, the same "
+                      f"beside {serve_bench.SLOTS - 1} other requests")
+            else:
+                cfg32 = dataclasses.replace(
+                    cfg, compute_dtype=torch.float32,
+                    capacity_factor=float(cfg.n_experts) if cfg.is_moe else cfg.capacity_factor)
+                seq = torch.from_numpy(serve_bench.prompts(cfg.vocab, 1, SERVE_TF_PROMPT,
+                                                           SERVE_TF_PROMPT, seed=1)[0]).cuda()
+                ref = tfm.forward(cfg32, params, seq[None])[0][0]
+                cache = tfm.init_cache(cfg32, 1, SERVE_TF_PROMPT, device="cuda")
+                got = []
+                for i in range(SERVE_TF_PROMPT):
+                    logits, cache = tfm.decode_step(cfg32, params, cache, seq[i:i + 1],
+                                                    torch.full((1,), i, device="cuda"))
+                    got.append(logits[0])
+                gap = _rel(torch.stack(got), ref, cfg.vocab)
+                if not gap <= SERVE_FP32_REL:
+                    raise AssertionError(f"{arch}: fp32 decode vs teacher forcing {gap}")
+                drop_free = f", capacity factor {cfg.n_experts} (drop-free)" if cfg.is_moe else ""
+                print(f"{arch} fp32 (TF32 off{drop_free}): "
+                      f"decode on one slot over a {SERVE_TF_PROMPT}-token prompt against the "
+                      f"teacher-forced forward, every position within {gap:.3e} of the "
+                      f"logits' peak (bound {SERVE_FP32_REL})")
+                del cache, got
+        del params, ref
+        torch.cuda.empty_cache()
+        print(f"{arch}: {time.perf_counter() - t1:.1f}s")
+    print(f"serve launches (all five archs): {launches or 'none'} (no kernel of the ten is "
+          f"on this path, as in the reference)")
+    print(f"serve step: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -2568,6 +2741,7 @@ def main() -> int:
     equiv_launches, egnn_rows = equivariant_step(card)
     launches.update(equiv_launches)
     rows["quantize"]["egnn_shapes"] = [brief(r) for r in egnn_rows]
+    launches["serve"] = serve_step(card)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

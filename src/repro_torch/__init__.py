@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of :mod:`repro`: the Graph500 BFS on one device and
 on a 2D grid (simulated, or one process per rank), the frontier algebras
-(SSSP, CC, PageRank), the 2D-partitioned GNN (GraphCast, GAT) with int8
-payloads, its training step, AdamW and the int8 error-feedback gradient
-all-reduce.
+(SSSP, CC, PageRank), the 2D-partitioned GNN (GraphCast, GAT, EGNN,
+NequIP) with int8 payloads, its training step, AdamW and the int8
+error-feedback gradient all-reduce, and LM serving (the decoder-only
+transformer, the slot-batched decode engine, the token pipeline).
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:

@@ -22,12 +22,22 @@ with the quantize kernel's and the matrix products' device time apart;
 with ``--gnn-train`` it is one loss-and-gradient call of the 2D train step
 at :mod:`repro_torch.bench.gnn_train`'s depth and payload for the arch
 (GraphCast 4 layers, int8; EGNN and NequIP at their depth, fp32), with the
-gathers' and the segment sums' kernels apart as well.
+gathers' and the segment sums' kernels apart as well.  With ``--serve`` it
+is a window of 32 decode ticks of the serving engine on ``--arch``'s
+serving cell (:data:`repro_torch.bench.serve.CELLS`: gemma-2b at full
+depth, 8 slots of a 32,768-token cache; ``--layers`` cuts the depth),
+after 8 ticks, with the matrix products' (cuBLAS GEMM and GEMV
+kernels), the copies' (dtype casts and layout copies), the softmax's and
+the host reads' device time apart, and the host time a tick spends
+enqueueing its decode step.  The profiler adds host time to every
+launch, so a traced tick's wall time and idle share exceed an untraced
+one's (``bench.serve``'s median).
 
     python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
     python -m repro_torch.bench.trace --scale 22 --algebra sssp cc pagerank [--grid 2x2]
     python -m repro_torch.bench.trace --gnn [--refine 6] [--arch egnn]
     python -m repro_torch.bench.trace --gnn-train [--refine 6] [--arch nequip]
+    python -m repro_torch.bench.trace --serve [--arch gemma-2b] [--layers N]
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch
 from repro_torch.bench import algebras, distributed, graph500, teps
 from repro_torch.bench import gnn as gnn_bench
 from repro_torch.bench import gnn_train
+from repro_torch.bench import serve as serve_bench
 from repro_torch.comm import SimGrid
 from repro_torch.core import bfs as bfsmod
 from repro_torch.core import distributed_bfs as dbfs
@@ -99,13 +110,22 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--gnn-train", action="store_true",
                     help="trace one 2D GNN train step's forward and backward "
                          "instead (bench.gnn_train)")
-    ap.add_argument("--arch", default="graphcast", choices=gnn_train.ARCHS,
-                    help="--gnn, --gnn-train: the GNN arch")
+    ap.add_argument("--serve", action="store_true",
+                    help="trace a window of the serving engine's decode ticks instead "
+                         "(bench.serve)")
+    ap.add_argument("--arch", default=None, choices=gnn_train.ARCHS + serve_bench.ARCHS,
+                    help="--gnn, --gnn-train: the GNN arch (graphcast); --serve: the LM arch "
+                         "(gemma-2b)")
     ap.add_argument("--refine", type=int, default=6,
                     help="--gnn, --gnn-train: multimesh refinement")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--serve: cut the depth to N layers (default: the cell's)")
     args = ap.parse_args(argv)
 
+    if args.serve:
+        return [_trace_serve(args)]
     if args.gnn or args.gnn_train:
+        args.arch = args.arch or "graphcast"
         return [_trace_gnn(args)]
     if args.grid:
         g, _, _ = graph500.generate(args.scale)
@@ -159,6 +179,55 @@ def _trace_gnn(args) -> dict:
                    {"gnn": st.cfg.name, "refine": args.refine, "grid": f"{rows}x{cols}",
                     "train": args.gnn_train, "layers": getattr(st.cfg, "n_layers", None)},
                    phases=False, trace_out=args.out, classes=classes)
+
+
+#: the serve trace's window: ticks run before it, and ticks traced (every
+#: slot stays busy: the cells' prompts outlast both)
+SERVE_WARMUP, SERVE_TICKS = 8, 32
+
+
+def _trace_serve(args) -> dict:
+    """Serve ``--arch``'s cell, run ``SERVE_WARMUP`` ticks, trace the next
+    ``SERVE_TICKS``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import engine as eng
+
+    arch = args.arch or "gemma-2b"
+    cell = serve_bench.CELLS[arch]
+    cfg, params = serve_bench.model(arch, args.layers or cell["layers"], device="cuda")
+    e = eng.Engine(cfg, params, serve_bench.SLOTS, cell["max_seq"], device="cuda")
+    for i, p in enumerate(serve_bench.prompts(cfg.vocab, cell["requests"], *cell["prompt_len"])):
+        e.submit(eng.Request(rid=i, prompt=p, max_new=cell["max_new"]))
+    for _ in range(SERVE_WARMUP):
+        e.tick()
+    saved = tfm.decode_step
+    tfm.decode_step = _ranged("range/decode_step", saved)
+    try:
+        prof, wall_us, active = _profiled(lambda: [e.tick() for _ in range(SERVE_TICKS)])
+    finally:
+        tfm.decode_step = saved
+    enqueue_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
+                     if ev.key == "range/decode_step"
+                     and ev.device_type != torch.autograd.DeviceType.CUDA) / 1e3
+    title = (f"{cfg.name} {cfg.n_layers} layers, {SERVE_TICKS} decode ticks after {SERVE_WARMUP} "
+             f"(active slots {min(active)}-{max(active)} of {serve_bench.SLOTS}), max_seq "
+             f"{cell['max_seq']}, bf16 compute")
+    matmul = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitkreduce")
+    classes = {"matmul": lambda k: any(m in k for m in matmul),
+               "copy": lambda k: "copy" in k and "memcpy" not in k,
+               "softmax": lambda k: "softmax" in k,
+               "memcpy": lambda k: "memcpy" in k}
+    out = _report(prof, wall_us, title,
+                  {"serve": cfg.name, "layers": cfg.n_layers, "ticks": SERVE_TICKS,
+                   "max_seq": cell["max_seq"]},
+                  phases=False, trace_out=args.out, classes=classes)
+    per_tick = {"wall_ms": out["wall_ms"] / SERVE_TICKS,
+                "device_busy_ms": out["device_busy_ms"] / SERVE_TICKS,
+                "enqueue_ms": enqueue_ms / SERVE_TICKS,
+                "host_read_device_ms": out["classes_ms"]["memcpy"] / SERVE_TICKS}
+    print("## per tick: " + ", ".join(f"{k} {v:.3f}" for k, v in per_tick.items()))
+    out["per_tick"] = per_tick
+    return out
 
 
 def _trace(args, alg: str, where, roots) -> dict:

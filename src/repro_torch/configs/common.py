@@ -111,4 +111,14 @@ def list_archs() -> list[str]:
 
 def _load_all() -> None:
     # import for registration side effects: only the ported archs
-    from repro_torch.configs import egnn, gat_cora, graphcast, nequip  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        dbrx_132b,
+        deepseek_coder_33b,
+        deepseek_v2_236b,
+        egnn,
+        gat_cora,
+        gemma_2b,
+        graphcast,
+        minicpm_2b,
+        nequip,
+    )

@@ -1,5 +1,6 @@
 """Tests that need the card: each CUDA kernel against its plain PyTorch
-version, and the BFS on the card against the BFS on the CPU.  They import
+version, the BFS on the card against the BFS on the CPU, and the LM
+serving path (no kernel of its own) on the card against the CPU.  They import
 no JAX, so they run where the card is:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -667,3 +668,73 @@ def test_train_step_on_card_matches_cpu(cuda, arch, quantize):
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol * peak)
     assert (card["launches"].get("quantize", 0) > 0) == quantize
     assert not cpu["launches"]
+
+
+LM_ARCHS = ["gemma-2b", "minicpm-2b", "deepseek-coder-33b", "deepseek-v2-236b", "dbrx-132b"]
+#: fp32 (TF32 off) decode on the card against the CPU: the same products
+#: in other orders, over the logits' peak
+LM_FP32_REL = 1e-4
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serving_on_card_matches_cpu(cuda, no_tf32, arch):
+    """Smoke widths, fp32 compute: 12 decode steps from ``init_cache``
+    (logits and cache) and the forward on the card within ``LM_FP32_REL``
+    of the CPU's; the engine's greedy tokens (7 requests over 3 slots) equal
+    the CPU's for the dense archs."""
+    from repro_torch import tree
+    from repro_torch.bench import serve as serve_bench
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import engine as eng
+
+    cfg, params = serve_bench.model(arch, smoke=True, dtype="fp32", device="cpu")
+    on_card = tree.tree_map(lambda x: x.to(cuda), params)
+    seq = np.random.default_rng(5).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    runs = []
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        cache = tfm.init_cache(cfg, 2, 16, device=dev)
+        steps = []
+        for i in range(12):
+            lg, cache = tfm.decode_step(cfg, p, cache, torch.from_numpy(seq[:, i]).to(dev),
+                                        torch.full((2,), i, device=dev))
+            steps.append(lg.cpu())
+        runs.append((torch.stack(steps), tfm.forward(cfg, p, torch.from_numpy(seq).to(dev))[0]
+                     .cpu(), cache.cpu()))
+    for want, got in zip(*runs):
+        assert float((got - want).abs().max()) <= LM_FP32_REL * float(want.abs().max())
+    if not cfg.is_moe:
+        outs = []
+        for dev, p in (("cpu", params), (cuda, on_card)):
+            e = eng.Engine(cfg, p, batch_slots=3, max_seq=48, device=dev)
+            reqs = [eng.Request(rid=i, prompt=pr, max_new=4)
+                    for i, pr in enumerate(serve_bench.prompts(cfg.vocab, 7, 2, 8))]
+            for r in reqs:
+                e.submit(r)
+            e.run_until_drained()
+            outs.append([r.out for r in reqs])
+        assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+def test_router_top_k_ties_on_card(cuda):
+    """The router's top-k keeps the lower expert first among equal gates on
+    the card as on the CPU (all-equal gates, and gates rounded to bf16)."""
+    from repro_torch.models import transformer as tfm
+
+    gen = torch.Generator().manual_seed(0)
+    for gates in (torch.full((5, 160), 1 / 160), torch.full((3, 16), 0.25),
+                  (torch.rand((64, 160), generator=gen) * 0.02).bfloat16().float()):
+        for k in (2, 4, 6):
+            v_cpu, i_cpu = tfm.top_k(gates, k)
+            v_card, i_card = tfm.top_k(gates.to(cuda), k)
+            assert torch.equal(i_card.cpu(), i_cpu) and torch.equal(v_card.cpu(), v_cpu)
+    assert tfm.top_k(torch.zeros(1, 8, device=cuda), 3)[1].tolist() == [[0, 1, 2]]

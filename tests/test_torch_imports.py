@@ -20,9 +20,11 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
-# the training slice's packages are among them
+# the training and serving slices' modules are among them
 assert {"repro_torch.optim.adamw", "repro_torch.optim.grad_compress", "repro_torch.train.step",
-        "repro_torch.tree", "repro_torch.bench.gnn_train"} <= set(names), names
+        "repro_torch.tree", "repro_torch.bench.gnn_train", "repro_torch.models.transformer",
+        "repro_torch.serve.engine", "repro_torch.data.tokens",
+        "repro_torch.bench.serve"} <= set(names), names
 """
 
 
