@@ -6,8 +6,9 @@ BFS, the paper's frontier and codec study, the 2D-distributed BFS on a
 simulated grid under the direct and the butterfly wire plans, the
 frontier algebras on both, the 2D GNN forward with int8 payloads, the
 GNN training step on the simulated grid and on one process per rank, the
-equivariant GNNs (EGNN, NequIP) forward and trained, and the LM archs
-served through the slot-batched decode engine:
+equivariant GNNs (EGNN, NequIP) forward and trained, the LM archs
+served through the slot-batched decode engine, and the AutoInt recommender
+served, trained and driven through the training launcher:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -185,7 +186,32 @@ served through the slot-batched decode engine:
    the peak at every position (the logits of the vocab: padded ones hold
    -1e9).  Ticks,
    generated tokens per second, the median ms per tick, the weights' bytes
-   and the peak memory beside the card.
+   and the peak memory beside the card;
+15. AutoInt (``repro_torch.bench.recsys``; no kernel of the ten runs on
+   this path, as in the reference) at its published widths (39 fields,
+   d 16, 3 interaction layers of 2 heads at 32, MLP 256-128), random
+   weights from a CUDA generator, fp32 with TF32 off, counts zeroed before
+   the step and read after: (1) the full 173,588,480-row fp32 table on the
+   card: ``forward`` at ``serve_p99`` (512) and ``serve_bulk`` (262,144)
+   finite, ``embedding_bag`` of the 512-row batch equal to
+   ``table[ids + offsets]``, the dense part (interaction and MLP) within
+   ``RECSYS_FP32_REL`` of the same function on the CPU on a copy of the
+   gathered rows; (2) the int8 table (``table_quant``) at the full row
+   count: the forward at 512 within ``RECSYS_FP32_REL`` of the fp32 forward
+   on the dequantized gathered rows; (3) ``retrieval_scores`` over
+   1,000,000 candidates of the last field within ``RECSYS_FP32_REL`` of
+   ``user_vector . table[rows]`` in float64, 16 of them scored alone the
+   same; (4) ``train_batch`` (65,536) over the table with each size cut by
+   4: the table's gradient zero on every row the batch did not touch and
+   nonzero on the touched ones, every leaf the loss reads nonzero, then 4
+   ``make_train_step`` steps with finite losses and gradient norms; (5)
+   ``launch.train.main`` in process under deterministic kernels: an
+   uninterrupted 20-step autoint run's last checkpoint (step 19) removed,
+   as if killed before writing it, the same command resumes at step 10 and
+   ends on that run's state bit for bit; minicpm-2b and graphcast 10 steps
+   each with finite losses and the summary line.  The ms per batch (median
+   of 3 after a warm-up), samples per second, lookup bytes and peak memory
+   of each cell (the serve cells also with the int8 table) beside the card.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -373,6 +399,16 @@ SERVE_CHECK_SEQ = 128
 #: 32-token group a capacity of 9 per expert, which its random router
 #: overflows (the forward then drops choices that decode keeps)
 SERVE_TF_PROMPT = 32
+
+
+#: AutoInt (step 15): the published config's fused table, fp32 on the card
+#: against the CPU (TF32 off: the same float32 products in other orders,
+#: over the output's peak; the repo's fp32 bar), timed calls per cell after
+#: a warm-up, and train steps
+RECSYS_ROWS = 173_588_480
+RECSYS_FP32_REL = 1e-5
+RECSYS_REPS = 3
+RECSYS_STEPS = 4
 
 
 def card_line() -> str:
@@ -2657,6 +2693,191 @@ def serve_step(card) -> dict:
     return launches
 
 
+def _gap(got, want) -> float:
+    """Max abs gap over the peak of ``want`` (float64 on the CPU)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _capture(fn, *args):
+    """``fn(*args)`` with its standard output kept, then echoed -> (result,
+    the text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    text = buf.getvalue()
+    print(text, end="")
+    return res, text
+
+
+def recsys_step(card) -> dict:
+    """AutoInt at its published widths: the six checks of the module
+    docstring's step 15.  Returns the recsys path's launch counts."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.bench import recsys as rb
+    from repro_torch.bench.gnn_train import deterministic
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import recsys
+    from repro_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    runs = []
+    with no_tf32():
+        # (1) the full fp32 table
+        cfg = rb.config("serve_p99")
+        params = rb.model(cfg, 0, "cuda")
+        n = sum(x.numel() for x in tree.leaves(params))
+        if n != cfg.n_params() or params["table"].shape != (RECSYS_ROWS, cfg.embed_dim):
+            raise AssertionError(f"autoint: {n} parameters, table {params['table'].shape}; "
+                                 f"the config counts {cfg.n_params()}")
+        ids = rb.batch(cfg, rb.CELLS["serve_p99"]["batch"], 0, "cuda")["ids"]
+        offs = recsys.field_offsets(cfg, "cuda")
+        with torch.inference_mode():
+            logits = recsys.forward(cfg, params, ids)
+            emb = recsys.embedding_bag(params["table"], ids, offs)
+            exact = torch.equal(emb, params["table"][(ids + offs[None]).long()])
+            on_card = recsys.head(cfg, params, emb)
+        dense = {k: tree.tree_map(lambda x: x.cpu(), v) for k, v in params.items() if k != "table"}
+        gap = _gap(on_card, recsys.head(cfg, dense, emb.cpu()))
+        if not (logits.shape == ids.shape[:1] and bool(torch.isfinite(logits).all()) and exact
+                and gap <= RECSYS_FP32_REL):
+            raise AssertionError(f"autoint fp32: logits {logits.shape} finite "
+                                 f"{bool(torch.isfinite(logits).all())}, embedding_bag exact "
+                                 f"{exact}, dense part card vs CPU {gap}")
+        print(f"autoint check 1 (fp32, TF32 off): {cfg.total_rows:,}-row table "
+              f"({params['table'].numel() * 4:,} B) and {n:,} parameters on the card; "
+              f"embedding_bag of the {ids.shape[0]}-row batch equals table[ids + offsets] "
+              f"exactly; the dense part on the card within {gap:.3e} of the CPU's on the same "
+              f"gathered rows (bound {RECSYS_FP32_REL})")
+        for cell in ("serve_p99", "serve_bulk"):
+            runs.append(rb.run_cell(cfg, params, cell, rb.CELLS[cell]["batch"], 0, RECSYS_REPS,
+                                    "cuda"))
+        # (3) retrieval over 1,000,000 candidates of the last field
+        q = rb.batch(cfg, 1, 0, "cuda")["ids"]
+        n_cand = rb.CELLS["retrieval_cand"]["n_candidates"]
+        cand = rb.candidates(cfg, n_cand, 0, "cuda")
+        with torch.inference_mode():
+            scores = recsys.retrieval_scores(cfg, params, q, cand)
+            uv = recsys.user_vector(cfg, params, q)[0]
+            # the last field's base row, reckoned apart from the code under test
+            base = int(np.cumsum(cfg.resolved_tables())[-2])
+            want = params["table"][cand.long() + base].double() @ uv.double()
+            pick = torch.from_numpy(np.random.default_rng(0).choice(n_cand, 16, replace=False))
+            alone = torch.cat([recsys.retrieval_scores(cfg, params, q, cand[i:i + 1])
+                               for i in pick.tolist()])
+        gap_r = _gap(scores, want)
+        gap_1 = float((alone - scores[pick.cuda()]).abs().max() / scores.abs().max())
+        if not (scores.shape == (n_cand,) and gap_r <= RECSYS_FP32_REL
+                and gap_1 <= RECSYS_FP32_REL):
+            raise AssertionError(f"retrieval: {scores.shape}, against user_vector . table[rows] "
+                                 f"{gap_r}, 16 candidates alone {gap_1}")
+        print(f"autoint check 3: retrieval_scores over {n_cand:,} candidates of the last field "
+              f"({cfg.resolved_tables()[-1]} rows) within {gap_r:.3e} of user_vector . "
+              f"table[rows] in float64, 16 of them scored alone within {gap_1:.3e} of the "
+              f"peak (bound {RECSYS_FP32_REL})")
+        runs.append(rb.run_cell(cfg, params, "retrieval_cand", 1, n_cand, RECSYS_REPS, "cuda"))
+        del params, emb, dense, scores, want
+        torch.cuda.empty_cache()
+
+        # (2) the int8 table at the full row count
+        cfg_q = rb.config("serve_p99", quant=True)
+        params = rb.model(cfg_q, 0, "cuda")
+        with torch.inference_mode():
+            got = recsys.forward(cfg_q, params, ids)
+            rows = (ids + offs[None]).long()
+            deq = params["table"][rows].float() * params["table_scale"][rows][..., None]
+            gap_q = _gap(got, recsys.head(cfg, params, deq))
+        if not (params["table"].dtype == torch.int8 and bool(torch.isfinite(got).all())
+                and gap_q <= RECSYS_FP32_REL):
+            raise AssertionError(f"autoint int8: {params['table'].dtype}, against fp32 on the "
+                                 f"dequantized rows {gap_q}")
+        print(f"autoint check 2 (int8 table, {params['table'].numel():,} B + scales "
+              f"{params['table_scale'].numel() * 4:,} B): the forward at {ids.shape[0]} within "
+              f"{gap_q:.3e} of the fp32 forward on the dequantized gathered rows (bound "
+              f"{RECSYS_FP32_REL})")
+        for cell in ("serve_p99", "serve_bulk"):
+            runs.append(rb.run_cell(cfg_q, params, cell, rb.CELLS[cell]["batch"], 0, RECSYS_REPS,
+                                    "cuda"))
+        del params, got, deq
+        torch.cuda.empty_cache()
+
+        # (4) training at 65,536 over the table cut by 4
+        cfg_t = rb.config("train_batch")
+        params = rb.model(cfg_t, 0, "cuda")
+        b = rb.batch(cfg_t, rb.CELLS["train_batch"]["batch"], 0, "cuda")
+        _, grads = tstep.value_and_grad(functools.partial(recsys.loss_fn, cfg_t), params, b)
+        touched = torch.zeros(cfg_t.total_rows, dtype=torch.bool, device="cuda")
+        touched[(b["ids"] + recsys.field_offsets(cfg_t, "cuda")[None]).long().reshape(-1)] = True
+        nz = grads["table"].ne(0).any(dim=1)
+        stray, hit, n_touched = (int((nz & ~touched).sum()), int((nz & touched).sum()),
+                                 int(touched.sum()))
+        zero_leaves = [k for k, g in enumerate(tree.leaves(grads))
+                       if not bool(g.ne(0).any()) and g is not grads["w_user"]]
+        if stray or not hit or zero_leaves or bool(grads["w_user"].ne(0).any()):
+            raise AssertionError(f"train gradients: {stray} untouched rows nonzero, {hit} "
+                                 f"touched rows nonzero, zero leaves {zero_leaves}")
+        del grads, nz, touched
+        r = rb.run_cell(cfg_t, params, "train_batch", rb.CELLS["train_batch"]["batch"], 0,
+                        RECSYS_STEPS - 1, "cuda")
+        if not (r["finite"] and len(r["losses"]) == RECSYS_STEPS):
+            raise AssertionError(f"train: losses {r['losses']}, norms {r['grad_norms']}")
+        print(f"autoint check 4 (train_batch, {cfg_t.total_rows:,} rows: each table cut by "
+              f"{rb.CELLS['train_batch']['table_div']}): the table's gradient nonzero on {hit:,} "
+              f"of the {n_touched:,} rows the batch touched and on "
+              f"none of the others; every leaf but w_user (unread by the loss) nonzero; "
+              f"{RECSYS_STEPS} steps: losses {[round(x, 6) for x in r['losses']]}, gradient "
+              f"norms {[round(x, 4) for x in r['grad_norms']]}")
+        runs.append(r)
+        del params, b, r
+        torch.cuda.empty_cache()
+
+        # (5) the launcher with checkpoints, resumed and uninterrupted
+        # an uninterrupted run checkpoints steps 9 and 19; with step 19's
+        # removed, as if a kill had come before it was written, the same
+        # command resumes at step 10 and must end on the same state
+        with deterministic(), tempfile.TemporaryDirectory() as d:
+            argv = ["--arch", "autoint", "--steps", "20", "--ckpt-every", "10",
+                    "--log-every", "10", "--ckpt-dir", d]
+            whole, _ = _capture(launcher.main, argv)
+            shutil.rmtree(os.path.join(d, "step_000019"))
+            resumed, text = _capture(launcher.main, argv)
+            same_bits = all(torch.equal(x, y) for x, y in zip(tree.leaves(resumed["state"]),
+                                                              tree.leaves(whole["state"])))
+            if not (same_bits and resumed["start_step"] == 10
+                    and "resumed from checkpoint at step 10" in text
+                    and resumed["losses"] == whole["losses"][10:]):
+                raise AssertionError(f"launcher resume: bits equal {same_bits}, start "
+                                     f"{resumed['start_step']}")
+            others = {}
+            for arch in ("minicpm-2b", "graphcast"):
+                res, text = _capture(launcher.main, ["--arch", arch, "--steps", "10",
+                                                     "--log-every", "10"])
+                if not (np.all(np.isfinite(res["losses"])) and len(res["losses"]) == 10
+                        and " -> " in text and "stragglers: " in text):
+                    raise AssertionError(f"launcher {arch}: {res['losses']}")
+                others[arch] = (res["losses"][0], res["losses"][-1])
+        print(f"autoint check 5 (launch.train, deterministic kernels): an uninterrupted "
+              f"20-step run's step-19 checkpoint removed, its rerun resumed at step 10 and "
+              f"ended on the same state bit for bit; minicpm-2b and graphcast 10 steps each, losses "
+              f"finite ({', '.join(f'{a}: {x:.4f} -> {y:.4f}' for a, (x, y) in others.items())})")
+    launches = dict(kernels.LAUNCHES)
+    for r in runs:
+        print(f"autoint {rb.describe(r, card)}")
+    print(f"recsys launches: {launches or 'none'} (no kernel of the ten is on this path, as "
+          f"in the reference)")
+    print(f"recsys step: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -2742,6 +2963,7 @@ def main() -> int:
     launches.update(equiv_launches)
     rows["quantize"]["egnn_shapes"] = [brief(r) for r in egnn_rows]
     launches["serve"] = serve_step(card)
+    launches["recsys"] = recsys_step(card)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

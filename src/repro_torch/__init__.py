@@ -2,8 +2,10 @@
 on a 2D grid (simulated, or one process per rank), the frontier algebras
 (SSSP, CC, PageRank), the 2D-partitioned GNN (GraphCast, GAT, EGNN,
 NequIP) with int8 payloads, its training step, AdamW and the int8
-error-feedback gradient all-reduce, and LM serving (the decoder-only
-transformer, the slot-batched decode engine, the token pipeline).
+error-feedback gradient all-reduce, LM serving (the decoder-only
+transformer, the slot-batched decode engine, the token pipeline), the
+AutoInt recommender, and the training runtime (checkpoints, the step
+watchdog, the ``launch.train`` launcher).
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:

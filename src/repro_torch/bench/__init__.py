@@ -1,6 +1,6 @@
-"""Benchmarks of the port: the Graph500, distributed, algebra, GNN and LM
-serving harnesses, the paper's studies, and the timing helpers they
-share."""
+"""Benchmarks of the port: the Graph500, distributed, algebra, GNN, LM
+serving and recsys harnesses, the paper's studies, and the timing helpers
+they share."""
 
 from __future__ import annotations
 

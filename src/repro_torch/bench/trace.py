@@ -31,13 +31,22 @@ kernels), the copies' (dtype casts and layout copies), the softmax's and
 the host reads' device time apart, and the host time a tick spends
 enqueueing its decode step.  The profiler adds host time to every
 launch, so a traced tick's wall time and idle share exceed an untraced
-one's (``bench.serve``'s median).
+one's (``bench.serve``'s median).  With ``--recsys`` it is one call of
+AutoInt's ``--shape`` cell (:data:`repro_torch.bench.recsys.CELLS`:
+``serve_bulk`` by default, a forward at batch 262,144 over the full
+173,588,480-row table; ``train_batch`` is one train step) after one
+warm-up call, with the device time by kernel class (the gathers, the
+matrix products, softmax, copies, other elementwise kernels, reductions,
+the gathers' backward) and by profiler range (the lookup, the interaction
+layers, the whole dense head; for a train step also the loss-and-gradient
+call and AdamW), each as a share of the busy time.
 
     python -m repro_torch.bench.trace --scale 22 [--grid 2x2] [--out trace.json]
     python -m repro_torch.bench.trace --scale 22 --algebra sssp cc pagerank [--grid 2x2]
     python -m repro_torch.bench.trace --gnn [--refine 6] [--arch egnn]
     python -m repro_torch.bench.trace --gnn-train [--refine 6] [--arch nequip]
     python -m repro_torch.bench.trace --serve [--arch gemma-2b] [--layers N]
+    python -m repro_torch.bench.trace --recsys [--shape serve_bulk]
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch
 from repro_torch.bench import algebras, distributed, graph500, teps
 from repro_torch.bench import gnn as gnn_bench
 from repro_torch.bench import gnn_train
+from repro_torch.bench import recsys as recsys_bench
 from repro_torch.bench import serve as serve_bench
 from repro_torch.comm import SimGrid
 from repro_torch.core import bfs as bfsmod
@@ -120,8 +130,14 @@ def main(argv=None) -> list[dict]:
                     help="--gnn, --gnn-train: multimesh refinement")
     ap.add_argument("--layers", type=int, default=None,
                     help="--serve: cut the depth to N layers (default: the cell's)")
+    ap.add_argument("--recsys", action="store_true",
+                    help="trace one call of AutoInt's --shape cell (bench.recsys)")
+    ap.add_argument("--shape", default="serve_bulk", choices=list(recsys_bench.CELLS),
+                    help="--recsys: the cell")
     args = ap.parse_args(argv)
 
+    if args.recsys:
+        return [_trace_recsys(args)]
     if args.serve:
         return [_trace_serve(args)]
     if args.gnn or args.gnn_train:
@@ -227,6 +243,61 @@ def _trace_serve(args) -> dict:
                 "host_read_device_ms": out["classes_ms"]["memcpy"] / SERVE_TICKS}
     print("## per tick: " + ", ".join(f"{k} {v:.3f}" for k, v in per_tick.items()))
     out["per_tick"] = per_tick
+    return out
+
+
+#: the recsys trace's profiler ranges: (module, function, range name)
+RECSYS_RANGES = (("recsys", "_lookup", "lookup"), ("recsys", "_interact", "interact"),
+                 ("recsys", "head", "head"), ("tstep", "value_and_grad", "loss_and_grad"),
+                 ("adamw", "apply", "adamw"))
+
+
+def _trace_recsys(args) -> dict:
+    """One call of AutoInt's ``--shape`` cell after one warm-up call."""
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    cell = args.shape
+    cfg = recsys_bench.config(cell)
+    params = recsys_bench.model(cfg, device="cuda")
+    spec = recsys_bench.CELLS[cell]
+    fn, samples = recsys_bench.cell_fn(cfg, params, cell, spec["batch"],
+                                       spec.get("n_candidates", 0), 1, "cuda")
+    fn(0)
+    mods = {"recsys": recsys, "tstep": tstep, "adamw": adamw}
+    saved = [(mods[m], f, getattr(mods[m], f)) for m, f, _ in RECSYS_RANGES]
+    for (mod, f, orig), (_, _, name) in zip(saved, RECSYS_RANGES):
+        setattr(mod, f, _ranged(f"range/{name}", orig))
+    try:
+        prof, wall_us, _ = _profiled(lambda: fn(1))
+    finally:
+        for mod, f, orig in saved:
+            setattr(mod, f, orig)
+    what = (f"{spec['n_candidates']:,} candidates" if spec["kind"] == "retrieval"
+            else f"batch {spec['batch']:,}")
+    title = (f"autoint {cell} ({spec['kind']}, {what}, {cfg.total_rows:,} table rows, fp32)")
+    matmul = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitkreduce", "dot_kernel")
+    classes = {"gather": lambda k: "indexselect" in k or "index_elementwise" in k
+               or "gather" in k,
+               "index_add": lambda k: "indexfunc" in k or "index_put" in k,
+               "matmul": lambda k: any(m in k for m in matmul),
+               "softmax": lambda k: "softmax" in k,
+               "copy": lambda k: "copy" in k and "memcpy" not in k,
+               "elementwise": lambda k: "elementwise" in k and "copy" not in k
+               and "index" not in k,
+               "reduce": lambda k: "reduce" in k}
+    out = _report(prof, wall_us, title,
+                  {"recsys": cfg.name, "shape": cell, "samples": samples,
+                   "table_rows": cfg.total_rows},
+                  phases=False, trace_out=args.out, classes=classes)
+    busy = out["device_busy_ms"]
+    ranges = {e.key[6:]: e.device_time_total / 1e3 for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CUDA
+              and e.key.startswith("range/")}
+    print("## ranges (device ms of the kernels launched inside, share of busy): " + ", ".join(
+        f"{k} {v:.3f} ({v / busy:.4f})" for k, v in ranges.items()))
+    out["ranges_ms"] = ranges
     return out
 
 

@@ -110,14 +110,16 @@ def list_archs() -> list[str]:
 
 
 def _load_all() -> None:
-    # import for registration side effects: only the ported archs
+    # import for registration side effects: every arch of the reference
     from repro_torch.configs import (  # noqa: F401
+        autoint,
         dbrx_132b,
         deepseek_coder_33b,
         deepseek_v2_236b,
         egnn,
         gat_cora,
         gemma_2b,
+        graph500,
         graphcast,
         minicpm_2b,
         nequip,

@@ -1,8 +1,8 @@
 """Edge list -> CSR construction (Graph500 "Kernel 1") and the ELL / hybrid
 local-expansion containers.
 
-The port's copy of ``repro/graphgen/builder.py:15-231``: every array it
-returns is byte-identical to the reference's for the same input.  One
+The port's copy of ``repro/graphgen/builder.py``: every array it returns
+is byte-identical to the reference's for the same input.  One
 change of method, not of result: :func:`build_csr` sorts one int64 key
 ``src * span + dst`` in place instead of a two-key ``lexsort`` and a
 gather, which gives the same (src, dst) order in a fraction of the host
@@ -89,6 +89,40 @@ def build_csr(
     return CSRGraph(
         n=n, row_ptr=row_ptr, col_idx=dst.copy(), src=src, dst=dst, m_input=m_input
     )
+
+
+def relabel_by_degree(g: CSRGraph) -> tuple[CSRGraph, np.ndarray]:
+    """Paper §3.1 "vertex sorting": relabel vertices by descending degree.
+
+    High-degree vertices get small ids, so the frontier's sorted id sequence
+    concentrates near zero with small gaps, the numerical property the
+    paper's delta+bitpack codec exploits (§5.4.1).  Ties keep their order
+    (a stable sort).  Returns the relabeled graph, whose ``m_input`` is the
+    original's, and the permutation ``new_id = perm[old_id]``.
+    """
+    deg = g.degrees()
+    order = np.argsort(-deg, kind="stable")  # old ids in new order
+    perm = np.empty_like(order)
+    perm[order] = np.arange(g.n)
+    new_edges = np.stack([perm[g.src], perm[g.dst]], axis=1)
+    rebuilt = build_csr(
+        new_edges, n=g.n, drop_self_loops=False, dedupe=False, symmetrize_edges=False
+    )
+    # m_input is a property of the original generator stream; preserve it.
+    return dataclasses.replace(rebuilt, m_input=g.m_input), perm
+
+
+def block_pad(g: CSRGraph, multiple: int) -> CSRGraph:
+    """Pad the vertex count to a multiple with isolated vertices (static
+    padding in place of the paper's odd-rank residuum handling, §7.2.1)."""
+    n_pad = -(-g.n // multiple) * multiple
+    if n_pad == g.n:
+        return g
+    row_ptr = np.concatenate(
+        [g.row_ptr, np.full(n_pad - g.n, g.row_ptr[-1], dtype=g.row_ptr.dtype)]
+    )
+    return CSRGraph(n=n_pad, row_ptr=row_ptr, col_idx=g.col_idx, src=g.src, dst=g.dst,
+                    m_input=g.m_input)
 
 
 # ---------------------------------------------------------------------------

@@ -429,11 +429,14 @@ def loss_fn(cfg, params: Params, batch) -> torch.Tensor:
 
 def params_from_numpy(tree, device=None):
     """The reference's parameter pytree (nested dicts and lists of arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``) as the same tree of float32
-    tensors on ``device`` (``None`` means ``cuda``)."""
+    e.g. ``jax.tree.map(np.asarray, params)``) as the same tree of tensors
+    on ``device`` (``None`` means ``cuda``): every float leaf as float32, an
+    integer leaf in its own dtype (AutoInt's int8 table)."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    a = np.asarray(tree)
+    a = np.array(a, dtype=a.dtype if np.issubdtype(a.dtype, np.integer) else np.float32)
+    return torch.from_numpy(a).to(device)

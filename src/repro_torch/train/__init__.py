@@ -1,1 +1,3 @@
-"""Training runtime: the train-step factories (:mod:`repro_torch.train.step`)."""
+"""Training runtime: the train-step factories (:mod:`.step`), checkpoints
+(:mod:`.checkpoint`) and the step watchdog with the restart policy
+(:mod:`.fault`)."""

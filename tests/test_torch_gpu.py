@@ -1,11 +1,13 @@
 """Tests that need the card: each CUDA kernel against its plain PyTorch
 version, the BFS on the card against the BFS on the CPU, and the LM
-serving path (no kernel of its own) on the card against the CPU.  They import
-no JAX, so they run where the card is:
+serving path and AutoInt (no kernel of their own) on the card against the
+CPU.  They import no JAX, so they run where the card is:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Without a card they skip (decided in the fixture, not at import)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -738,3 +740,78 @@ def test_router_top_k_ties_on_card(cuda):
             v_card, i_card = tfm.top_k(gates.to(cuda), k)
             assert torch.equal(i_card.cpu(), i_cpu) and torch.equal(v_card.cpu(), v_cpu)
     assert tfm.top_k(torch.zeros(1, 8, device=cuda), 3)[1].tolist() == [[0, 1, 2]]
+
+
+#: AutoInt on the card against the CPU in fp32 (TF32 off): the same
+#: products in other orders, over each output's peak
+RECSYS_FP32_REL = 1e-5
+
+
+def _recsys_cfgs():
+    from repro_torch.configs import common as configs
+
+    spec = configs.get("autoint")
+    return {"smoke": spec.smoke_config(),
+            "published": dataclasses.replace(spec.model_config(), table_sizes=(64,) * 39)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["smoke", "published"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_recsys_on_card_matches_cpu(cuda, no_tf32, which, quant):
+    """``embedding_bag`` (single ids and 3-slot bags padded with -1, sum
+    and mean) exact; ``forward``, ``user_vector`` and ``retrieval_scores``
+    within ``RECSYS_FP32_REL`` of the CPU's, the weights drawn on the CPU
+    and copied."""
+    from repro_torch import tree
+    from repro_torch.bench import recsys as recsys_bench
+    from repro_torch.models import recsys
+
+    cfg = dataclasses.replace(_recsys_cfgs()[which], table_quant=quant)
+    params = recsys.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree.tree_map(lambda x: x.to(cuda), params)
+    ids = recsys_bench.batch(cfg, 64, 0, "cpu")["ids"]
+    cand = recsys_bench.candidates(cfg, 1000, 0, "cpu")
+    rng = np.random.default_rng(4)
+    bags = torch.from_numpy(np.where(rng.random((16, cfg.n_sparse, 3)) < 0.3, -1,
+                                     rng.integers(0, 64, (16, cfg.n_sparse, 3))).astype(np.int32))
+    offs = recsys.field_offsets(cfg, "cpu")
+    outs = []
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        o = recsys.field_offsets(cfg, dev)
+        outs.append([recsys.forward(cfg, p, ids.to(dev)).cpu(),
+                     recsys.user_vector(cfg, p, ids[:4].to(dev)).cpu(),
+                     recsys.retrieval_scores(cfg, p, ids[:1].to(dev), cand.to(dev)).cpu()]
+                    + [recsys.embedding_bag(p["table"], x.to(dev), o, mode).cpu()
+                       for x in (ids, bags) for mode in ("sum", "mean")])
+    for k, (want, got) in enumerate(zip(*outs)):
+        if k < 3:
+            assert torch.isfinite(got).all()
+            assert float((got - want).abs().max()) <= RECSYS_FP32_REL * float(want.abs().max()), k
+        else:
+            assert torch.equal(got, want), k
+    assert torch.equal(outs[0][3], params["table"][(ids + offs[None]).long()])
+
+
+@pytest.mark.gpu
+def test_recsys_launcher_resume_on_card(cuda, tmp_path):
+    """``launch.train`` for autoint on the card: with the newest checkpoint
+    of an uninterrupted 8-step run removed, as if killed before writing it,
+    the same command resumes at step 4 and ends on that run's state bit for
+    bit (deterministic kernels: the gather's backward sums in a fixed
+    order)."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.bench.gnn_train import deterministic
+    from repro_torch.launch import train as launcher
+
+    argv = ["--arch", "autoint", "--steps", "8", "--ckpt-every", "4", "--batch", "64",
+            "--ckpt-dir", str(tmp_path)]
+    with deterministic():
+        whole = launcher.main(argv)
+        shutil.rmtree(tmp_path / "step_000007")
+        resumed = launcher.main(argv)
+    assert resumed["start_step"] == 4 and resumed["losses"] == whole["losses"][4:]
+    a, b = tree.leaves(resumed["state"]), tree.leaves(whole["state"])
+    assert all(x.is_cuda for x in a) and all(torch.equal(x, y) for x, y in zip(a, b))

@@ -20,11 +20,14 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
-# the training and serving slices' modules are among them
+# the training, serving and recsys slices' modules are among them
 assert {"repro_torch.optim.adamw", "repro_torch.optim.grad_compress", "repro_torch.train.step",
         "repro_torch.tree", "repro_torch.bench.gnn_train", "repro_torch.models.transformer",
         "repro_torch.serve.engine", "repro_torch.data.tokens",
-        "repro_torch.bench.serve"} <= set(names), names
+        "repro_torch.bench.serve", "repro_torch.models.recsys", "repro_torch.data.recsys",
+        "repro_torch.configs.autoint", "repro_torch.configs.graph500",
+        "repro_torch.train.checkpoint", "repro_torch.train.fault", "repro_torch.launch.train",
+        "repro_torch.bench.recsys"} <= set(names), names
 """
 
 
