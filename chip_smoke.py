@@ -7,8 +7,9 @@ simulated grid under the direct and the butterfly wire plans, the
 frontier algebras on both, the 2D GNN forward with int8 payloads, the
 GNN training step on the simulated grid and on one process per rank, the
 equivariant GNNs (EGNN, NequIP) forward and trained, the LM archs
-served through the slot-batched decode engine, and the AutoInt recommender
-served, trained and driven through the training launcher:
+served through the slot-batched decode engine, the AutoInt recommender
+served, trained and driven through the training launcher, and the
+launch layer (the id-stream helpers, the cell catalogue):
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -211,7 +212,23 @@ served, trained and driven through the training launcher:
    ends on that run's state bit for bit; minicpm-2b and graphcast 10 steps
    each with finite losses and the summary line.  The ms per batch (median
    of 3 after a warm-up), samples per second, lookup bytes and peak memory
-   of each cell (the serve cells also with the int8 table) beside the card.
+   of each cell (the serve cells also with the int8 table) beside the card;
+16. the launch layer, counts zeroed before the step and read after: (1)
+   ``kernels.bitpack.ops.pack_sorted_ids`` / ``unpack_sorted_ids`` on CUDA
+   id streams of capacity ``ID_STREAM_CAP`` at every width class and at
+   the counts ``ID_STREAM_COUNTS`` (0, 1, a full 1,024-chunk, capacity),
+   words and ids bit for bit against the plain versions (the same calls on
+   CPU copies) and the ids round-tripped, and ``compact_ids`` at the same
+   counts; pack and unpack must have launched; (2) the 43 cells of
+   ``launch.cells.all_cells()`` built on ``meta`` for both production
+   meshes: 38 built, 5 skips, every argument a meta tensor whose spec
+   divides its shape on the mesh, each cell's ``model_flops`` printed; (3) ``LAUNCH_CELLS`` built at a one-card (1, 1)
+   mesh, each ``fn`` run once on its meta arguments and once on arguments
+   made on the card from a seed (AutoInt with its full 173,588,480-row
+   table): the outputs' shapes and dtypes those of the meta run, every float
+   finite, and for the two GNN train steps the loss within ``LAUNCH_REL`` of
+   the same cell's on the CPU (TF32 off); the roofline constants beside the
+   card.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -409,6 +426,16 @@ RECSYS_ROWS = 173_588_480
 RECSYS_FP32_REL = 1e-5
 RECSYS_REPS = 3
 RECSYS_STEPS = 4
+
+
+#: the launch layer (step 16): id streams at the largest capacity a wire
+#: format takes, at each ragged count; the cells run on the card at a
+#: (1, 1) mesh, and the bar of their fp32 loss against the CPU's
+ID_STREAM_CAP = 1 << 16
+ID_STREAM_COUNTS = (0, 1, 1024, ID_STREAM_CAP)
+LAUNCH_PATH = ("pack", "unpack")
+LAUNCH_CELLS = ("gat-cora/full_graph_sm", "egnn/molecule", "autoint/serve_p99")
+LAUNCH_REL = 1e-5
 
 
 def card_line() -> str:
@@ -2878,6 +2905,189 @@ def recsys_step(card) -> dict:
     return launches
 
 
+def check_id_streams() -> int:
+    """The id-stream helpers on CUDA against their plain versions (the same
+    calls on CPU copies), bit for bit, at every width class and each count
+    of ``ID_STREAM_COUNTS``: the packed words, the unpacked ids (equal to
+    the stream, ``fill`` past the count) and ``compact_ids`` of a
+    membership plane with as many members.  Returns the cases run."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as bp_ops
+    from repro_torch.kernels.bitpack.ref import B_CLASSES
+
+    rng = np.random.default_rng(0)
+    cap, n = ID_STREAM_CAP, 0
+    for b in B_CLASSES:
+        for count in ID_STREAM_COUNTS:
+            # gaps that fit b bits (2**20 at b = 32); the ids are their sums
+            # mod 2**32, as uint32 bit patterns
+            gaps = rng.integers(0, ((1 << b) - 1 if b < 32 else 1 << 20) + 1, count)
+            ids = np.zeros(cap, np.int64)
+            ids[:count] = np.cumsum(gaps)
+            ids = torch.from_numpy((ids & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+            cnt = torch.tensor(count, dtype=torch.int32, device="cuda")
+            words = bp_ops.pack_sorted_ids(ids.cuda(), cnt, b)
+            plain = bp_ops.pack_sorted_ids(ids, count, b)
+            expect(same(words.cpu(), plain), f"pack_sorted_ids b={b} count={count}")
+            back = bp_ops.unpack_sorted_ids(words, cnt, b, fill=-1).cpu()
+            expect(same(back, bp_ops.unpack_sorted_ids(plain, count, b, fill=-1)),
+                   f"unpack_sorted_ids b={b} count={count}")
+            expect(same(back[:count], ids[:count]) and bool((back[count:] == -1).all()),
+                   f"id stream round trip b={b} count={count}")
+            n += 1
+    for count in ID_STREAM_COUNTS:
+        mask = torch.zeros(2 * cap, dtype=torch.bool)
+        mask[torch.from_numpy(rng.choice(2 * cap, count, replace=False))] = True
+        for capacity in (cap, max(count // 2, 1)):
+            ids, cnt = bp_ops.compact_ids(mask.cuda(), capacity, fill=capacity)
+            want_ids, want_cnt = bp_ops.compact_ids(mask, capacity, fill=capacity)
+            expect(same(ids.cpu(), want_ids) and same(cnt.cpu(), want_cnt),
+                   f"compact_ids count={count} capacity={capacity}")
+            n += 1
+    return n
+
+
+def launch_cell_args(cell, device, seed: int):
+    """A cell's arguments with values on ``device``: parameters from the
+    arch's init, data from numpy, both from ``seed``, so that the CPU and
+    the card get the same values (AutoInt's table is drawn on the device
+    by a generator there)."""
+    import torch
+    from repro_torch.configs import common as cfgs
+    from repro_torch.models import gnn, recsys
+    from repro_torch.train import step as tstep
+
+    spec = cfgs.get(cell.arch_id)
+    p = spec.shape(cell.shape_name).params
+    rng = np.random.default_rng(seed)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    if cell.kind == "graph_train":
+        cfg = spec.model_config(d_in=p["d_feat"], d_out=p["n_classes"])
+        state = tstep.init_state(gnn.init(cfg, torch.Generator().manual_seed(seed), device))
+        graph = cell.args[1]["graph"]
+        n, m = graph.nf.shape[0], graph.src.shape[0]
+        batch = {"graph": gnn.Graph(
+            nf=put(rng.standard_normal((n, p["d_feat"]), dtype=np.float32)),
+            src=put(rng.integers(0, n, m, dtype=np.int32)),
+            dst=put(rng.integers(0, n, m, dtype=np.int32)),
+            pos=put(rng.standard_normal((n, 3), dtype=np.float32))),
+            "targets": put(rng.integers(0, p["n_classes"], n, dtype=np.int32))}
+        return state, batch
+    if cell.kind == "serve":
+        cfg = spec.model_config()
+        params = recsys.init_params(cfg, torch.Generator(device).manual_seed(seed), device=device)
+        b = cell.args[1].shape[0]
+        ids = np.stack([rng.integers(0, k, b, dtype=np.int32) for k in cfg.resolved_tables()], 1)
+        return params, put(ids)
+    raise ValueError(f"{cell.cell_id}: no argument maker for kind {cell.kind!r}")
+
+
+def _shapes(t) -> list:
+    from repro_torch import tree
+
+    return [(tuple(x.shape), x.dtype) for x in tree.leaves(t)]
+
+
+def launch_step(card) -> dict:
+    """The launch layer: the three checks of the module docstring's step
+    16.  Returns the launch path's launch counts."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.launch import cells, mesh, roofline
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    n_cases = check_id_streams()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launch check 1: pack_sorted_ids / unpack_sorted_ids at widths 1..32 and counts "
+          f"{list(ID_STREAM_COUNTS)} of a {ID_STREAM_CAP:,}-id stream, and compact_ids, "
+          f"{n_cases} cases on the card equal to the plain versions bit for bit; launches "
+          f"{launches}")
+    require_launched(launches, LAUNCH_PATH, "launch")
+
+    # (2) the catalogue on meta, both production meshes
+    flops = None
+    for multi_pod in (False, True):
+        m = mesh.make_production_mesh(multi_pod=multi_pod)
+        t1 = time.perf_counter()
+        built = [cells.build_cell(a, s, m) for a, s in cells.all_cells()]
+        skips = [c for c in built if c.kind == "skip"]
+        on_meta = all(x.device.type == "meta" for c in built for a in c.args
+                      for x in tree.leaves(a))
+        if (len(built) - len(skips), len(skips)) != (38, 5) or not on_meta:
+            raise AssertionError(f"catalogue on {m}: {len(built) - len(skips)} built, "
+                                 f"{len(skips)} skips, all arguments on meta {on_meta}")
+        n_placed = 0
+        for c in built:  # one spec per argument leaf, each dividing its shape
+            for a, specs in zip(c.args, c.in_shardings or ()):
+                xs, sps = tree.leaves(a), mesh.spec_leaves(specs)
+                if len(xs) != len(sps):
+                    raise AssertionError(f"{c.cell_id}: {len(xs)} leaves, {len(sps)} specs")
+                for x, sp in zip(xs, sps):
+                    mesh.shard_shape(x.shape, sp, m)
+                    n_placed += 1
+        got = {c.cell_id: c.meta.get("model_flops") for c in built}
+        if flops is None:
+            flops = got
+            for c in built:
+                print(f"  {c.cell_id} {c.kind}: "
+                      + (c.skip_reason[:60] + "..." if c.kind == "skip"
+                         else f"model_flops {c.meta['model_flops']:.6e}"))
+        elif got != flops:
+            raise AssertionError("model_flops differ between the production meshes")
+        print(f"launch check 2: the catalogue on the {dict(m.shape)} mesh: "
+              f"{len(built) - len(skips)} cells built on meta, {len(skips)} skips "
+              f"({', '.join(c.cell_id for c in skips)}), {n_placed} arguments placed by "
+              f"their specs, model_flops as above, in "
+              f"{time.perf_counter() - t1:.1f}s")
+
+    # (3) three cells at a one-card mesh
+    one = mesh.make_mesh((1, 1), ("data", "model"))
+    with no_tf32():
+        for cid in LAUNCH_CELLS:
+            cell = cells.build_cell(*cid.split("/"), one)
+            want = cell.fn(*cell.args)
+            args = launch_cell_args(cell, "cuda", 0)
+            if _shapes(args) != _shapes(cell.args):
+                raise AssertionError(f"{cid}: the arguments made on the card are not the "
+                                     f"meta ones'")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            ms = time_ms(lambda: cell.fn(*args), 5)
+            floats = [x for x in tree.leaves(out) if x.is_floating_point()]
+            finite = all(bool(torch.isfinite(x).all()) for x in floats)
+            if _shapes(out) != _shapes(want) or not finite or not floats:
+                raise AssertionError(f"{cid}: outputs {_shapes(out)} against the meta run's "
+                                     f"{_shapes(want)}, finite {finite}")
+            gap = ""
+            if cell.kind == "graph_train":
+                loss = float(out[1]["loss"])
+                cpu = float(cell.fn(*launch_cell_args(cell, "cpu", 0))[1]["loss"])
+                rel = abs(loss - cpu) / abs(cpu)
+                if not rel <= LAUNCH_REL:
+                    raise AssertionError(f"{cid}: loss {loss} on the card, {cpu} on the CPU")
+                gap = f", loss {loss:.6f} within {rel:.3e} of the CPU's (bound {LAUNCH_REL})"
+            print(f"launch check 3: {cid} ({cell.kind}) at the (1, 1) mesh: "
+                  f"{len(_shapes(out))} outputs with the meta run's shapes and dtypes, "
+                  f"finite{gap}; first call {first_s * 1e3:.3f} ms, then {ms:.3f} ms a call "
+                  f"(CUDA events, mean of 5) on {card}")
+            del args, out
+            torch.cuda.empty_cache()
+    launches = dict(kernels.LAUNCHES)
+    print(f"roofline constants (NVIDIA H100 SXM5 datasheet): peak {roofline.PEAK_FLOPS:.4g} "
+          f"FLOP/s bf16 dense, HBM {roofline.HBM_BW:.4g} B/s, NVLink {roofline.LINK_BW:.4g} "
+          f"B/s a link; card {card}")
+    print(f"launch path launches: {launches}")
+    print(f"launch step: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -2964,6 +3174,7 @@ def main() -> int:
     rows["quantize"]["egnn_shapes"] = [brief(r) for r in egnn_rows]
     launches["serve"] = serve_step(card)
     launches["recsys"] = recsys_step(card)
+    launches["launch"] = launch_step(card)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

@@ -4,8 +4,9 @@ on a 2D grid (simulated, or one process per rank), the frontier algebras
 NequIP) with int8 payloads, its training step, AdamW and the int8
 error-feedback gradient all-reduce, LM serving (the decoder-only
 transformer, the slot-batched decode engine, the token pipeline), the
-AutoInt recommender, and the training runtime (checkpoints, the step
-watchdog, the ``launch.train`` launcher).
+AutoInt recommender, the training runtime (checkpoints, the step
+watchdog, the ``launch.train`` launcher), and the cell catalogue with its
+FLOP models, placement specs and the H100 roofline (``launch``).
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:
@@ -16,7 +17,9 @@ own copies (``graphgen``, ``core.validate``, ``models.icosahedron``,
 Entry points take ``device=None``, which means the first CUDA card; they
 raise when no card is present instead of carrying on on the CPU.  Tests
 pass ``device="cpu"`` explicitly, which routes every kernel wrapper to its
-plain PyTorch version.
+plain PyTorch version.  ``device="meta"`` builds shapes and dtypes with no
+storage (the cell catalogue's arguments, the counterpart of
+``jax.ShapeDtypeStruct``); a kernel wrapper refuses meta tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device is checked for availability.
+    ``cpu`` and ``meta`` (shapes only) are taken as they are.
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
     default) and no card is present: the port never falls back to the CPU
@@ -37,6 +41,6 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch: no CUDA device is available; pass device='cpu' to "
             "run the plain PyTorch versions of the kernels"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda', 'cpu' or 'meta', got {dev}")
     return dev

@@ -16,8 +16,8 @@ one process per rank.
 * :mod:`.stats`       — :class:`CommStats`, the per-phase byte ledger.
 * :mod:`.collectives` — the BFS column and row exchanges, and the int8
   gradient all-reduce.
-* :mod:`.registry`    — the ``raw`` / ``bitmap`` / ``auto`` wire plans and
-  the host codec factory.
+* :mod:`.registry`    — the ``raw`` / ``bitmap`` / ``auto`` / ``btfly`` wire
+  plans, the host codec factory, and the registration API of every axis.
 * :mod:`.codecs`      — the paper's §5.2 host codecs (numpy: S4-BP128 with
   delta, PFOR, VByte, Bitmap, Copy) behind Tables 5.4/5.5.
 

@@ -1,15 +1,27 @@
-"""Wire plans: the builders of one exchange mode's BFS collectives.
+"""The registry axes: the host codec factory, the wire plans, and the
+registration API over the traversal policies, the expansion backends and
+the frontier algebras.
 
-The port's counterpart of ``repro/comm/registry.py:46-321``: the host
-codec factory (the paper's §5.3 "Factory": a codec is a name resolved
-outside the timed code) and the ``raw``, ``bitmap``, ``auto`` and ``btfly``
-wire plans (traversal policies, expansion backends and algebras resolve in
-their own modules).  ``btfly`` (ButterFly BFS) keeps ``auto``'s column
-gather and replaces the row exchanges and the unreached gather with the
-log2(C)-stage butterflies of :mod:`repro_torch.comm.butterfly`, each stage
-re-bucketing the merged stream.  A plan's builders take the grid,
-the axis and ``b``, the number of source planes each exchange carries, and
-return plane-batched callables over per-rank lists:
+The port's counterpart of ``repro/comm/registry.py``.  A distributed
+traversal is an *algebra x policy x wire-plan x expansion* point, each axis
+a name table: the codecs and :data:`WIRE_PLANS` here,
+``core.traversal.POLICIES``, ``core.expand.BACKENDS`` and
+``core.algebra.ALGEBRAS`` beside the code they name.  ``register_*`` adds
+to those tables (a name held already raises ``ValueError``), the lookups
+(``wire_plan``, ``traversal``, ``expansion``, ``algebra``) read them (an
+unknown name raises :class:`repro_torch.core.UnknownName`, a ``KeyError``
+naming the known names), and ``available_*`` lists them, so a registered
+policy, backend or algebra is usable by name in ``bfs`` and ``build_bfs``.
+
+The host codecs are the paper's §5.3 "Factory": a codec is a name resolved
+outside the timed code.  The ``raw``, ``bitmap``, ``auto`` and ``btfly``
+wire plans build the BFS collectives; ``btfly`` (ButterFly BFS) keeps
+``auto``'s column gather and replaces the row exchanges and the unreached
+gather with the log2(C)-stage butterflies of
+:mod:`repro_torch.comm.butterfly`, each stage re-bucketing the merged
+stream.  A plan's builders take the grid, the axis and ``b``, the number
+of source planes each exchange carries, and return plane-batched callables
+over per-rank lists:
 
 * ``build_column(s, grid, axis, *, b, ...)`` -> ``fn(bits (b, s) bool) ->
   (b, g*s) bool``: the frontier membership all-gather over the grid column;
@@ -43,7 +55,10 @@ from repro_torch.comm import collectives as cc
 from repro_torch.comm.engine import AdaptiveExchange
 from repro_torch.comm.formats import INF, BitmapParentFormat
 from repro_torch.comm.ladder import BucketLadder
+from repro_torch.core import lookup, register
 from repro_torch.core.algebra import ALGEBRAS
+from repro_torch.core.expand import BACKENDS
+from repro_torch.core.traversal import POLICIES
 
 BFS = ALGEBRAS["bfs"]
 
@@ -239,11 +254,63 @@ WIRE_PLANS = {
 }
 
 
+def register_wire_plan(plan: WirePlan) -> None:
+    register(WIRE_PLANS, "wire plan", plan)
+
+
 def wire_plan(name: str) -> WirePlan:
-    """Wire plan by name (``raw`` | ``bitmap`` | ``auto`` | ``btfly``)."""
-    try:
-        return WIRE_PLANS[name]
-    except KeyError:
-        raise ValueError(
-            f"unknown wire plan {name!r}; this port has {sorted(WIRE_PLANS)}"
-        ) from None
+    """Wire plan by name (``raw`` | ``bitmap`` | ``auto`` | ``btfly``, or a
+    registered one)."""
+    return lookup(WIRE_PLANS, "wire plan", name)
+
+
+def available_wire_plans() -> list[str]:
+    return sorted(WIRE_PLANS)
+
+
+# ---------------------------------------------------------------------------
+# traversal policies (direction optimization, paper §3.1), expansion
+# backends (local block storage) and frontier algebras (the semiring axis):
+# the tables live beside their code, in repro_torch.core
+# ---------------------------------------------------------------------------
+
+
+def register_traversal(policy) -> None:
+    """Register a traversal policy object (it must expose ``.name``)."""
+    register(POLICIES, "traversal policy", policy)
+
+
+def traversal(name: str):
+    return lookup(POLICIES, "traversal policy", name)
+
+
+def available_traversals() -> list[str]:
+    return sorted(POLICIES)
+
+
+def register_algebra(alg) -> None:
+    """Register a frontier algebra object (it must expose ``.name``)."""
+    register(ALGEBRAS, "frontier algebra", alg)
+
+
+def algebra(name: str):
+    return lookup(ALGEBRAS, "frontier algebra", name)
+
+
+def available_algebras() -> list[str]:
+    return sorted(ALGEBRAS)
+
+
+def register_expansion(backend) -> None:
+    """Register a local-expansion backend object (it must expose ``.name``)."""
+    register(BACKENDS, "expansion backend", backend)
+
+
+def expansion(name: str):
+    """Expansion backend by its registered name (``core.expand.resolve``
+    also takes the alias ``auto``)."""
+    return lookup(BACKENDS, "expansion backend", name)
+
+
+def available_expansions() -> list[str]:
+    return sorted(BACKENDS)

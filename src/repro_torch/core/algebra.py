@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import lookup
 from repro_torch.kernels.bitpack.ref import B_CLASSES
 from repro_torch.kernels.spmv import ref as spmv_ref
 
@@ -336,13 +337,10 @@ ALGEBRAS = {a.name: a for a in (BfsAlgebra(), SsspAlgebra(), CcAlgebra(),
 
 
 def resolve(algebra) -> FrontierAlgebra:
-    """An algebra by name, or a :class:`FrontierAlgebra` instance passed
-    through (a custom ``delta`` or ``tol`` needs no registration)."""
+    """An algebra by name (one of :data:`ALGEBRAS`, which
+    :func:`repro_torch.comm.registry.register_algebra` extends), or a
+    :class:`FrontierAlgebra` instance passed through (a custom ``delta`` or
+    ``tol`` needs no registration)."""
     if isinstance(algebra, FrontierAlgebra):
         return algebra
-    try:
-        return ALGEBRAS[algebra]
-    except KeyError:
-        raise ValueError(
-            f"unknown algebra {algebra!r}; have {sorted(ALGEBRAS)}"
-        ) from None
+    return lookup(ALGEBRAS, "frontier algebra", algebra)

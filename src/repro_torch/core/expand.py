@@ -35,6 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import csr as csrmod
+from repro_torch.core import lookup
 from repro_torch.core.algebra import INF
 from repro_torch.graphgen import builder
 from repro_torch.kernels.bitpack import ops as bp_ops
@@ -341,14 +342,9 @@ BACKENDS = {b.name: b for b in (CooExpansion(), EllExpansion(), HybridExpansion(
 
 
 def resolve(name: str) -> ExpansionBackend:
-    """Expansion backend by name (``coo`` | ``ell`` | ``hybrid`` | ``auto``)."""
-    try:
-        return BACKENDS[ALIASES.get(name, name)]
-    except KeyError:
-        raise ValueError(
-            f"unknown expansion backend {name!r}; have {sorted(BACKENDS)} "
-            f"and aliases {sorted(ALIASES)}"
-        ) from None
+    """Expansion backend by name (``coo`` | ``ell`` | ``hybrid`` | ``auto``,
+    or one added by :func:`repro_torch.comm.registry.register_expansion`)."""
+    return lookup(BACKENDS, "expansion backend", ALIASES.get(name, name))
 
 
 def block_from_arrays(expand: str, src, dst, extra, n: int, device=None) -> LocalBlock:

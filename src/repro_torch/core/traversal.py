@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.ladder import BucketLadder
+from repro_torch.core import lookup
 from repro_torch.core.algebra import ALGEBRAS, INF, LOCAL_EXCHANGE, per_rank
 from repro_torch.kernels.bitpack import ops as bp_ops
 from repro_torch.kernels.popcount import ops as pc_ops
@@ -398,10 +399,6 @@ POLICIES = {p.name: p for p in (TopDownPolicy(), BottomUpPolicy(),
 
 def resolve(name: str) -> TraversalPolicy:
     """Traversal policy by name (``top_down`` | ``bottom_up`` |
-    ``direction_opt``)."""
-    try:
-        return POLICIES[name]
-    except KeyError:
-        raise ValueError(
-            f"unknown traversal policy {name!r}; have {sorted(POLICIES)}"
-        ) from None
+    ``direction_opt``, or one added by
+    :func:`repro_torch.comm.registry.register_traversal`)."""
+    return lookup(POLICIES, "traversal policy", name)

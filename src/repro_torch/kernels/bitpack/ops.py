@@ -3,7 +3,10 @@
 CPU tensors go to the plain version in :mod:`.ref`; CUDA tensors go to the
 kernel or raise.  ``b=32`` is the identity on the bit pattern and launches
 nothing.  The delta coding and the fixed-capacity compaction are plain
-PyTorch on both devices, as the reference leaves them to XLA.
+PyTorch on both devices, as the reference leaves them to XLA; the id-stream
+helpers (:func:`pack_sorted_ids`, :func:`unpack_sorted_ids`) pack and
+unpack through :func:`pack` and :func:`unpack`, so on CUDA tensors they
+launch the two kernels.
 """
 
 from __future__ import annotations
@@ -91,3 +94,21 @@ def unpack_planes(words: torch.Tensor, b: int) -> torch.Tensor:
 def unpack(words: torch.Tensor, b: int) -> torch.Tensor:
     """(W,) words -> (W*32/b,) values, as :func:`unpack_planes`."""
     return unpack_planes(words.reshape(1, -1), b)[0]
+
+
+def pack_sorted_ids(ids: torch.Tensor, count, b: int) -> torch.Tensor:
+    """Delta + pack a sorted (cap,) id stream (the paper's frontier codec) ->
+    (cap*b/32,) int32 words; the gaps must fit ``b`` bits."""
+    return pack(ref.to_int32_bits(gaps_from_sorted(ids, count)), b)
+
+
+def unpack_sorted_ids(words: torch.Tensor, count, b: int, fill: int) -> torch.Tensor:
+    """Inverse of :func:`pack_sorted_ids`: the sorted ids, ``fill`` at
+    positions ``>= count``."""
+    return sorted_from_gaps(unpack(words, b), count, fill)
+
+
+def compressed_words(capacity: int, b: int) -> int:
+    """Static packed-word count of an id stream of ``capacity`` values."""
+    assert capacity % ref.CHUNK == 0, capacity
+    return capacity * b // 32

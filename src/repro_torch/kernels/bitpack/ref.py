@@ -123,6 +123,26 @@ def sorted_from_gaps(gaps: torch.Tensor, count: torch.Tensor, fill: int) -> torc
     return torch.where(idx < cnt, ids, fill).to(torch.int32)
 
 
+def required_width_class(gaps: torch.Tensor) -> torch.Tensor:
+    """Index into :data:`B_CLASSES` of the smallest width that covers
+    ``max(gaps)`` (uint32 values, or int32 words holding them) -> 0-d
+    int32."""
+    m = (gaps.to(torch.int64) & _MASK32).max()
+    return sum((m >= (1 << b)).to(torch.int32) for b in B_CLASSES[:-1])
+
+
+def pack_sorted_ids(ids: torch.Tensor, count, b: int) -> torch.Tensor:
+    """Delta + pack of a sorted (cap,) id stream (the paper's codec) ->
+    (cap*b/32,) int32 words; the gaps must fit ``b`` bits."""
+    return pack(to_int32_bits(gaps_from_sorted(ids, count)), b)
+
+
+def unpack_sorted_ids(words: torch.Tensor, count, b: int, fill: int) -> torch.Tensor:
+    """Unpack + prefix sum back to the sorted ids; positions ``>= count``
+    get ``fill``."""
+    return sorted_from_gaps(unpack(words, b), count, fill)
+
+
 def compact_ids(mask_bits: torch.Tensor, capacity: int, fill: int):
     """Stream-compact (..., n) membership planes -> (ids (..., capacity)
     int32 ascending, count (...) int32).

@@ -92,3 +92,7 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
                    (kernels.P, kernels.P, kernels.I64),
                    words.data_ptr(), out.data_ptr(), words.numel())
     return out
+
+
+#: the plain reduction on either device, as in the reference
+popcount_total = ref.popcount_total

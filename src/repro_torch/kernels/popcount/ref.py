@@ -16,6 +16,11 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
+def popcount_total(words: torch.Tensor) -> torch.Tensor:
+    """Bits set over all of ``words`` -> 0-d int32."""
+    return popcount_words(words).sum(dtype=torch.int32)
+
+
 def popcount_planes(words: torch.Tensor) -> torch.Tensor:
     """(B, W) words -> (B,) int32 per-plane bit counts."""
     return popcount_words(words).sum(dim=1, dtype=torch.int32)

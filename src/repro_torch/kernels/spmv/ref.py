@@ -29,6 +29,26 @@ INF = 2**31 - 1
 _M32 = 0xFFFFFFFF
 
 
+def ell_from_coo(src: torch.Tensor, dst: torch.Tensor, n_rows: int, n_cols: int,
+                 max_deg: int) -> torch.Tensor:
+    """COO edges -> (n_rows, max_deg) int32 ELL slab padded with ``n_cols``
+    (for tests and small blocks).  A row keeps its first ``max_deg`` edges in
+    edge order (a stable sort by destination); edges whose ``dst`` is
+    ``n_rows`` or more are dropped."""
+    order = torch.argsort(dst, stable=True)
+    src_s, dst_s = src[order].to(torch.int64), dst[order].to(torch.int64)
+    inside = dst_s < n_rows
+    counts = torch.bincount(dst_s[inside], minlength=n_rows)
+    row_start = torch.cumsum(counts, 0) - counts
+    rank = (torch.arange(dst_s.shape[0], device=dst.device)
+            - row_start[torch.clamp(dst_s, max=n_rows - 1)])
+    valid = inside & (rank < max_deg)
+    nbr = torch.full((n_rows + 1, max_deg), n_cols, dtype=torch.int32, device=dst.device)
+    nbr[torch.where(valid, dst_s, n_rows), torch.where(valid, rank, 0)] = torch.where(
+        valid, src_s, n_cols).to(torch.int32)
+    return nbr[:n_rows]
+
+
 def frontier_bit(words: torch.Tensor, idx: torch.Tensor, n_cols: int) -> torch.Tensor:
     """Membership bits of (possibly out-of-range) indices.
 

@@ -17,9 +17,9 @@ Paths:
 
 ``table_quant`` keeps the table in int8 with a float32 scale per row
 (quantized in :func:`init_params`, no kernel) and dequantizes after the
-gather.  The reference's ``param_specs`` (the TPU mesh's row sharding)
-waits for the ``launch/`` port.  No hand-written kernel is on this path:
-the reference reaches no Pallas kernel here either.
+gather.  :func:`param_specs` gives the reference's placement (the table
+row-sharded over every mesh axis) as tuples.  No hand-written kernel is on
+this path: the reference reaches no Pallas kernel here either.
 """
 
 from __future__ import annotations
@@ -148,6 +148,20 @@ def init_params(cfg: AutoIntConfig, gen: torch.Generator, table_dtype=torch.floa
         extra = {"table": raw.to(table_dtype)}
     return {**extra, "attn": layers, "mlp": mlp,
             "w_user": normal((d_prev, d), 1.0 / d_prev**0.5)}
+
+
+def param_specs(cfg: AutoIntConfig, fsdp=("data",), tp: str = "model"):
+    """Placement specs in :func:`init_params`' tree: the embedding table
+    row-sharded over *all* mesh axes (the DLRM layout); the dense
+    interaction and MLP parameters are tiny and replicated."""
+    all_axes = tuple(fsdp) + (tp,)
+    return {
+        "table": (all_axes, None),
+        "attn": [{"wq": (None,), "wk": (None,), "wv": (None,), "wres": (None,)}
+                 for _ in range(cfg.n_attn_layers)],
+        "mlp": [{"w": (None,), "b": (None,)} for _ in range(len(cfg.mlp_dims) + 1)],
+        "w_user": (None,),
+    }
 
 
 # ---------------------------------------------------------------------------

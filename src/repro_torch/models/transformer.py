@@ -20,8 +20,12 @@ Port of :mod:`repro.models.transformer`, function for function:
 * **decode**: the new KV row is written into the cache in place (the
   reference blends it in through a one-hot; the values are the same).
 * ``moe_dp_axes``, ``moe_tp_axis`` and ``expert_shard`` pin shardings on a
-  TPU mesh in the reference; on one device they change nothing.  The mesh
-  specs (``param_specs``, ``cache_spec``) wait for the ``launch/`` port.
+  TPU mesh in the reference; on one device they change nothing.
+* **placement**: :func:`param_specs` and :func:`cache_spec` give the
+  reference's ``PartitionSpec`` trees as plain tuples, one entry per
+  dimension (``None``, a mesh axis name or a tuple of names): FSDP over the
+  data axes, tensor parallelism over ``model``.
+  :func:`repro_torch.launch.mesh.shard_shape` maps one to a rank's shard.
 """
 
 from __future__ import annotations
@@ -219,6 +223,47 @@ def cast_params(cfg: TransformerConfig, params: Params) -> Params:
     }
 
 
+def param_specs(cfg: TransformerConfig, fsdp: tuple[str, ...] = ("data",), tp: str = "model"):
+    """Placement specs in :func:`init_params`' tree (FSDP x TP): the
+    reference's ``PartitionSpec``s as tuples."""
+    f = fsdp if len(fsdp) > 1 else fsdp[0]
+    layer: dict[str, tuple] = {"ln1": (None, None), "ln2": (None, None)}
+    two_d = (None, f, tp)  # (L, d_in, d_out): FSDP on in, TP on out
+    out_proj = (None, tp, f)  # (L, h, d): TP on in, FSDP on out
+    if cfg.use_mla:
+        if cfg.q_lora_rank:
+            layer["wq_a"] = (None, f, None)
+            layer["wq_b"] = (None, None, tp)
+        else:
+            layer["wq"] = two_d
+        layer["wkv_a"] = (None, f, None)
+        layer["wkv_b"] = (None, None, tp)
+        layer["wo"] = out_proj
+    else:
+        layer.update(wq=two_d, wk=two_d, wv=two_d, wo=out_proj)
+    if cfg.is_moe:
+        layer["router"] = (None, f, None)
+        if cfg.expert_shard == "ff":
+            # experts over TP, d_ff over FSDP: weights stay resident
+            layer["we_gate"] = (None, tp, None, f)
+            layer["we_up"] = (None, tp, None, f)
+            layer["we_down"] = (None, tp, f, None)
+        else:
+            layer["we_gate"] = (None, tp, f, None)
+            layer["we_up"] = (None, tp, f, None)
+            layer["we_down"] = (None, tp, None, f)
+        if cfg.n_shared_experts:
+            layer.update(ws_gate=two_d, ws_up=two_d, ws_down=out_proj)
+    else:
+        layer.update(w_gate=two_d, w_up=two_d, w_down=out_proj)
+    return {
+        "embed": (tp, f),  # vocab over TP
+        "layers": layer,
+        "final_norm": (None,),
+        "lm_head": (f, tp),  # logits vocab-sharded over TP
+    }
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
@@ -278,7 +323,11 @@ def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     k_pos = torch.where(ar < t, ar, s_pad + t_pad)
     nk = t_pad // kv_chunk
     per_chunk = b * h * q_chunk * kv_chunk * 4
-    rows = q_chunk * max(1, min(LOGIT_BYTES // per_chunk, s_pad // q_chunk))
+    # a meta tensor (the cell catalogue's shape-only run) holds no logits:
+    # all q chunks in one group, so the op count does not grow with S * T
+    chunks = (s_pad // q_chunk if dev.type == "meta"
+              else max(1, min(LOGIT_BYTES // per_chunk, s_pad // q_chunk)))
+    rows = q_chunk * chunks
 
     outs = []
     for r0 in range(0, s_pad, rows):
@@ -481,6 +530,13 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None, dev
     rope key.  ``device=None`` means ``cuda``."""
     return torch.zeros((cfg.n_layers, batch, max_seq, cfg.cache_width),
                        dtype=dtype or cfg.compute_dtype, device=resolve_device(device))
+
+
+def cache_spec(fsdp=("data",), tp: str = "model") -> tuple:
+    """Placement of the (L, B, S, W) cache: batch over the FSDP axes,
+    sequence over TP."""
+    f = fsdp if len(fsdp) > 1 else fsdp[0]
+    return (None, f, tp, None)
 
 
 def _write_cache(cache_l, new_entry, pos):

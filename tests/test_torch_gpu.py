@@ -815,3 +815,36 @@ def test_recsys_launcher_resume_on_card(cuda, tmp_path):
     assert resumed["start_step"] == 4 and resumed["losses"] == whole["losses"][4:]
     a, b = tree.leaves(resumed["state"]), tree.leaves(whole["state"])
     assert all(x.is_cuda for x in a) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_id_stream_helpers_match_plain_on_card(cuda):
+    """``pack_sorted_ids`` / ``unpack_sorted_ids`` (through the pack and
+    unpack kernels) and ``compact_ids`` on the card, bit for bit against
+    their plain versions at every width class and ``chip_smoke``'s ragged
+    counts; the round trip gives back the stream."""
+    import chip_smoke
+
+    kernels.reset_launches()
+    n = chip_smoke.check_id_streams()
+    assert n == (len(bp_ref.B_CLASSES) + 2) * len(chip_smoke.ID_STREAM_COUNTS)
+    # b = 32 is the identity on the bit pattern and launches nothing
+    widths = len(bp_ref.B_CLASSES) - 1
+    assert kernels.LAUNCHES["pack"] == kernels.LAUNCHES["unpack"] == widths * len(
+        chip_smoke.ID_STREAM_COUNTS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 16])
+def test_id_stream_words_on_card_are_the_plain_words(cuda, b):
+    """A stream at a ragged count, its count a CUDA tensor: the card's words
+    are ``ref``'s on the CPU, and ``compressed_words`` long."""
+    rng = np.random.default_rng(b)
+    ids = np.zeros(4096, np.int32)
+    ids[:1500] = np.cumsum(rng.integers(0, 1 << b, 1500))
+    t = torch.from_numpy(ids)
+    words = bp_ops.pack_sorted_ids(t.to(cuda), torch.tensor(1500, device=cuda), b)
+    assert words.shape == (bp_ops.compressed_words(4096, b),)
+    assert torch.equal(words.cpu(), bp_ref.pack_sorted_ids(t, 1500, b))
+    back = bp_ops.unpack_sorted_ids(words, torch.tensor(1500, device=cuda), b, fill=-1)
+    assert torch.equal(back.cpu(), bp_ref.unpack_sorted_ids(words.cpu(), 1500, b, fill=-1))
