@@ -8,8 +8,10 @@ frontier algebras on both, the 2D GNN forward with int8 payloads, the
 GNN training step on the simulated grid and on one process per rank, the
 equivariant GNNs (EGNN, NequIP) forward and trained, the LM archs
 served through the slot-batched decode engine, the AutoInt recommender
-served, trained and driven through the training launcher, and the
-launch layer (the id-stream helpers, the cell catalogue):
+served, trained and driven through the training launcher, the
+launch layer (the id-stream helpers, the cell catalogue) and the
+dry-run (the ``CommStats`` ledger against the collectives the grid ran,
+cells counted on ``meta``):
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -228,7 +230,19 @@ launch layer (the id-stream helpers, the cell catalogue):
    table): the outputs' shapes and dtypes those of the meta run, every float
    finite, and for the two GNN train steps the loss within ``LAUNCH_REL`` of
    the same cell's on the CPU (TF32 off); the roofline constants beside the
-   card.
+   card;
+17. the dry-run (``repro_torch.launch.dryrun``), counts zeroed before the
+   step and read after: (1) step 6's ``raw`` batch and its counted
+   ``auto`` batches ran under ``launch.roofline.count_collectives``; the
+   ledgers against those counts (``compare_comm_stats``), per op kind,
+   one rank's bytes and the sum over the grid; (2) the same check for
+   ``raw``, ``bitmap`` and ``auto`` (``direction_opt``, ``hybrid``, 4 hub
+   roots) on the reference test's partition, n = 2**16 on the 2x2 grid on
+   the card; pack, unpack, popcount_planes, the push and pull SpMV and
+   frontier_mask must have launched; (3) ``run_cell`` for
+   ``DRYRUN_CELLS`` on meta on the host, each record printed on one line:
+   the LM prefill and the 2D cell counted (temp bytes, FLOPs, the 2D
+   cell's collective bytes), the LM skip a skip, and no kernel launched.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -436,6 +450,15 @@ ID_STREAM_COUNTS = (0, 1, 1024, ID_STREAM_CAP)
 LAUNCH_PATH = ("pack", "unpack")
 LAUNCH_CELLS = ("gat-cora/full_graph_sm", "egnn/molecule", "autoint/serve_p99")
 LAUNCH_REL = 1e-5
+
+#: the dry-run (step 17): the reference test's partition (n = 2**16 on
+#: 2x2, a scale-16 graph here) under each wire plan, and three cells'
+#: records: an LM prefill on the two-pod mesh, an LM skip, and a 2D cell at
+#: a (2, 2) mesh (at 16x16 it takes ~100 s of host time; PERF.md)
+DRYRUN_SCALE = 16
+DRYRUN_PLANS = ("raw", "bitmap", "auto")
+DRYRUN_CELLS = (("gemma-2b", "prefill_32k", "2x16x16"), ("minicpm-2b", "long_500k", "2x16x16"),
+                ("graphcast", "ogb_products", "2x2"))
 
 
 def card_line() -> str:
@@ -1199,6 +1222,7 @@ def distributed_step(setup, roots, single, card) -> dict:
     from repro_torch import kernels
     from repro_torch.bench import distributed
     from repro_torch.comm import SimGrid
+    from repro_torch.launch import roofline
 
     t0 = time.perf_counter()
     st = distributed.setup(setup.g, SimGrid(*GRID, device="cuda"), "hybrid")
@@ -1206,7 +1230,8 @@ def distributed_step(setup, roots, single, card) -> dict:
           f"containers {st.containers_s:.3f}s (chunk s={st.bg.part.chunk:,}, "
           f"block edges {st.bg.e_counts.ravel().tolist()})")
     droots = roots[:DIST_ROOTS]
-    raw = distributed.search(st, droots[:8], batch=8, mode="raw", validate_trees=False)
+    with roofline.count_collectives(st.grid) as raw_counted:
+        raw = distributed.search(st, droots[:8], batch=8, mode="raw", validate_trees=False)
     with capture_path_inputs() as kept:
         distributed.search(st, droots[:8], batch=8, mode="auto", policy="direction_opt",
                            validate_trees=False)
@@ -1220,7 +1245,8 @@ def distributed_step(setup, roots, single, card) -> dict:
         for r in rs:
             print(describe(r, card, " (distributed, rank inputs)"))
     kernels.reset_launches()
-    out = distributed.search(st, droots, batch=8, mode="auto", policy="direction_opt")
+    with roofline.count_collectives(st.grid) as auto_counted:
+        out = distributed.search(st, droots, batch=8, mode="auto", policy="direction_opt")
     counts = dict(kernels.LAUNCHES)
     print(f"launches on the distributed path ({sum(out['depths'])} levels over "
           f"{len(out['depths'])} batches): {counts}")
@@ -1254,7 +1280,8 @@ def distributed_step(setup, roots, single, card) -> dict:
     print(f"  {'total':18s} raw {total_r:>14,}  auto {total_a:>14,}  ratio "
           f"{total_r / total_a:.3f}")
     print(f"distributed step: {time.perf_counter() - t0:.1f}s")
-    return counts, rows, st, out
+    counted = {"raw": (raw["stats"], raw_counted), "auto": (out["stats"], auto_counted)}
+    return counts, rows, st, out, counted
 
 
 def print_zones(plans: dict) -> None:
@@ -3088,6 +3115,72 @@ def launch_step(card) -> dict:
     return launches
 
 
+def dryrun_step(card, scale: int, counted: dict) -> dict:
+    """The dry-run: the three checks of the module docstring's step 17.
+    ``counted`` holds step 6's ledgers and counts by plan.  Returns the
+    dry-run path's launch counts."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.bench import distributed, graph500
+    from repro_torch.comm import SimGrid
+    from repro_torch.core import bfs
+    from repro_torch.launch import dryrun, mesh, roofline
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    # (1) step 6's raw batch and counted auto batches, counted as they ran
+    for plan, (ledgers, count) in counted.items():
+        cmp = roofline.compare_comm_stats(ledgers, count)
+        if not cmp.match:
+            raise AssertionError(f"scale-{scale} {plan}: the ledger and the grid's "
+                                 f"collectives differ: {cmp.diff()}")
+        print(f"dry-run check 1: scale {scale} 2x2 {plan} ({len(ledgers)} batch(es), "
+              f"{count.n_ops} collectives): bytes per kind, one rank {cmp.parsed}, summed "
+              f"over the grid {cmp.parsed_grid}: equal to the ledger's")
+    # (2) the reference test's partition on the card, every plan
+    g = graph500.generate(DRYRUN_SCALE)[0]
+    st = distributed.setup(g, SimGrid(*GRID, device="cuda"), "hybrid")
+    roots = bfs.hub_roots(g.degrees(), 4)
+    for plan in DRYRUN_PLANS:
+        cmp = dryrun.ledger_against_count(st, roots, plan, policy="direction_opt")
+        if not cmp.match:
+            raise AssertionError(f"n = 2**{DRYRUN_SCALE} {plan}: the ledger and the grid's "
+                                 f"collectives differ: {cmp.diff()}")
+        print(f"dry-run check 2: n = 2**{DRYRUN_SCALE} 2x2 {plan} (direction_opt, hybrid, 4 "
+              f"hub roots): bytes per kind, one rank {cmp.parsed}, summed over the grid "
+              f"{cmp.parsed_grid}: equal to the ledger's, {len(cmp.per_phase)} phases")
+    launches = dict(kernels.LAUNCHES)
+    print(f"dry-run path launches: {launches}")
+    require_launched(launches, DIST_PATH, "dry-run")
+    del st
+    # (3) three cells' records, counted on meta
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as out:
+        for arch, shape, mesh_name in DRYRUN_CELLS:
+            sizes = tuple(int(k) for k in mesh_name.split("x"))
+            axes = ("pod", "data", "model")[-len(sizes):]
+            t1 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, False, out, mesh=mesh.make_mesh(sizes, axes))
+            rec.pop("traceback", None)
+            print(json.dumps(rec, default=str))
+            skip = shape == "long_500k"
+            if rec["status"] != ("skip" if skip else "ok"):
+                raise AssertionError(f"{arch}/{shape} on {mesh_name}: {rec.get('error', rec)}")
+            if not skip:
+                roof = rec["roofline"]
+                coll = roof["collective_bytes"]
+                if (not rec["memory"]["temp_bytes"] > 0 or not rec["cost"]["flops"] > 0
+                        or (coll > 0) != (shape == "ogb_products")):
+                    raise AssertionError(f"{arch}/{shape}: memory {rec['memory']}, cost "
+                                         f"{rec['cost']}, collective bytes {coll}")
+            print(f"dry-run check 3: {arch}/{shape} on {mesh_name}: {rec['status']} in "
+                  f"{time.perf_counter() - t1:.1f}s (meta, host CPU)")
+    if dict(kernels.LAUNCHES) != launches:
+        raise AssertionError("a cell's count on meta launched a kernel")
+    print(f"dry-run step: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -3156,7 +3249,8 @@ def main() -> int:
           f"TEPS harmonic mean {out['teps_harmonic_mean']:.6e} on {card}")
 
     launches["study"], rows["popcount_blocks"] = study_step(setup, roots, card)
-    launches["distributed"], dist_rows, st, auto = distributed_step(setup, roots, single, card)
+    launches["distributed"], dist_rows, st, auto, dist_counted = distributed_step(
+        setup, roots, single, card)
     launches["btfly"], btfly_rows = btfly_step(setup, roots, single, st, auto, card)
     del auto
     launches["procgrid"] = procgrid_step(card)
@@ -3175,6 +3269,7 @@ def main() -> int:
     launches["serve"] = serve_step(card)
     launches["recsys"] = recsys_step(card)
     launches["launch"] = launch_step(card)
+    launches["dryrun"] = dryrun_step(card, args.scale, dist_counted)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

@@ -6,7 +6,8 @@ error-feedback gradient all-reduce, LM serving (the decoder-only
 transformer, the slot-batched decode engine, the token pipeline), the
 AutoInt recommender, the training runtime (checkpoints, the step
 watchdog, the ``launch.train`` launcher), and the cell catalogue with its
-FLOP models, placement specs and the H100 roofline (``launch``).
+FLOP models, placement specs, the H100 roofline and the dry-run that
+counts each cell's program (``launch``).
 
 The layout mirrors ``src/repro/`` module for module, so each port module's
 counterpart is easy to find.  The package imports ``torch`` and numpy only:
@@ -19,7 +20,9 @@ raise when no card is present instead of carrying on on the CPU.  Tests
 pass ``device="cpu"`` explicitly, which routes every kernel wrapper to its
 plain PyTorch version.  ``device="meta"`` builds shapes and dtypes with no
 storage (the cell catalogue's arguments, the counterpart of
-``jax.ShapeDtypeStruct``); a kernel wrapper refuses meta tensors.
+``jax.ShapeDtypeStruct``): a kernel wrapper takes its plain version for
+meta tensors as for CPU ones, which gives the shapes and launches nothing
+(``launch.dryrun`` counts the cells' programs that way).
 """
 
 from __future__ import annotations

@@ -192,15 +192,17 @@ def device_ms(fn, reps: int, tries: int = 3) -> tuple[float, dict[str, float]]:
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on one CUDA device, False when all are on
-    the CPU; anything else (mixed, or another device type) raises."""
+    the CPU or all on ``meta`` (shapes only: the plain version runs, and no
+    kernel runs on any path); anything else (mixed, or another device type)
+    raises."""
     devices = {t.device for t in tensors}
     kinds = {d.type for d in devices}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"} and len(devices) == 1:
         return True
     raise ValueError(
-        f"tensors must all lie on the CPU or all on one CUDA device, got "
+        f"tensors must all lie on the CPU, all on meta or all on one CUDA device, got "
         f"{sorted(str(d) for d in devices)}"
     )
 

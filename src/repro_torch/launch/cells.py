@@ -182,9 +182,11 @@ def recsys_flops(cfg: recsys.AutoIntConfig, batch: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _grid(mesh: Mesh, device) -> SimGrid:
+def make_grid(mesh: Mesh, device) -> SimGrid:
     """The mesh's 2D grid on ``device``: grid row ``i`` folds the FSDP axes
-    row-major, column ``j`` is ``model``."""
+    row-major, column ``j`` is ``model``.  The 2D cells' ``fn`` runs on this
+    grid, or on the one its ``grid=`` keyword names (the dry-run passes one
+    whose collectives it counts); the BFS cells' ``fn`` runs on this grid."""
     rows, cols = meshlib.grid_rows_cols(mesh)
     fsdp = meshlib.fsdp_axes(mesh)
     fold = None if fsdp == ("data",) else {a: mesh.shape[a] for a in fsdp}
@@ -198,10 +200,10 @@ def _per_rank(grid: SimGrid, x: torch.Tensor, lead: int) -> list:
     return [flat[p] for p in range(grid.size)]
 
 
-def _train_2d(mesh: Mesh, step, params, nf, pos, src, dst, targets):
+def _train_2d(mesh: Mesh, step, params, nf, pos, src, dst, targets, *, grid=None):
     """The 2D train step over per-rank slices of the rank-major arguments
     -> (loss, grads)."""
-    grid = _grid(mesh, nf.device)
+    grid = grid or make_grid(mesh, nf.device)
     lead = len(mesh.axis_names)
     ranks = functools.partial(_per_rank, grid, lead=lead)
     return step(grid, params, ranks(nf), [x.long() for x in ranks(src)],
@@ -212,7 +214,7 @@ def _train_2d(mesh: Mesh, step, params, nf, pos, src, dst, targets):
 def _bfs(mesh: Mesh, part: Partition2D, bcfg: dbfs.DistBFSConfig, src, dst, root):
     """The distributed BFS over per-rank slices of the rank-major edge
     blocks -> (parent, level, n_levels); ``root`` is read on the host."""
-    grid = _grid(mesh, src.device)
+    grid = make_grid(mesh, src.device)
     lead = len(mesh.axis_names)
     fn = dbfs.build_bfs(grid, part, bcfg)
     return fn(_per_rank(grid, src, lead), _per_rank(grid, dst, lead), root)

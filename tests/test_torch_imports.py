@@ -27,7 +27,7 @@ assert {"repro_torch.optim.adamw", "repro_torch.optim.grad_compress", "repro_tor
         "repro_torch.bench.serve", "repro_torch.models.recsys", "repro_torch.data.recsys",
         "repro_torch.configs.autoint", "repro_torch.configs.graph500",
         "repro_torch.train.checkpoint", "repro_torch.train.fault", "repro_torch.launch.train",
-        "repro_torch.bench.recsys"} <= set(names), names
+        "repro_torch.bench.recsys", "repro_torch.launch.dryrun"} <= set(names), names
 """
 
 

@@ -3,6 +3,8 @@ their oracles.  On the CPU every port wrapper runs its plain PyTorch
 version; the CUDA kernels themselves are held against those versions on
 the card (``tests/test_torch_gpu.py`` and ``chip_smoke.py``)."""
 
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -267,19 +269,45 @@ def test_spmv_cases_match_jax(i):
 
 
 def test_wrappers_refuse_other_devices():
-    """A wrapper takes the plain version only for CPU tensors; anything
-    else that is not one CUDA device raises instead of running it."""
-    meta = torch.zeros((2, 1024), dtype=torch.bool, device="meta")
+    """A wrapper takes the plain version only for tensors all on the CPU or
+    all on meta; anything else that is not one CUDA device raises instead
+    of running it."""
+    meta = torch.zeros((1, 32), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        bp_ops.pack_planes(meta, 1)
+        sp_ops.spmv_min_planes(torch.zeros((4, 2), dtype=torch.int32), meta, 1024)
     with pytest.raises(ValueError):
-        pc_ops.popcount_planes(torch.zeros((2, 32), dtype=torch.int32, device="meta"))
-    with pytest.raises(ValueError):
-        sp_ops.spmv_min_planes(torch.zeros((4, 2), dtype=torch.int32),
-                               torch.zeros((1, 32), dtype=torch.int32, device="meta"), 1024)
+        sp_ops.spmv_pull_min_planes(torch.zeros((4, 2), dtype=torch.int32, device="meta"),
+                                    torch.zeros((1, 32), dtype=torch.int32), meta, 1024)
     with pytest.raises(ValueError):
         bp_ops.pack_planes(torch.zeros((1, 8), dtype=torch.int32), 3)
     assert kernels.on_cuda(torch.zeros(1)) is False
+
+
+@pytest.mark.parametrize("other", ["mps", "xpu", "hpu"])
+def test_meta_route_takes_the_plain_version(other):
+    """``quantize`` (and the other wrappers) on meta tensors return the
+    plain version's outputs on meta; a mix of meta and CPU tensors raises,
+    and so does a tensor on any other device."""
+    from repro_torch.kernels.quant import ops as q_ops
+    from repro_torch.kernels.quant import ref as q_ref
+
+    x = torch.empty(3 * 128, dtype=torch.float32, device="meta")
+    q, scales = q_ops.quantize(x)
+    want_q, want_s = q_ref.quantize(torch.zeros(3 * 128))
+    for got, want in ((q, want_q), (scales, want_s)):
+        assert got.device.type == "meta"
+        assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    words = bp_ops.pack_planes(torch.empty((2, 1024), dtype=torch.bool, device="meta"), 1)
+    assert words.device.type == "meta" and words.shape == (2, 32)
+    counts = pc_ops.popcount_planes(words)
+    assert counts.device.type == "meta" and counts.shape == (2,)
+    assert kernels.on_cuda(x, words) is False
+    with pytest.raises(ValueError):
+        kernels.on_cuda(x, torch.zeros(1))
+    with pytest.raises(ValueError):
+        kernels.on_cuda(types.SimpleNamespace(device=torch.device(other)))
+    with pytest.raises(ValueError):
+        kernels.on_cuda(types.SimpleNamespace(device=torch.device(other)), torch.zeros(1))
 
 
 @pytest.mark.parametrize("b", bp_ref.B_CLASSES)
