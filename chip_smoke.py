@@ -241,8 +241,15 @@ cells counted on ``meta``):
    the card; pack, unpack, popcount_planes, the push and pull SpMV and
    frontier_mask must have launched; (3) ``run_cell`` for
    ``DRYRUN_CELLS`` on meta on the host, each record printed on one line:
-   the LM prefill and the 2D cell counted (temp bytes, FLOPs, the 2D
-   cell's collective bytes), the LM skip a skip, and no kernel launched.
+   the LM prefill, the 2D cell and the graph500 cell counted (temp bytes,
+   collective bytes for the 2D and graph500 cells only, FLOPs but for the
+   BFS, which has no products), the graph500 cell's collectives per kind
+   those of the reference's compiled program (``GRAPH500_HLO``), the LM
+   skip a skip, and no kernel launched; (4) check 2's partition with
+   ``top_down`` for ``raw``, ``bitmap`` and ``auto``: a real batch's
+   collectives per kind against one level counted on ``meta`` at the same
+   shapes times the batch's depth, equal for ``raw`` and ``bitmap``, at
+   most that for ``auto``.
 
     python3 chip_smoke.py [--scale 22]
 
@@ -452,13 +459,19 @@ LAUNCH_CELLS = ("gat-cora/full_graph_sm", "egnn/molecule", "autoint/serve_p99")
 LAUNCH_REL = 1e-5
 
 #: the dry-run (step 17): the reference test's partition (n = 2**16 on
-#: 2x2, a scale-16 graph here) under each wire plan, and three cells'
-#: records: an LM prefill on the two-pod mesh, an LM skip, and a 2D cell at
-#: a (2, 2) mesh (at 16x16 it takes ~100 s of host time; PERF.md)
+#: 2x2, a scale-16 graph here) under each wire plan, and four cells'
+#: records: an LM prefill on the two-pod mesh, an LM skip, a 2D cell and
+#: the paper's cell at a (2, 2) mesh (at 16x16 the 2D cell takes ~100 s of
+#: host time; PERF.md)
 DRYRUN_SCALE = 16
 DRYRUN_PLANS = ("raw", "bitmap", "auto")
 DRYRUN_CELLS = (("gemma-2b", "prefill_32k", "2x16x16"), ("minicpm-2b", "long_500k", "2x16x16"),
-                ("graphcast", "ogb_products", "2x2"))
+                ("graphcast", "ogb_products", "2x2"), ("graph500", "scale22", "2x2"))
+#: graph500/scale22 on a (2, 2) mesh: the collectives of the reference's
+#: compiled program per kind, ``parse_collectives(hlo, loop_mult=8)``
+#: (tests/test_torch_dryrun.py holds the port's record equal to them)
+GRAPH500_HLO = {"all-gather": 2_916_608, "all-to-all": 76_054_912,
+                "collective-permute": 8_388_608, "all-reduce": 192}
 
 
 def card_line() -> str:
@@ -3150,6 +3163,22 @@ def dryrun_step(card, scale: int, counted: dict) -> dict:
         print(f"dry-run check 2: n = 2**{DRYRUN_SCALE} 2x2 {plan} (direction_opt, hybrid, 4 "
               f"hub roots): bytes per kind, one rank {cmp.parsed}, summed over the grid "
               f"{cmp.parsed_grid}: equal to the ledger's, {len(cmp.per_phase)} phases")
+    # (4) a real batch against one level on meta times its depth
+    t1 = time.perf_counter()
+    for plan in DRYRUN_PLANS:
+        counted, level, depth = dryrun.batch_against_level(st, roots, plan, "top_down")
+        bound = {k: depth * v for k, v in level.per_op.items()}
+        exact = plan != "auto"  # auto's level runs one rung, the count holds all
+        ok = set(counted.per_op) == set(bound) and all(
+            counted.per_op[k] == v if exact else counted.per_op[k] <= v
+            for k, v in bound.items())
+        print(f"dry-run check 4: n = 2**{DRYRUN_SCALE} 2x2 {plan} (top_down, 4 hub roots, "
+              f"depth {depth}): batch {counted.per_op}, one meta level x depth {bound}: "
+              f"{'equal' if exact else 'within'}")
+        if not ok:
+            raise AssertionError(f"n = 2**{DRYRUN_SCALE} {plan}: batch {counted.per_op} "
+                                 f"against one level x {depth} {bound}")
+    print(f"dry-run check 4: {time.perf_counter() - t1:.1f}s")
     launches = dict(kernels.LAUNCHES)
     print(f"dry-run path launches: {launches}")
     require_launched(launches, DIST_PATH, "dry-run")
@@ -3169,10 +3198,14 @@ def dryrun_step(card, scale: int, counted: dict) -> dict:
             if not skip:
                 roof = rec["roofline"]
                 coll = roof["collective_bytes"]
-                if (not rec["memory"]["temp_bytes"] > 0 or not rec["cost"]["flops"] > 0
-                        or (coll > 0) != (shape == "ogb_products")):
+                graph = shape == "ogb_products" or arch == "graph500"
+                if (not rec["memory"]["temp_bytes"] > 0
+                        or (rec["cost"]["flops"] > 0) != (arch != "graph500")
+                        or (coll > 0) != graph
+                        or (arch == "graph500" and roof["collective_breakdown"] != GRAPH500_HLO)):
                     raise AssertionError(f"{arch}/{shape}: memory {rec['memory']}, cost "
-                                         f"{rec['cost']}, collective bytes {coll}")
+                                         f"{rec['cost']}, collectives "
+                                         f"{roof['collective_breakdown']}")
             print(f"dry-run check 3: {arch}/{shape} on {mesh_name}: {rec['status']} in "
                   f"{time.perf_counter() - t1:.1f}s (meta, host CPU)")
     if dict(kernels.LAUNCHES) != launches:

@@ -10,7 +10,9 @@ The port's counterpart of ``repro/comm/engine.py``, over a grid
   the C column groups gets its own bucket.  The bucket of every group that
   holds a local rank is read to the host once, and each branch then runs
   over the groups that chose it — where JAX's ``lax.switch`` runs one
-  branch per group.  A single-branch exchange skips the consensus.
+  branch per group.  On ``meta`` every branch runs over every group (the
+  dry-run's count of the program).  A single-branch exchange skips the
+  consensus.
 * :meth:`all_gather` / :meth:`all_to_all` / :meth:`pmax` / :meth:`pmin` /
   :meth:`psum` / :meth:`ppermute` — the grid's collectives, each recording one rank's
   result-shape bytes per call as the reference engine does, with
@@ -162,6 +164,14 @@ class AdaptiveExchange:
         returns per-rank results for their ranks.  ``local_bucket`` holds
         each rank's smallest usable bucket (0-d int32; ignored when only
         one branch exists).
+
+        On ``meta`` buckets (shapes only, no value to read) every branch
+        runs over every group, once each in ladder order, as the
+        reference's ``lax.switch`` holds every branch in its program; the
+        per-rank results are the last branch's.  The ``CommStats`` ledger
+        of such a run is the reference's trace-time ledger (every rung
+        recorded), not what one run sends.  Buckets that mix ``meta`` with
+        another device raise.
         """
         scope = (self.stats.exchange() if self.stats is not None
                  else contextlib.nullcontext(lambda: None))
@@ -170,12 +180,20 @@ class AdaptiveExchange:
             if len(branches) == 1:
                 return branches[0](groups)
             assert local_bucket is not None
+            kinds = {local_bucket[p].device.type for p in self.ranks()}
+            if "meta" in kinds and kinds != {"meta"}:
+                raise ValueError(f"buckets must all lie on meta or none, got {sorted(kinds)}")
             bucket = self.pmax(local_bucket)
-            chosen = torch.stack([bucket[self.ranks([g])[0]] for g in groups]).cpu().tolist()
+            if kinds == {"meta"}:
+                plan = [(b, groups) for b in range(len(branches))]
+            else:
+                chosen = torch.stack([bucket[self.ranks([g])[0]] for g in groups]).cpu().tolist()
+                plan = [(b, [g for g, c in zip(groups, chosen) if c == b])
+                        for b in sorted(set(chosen))]
             out = [None] * self.grid.size
-            for b in sorted(set(chosen)):
+            for b, gs in plan:
                 branch()  # each branch numbers its calls from the same place
-                part = branches[b]([g for g, c in zip(groups, chosen) if c == b])
+                part = branches[b](gs)
                 for p, v in enumerate(part):
                     if v is not None:
                         out[p] = v

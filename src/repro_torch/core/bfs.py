@@ -39,9 +39,20 @@ class BFSResult(NamedTuple):
     n_levels: int  # levels run (batched: depth of the longest plane)
 
 
-def validate_roots(roots, n: int) -> np.ndarray:
+def validate_roots(roots, n: int):
     """Check root vertices (dtype, range, duplicates) -> int32 array
-    (0-d for a scalar root, (B,) for a batch)."""
+    (0-d for a scalar root, (B,) for a batch).  A ``meta`` tensor has no
+    values: its shape and dtype are checked, as a traced root is in the
+    reference, and it comes back as an int32 ``meta`` tensor."""
+    if isinstance(roots, torch.Tensor) and roots.device.type == "meta":
+        if roots.dim() > 1:
+            raise ValueError(f"roots must be a scalar or (B,) vector, got "
+                             f"shape {tuple(roots.shape)}")
+        if roots.dtype.is_floating_point or roots.dtype.is_complex or roots.dtype == torch.bool:
+            raise TypeError(f"roots must be integers, got {roots.dtype}")
+        if roots.dim() == 1 and roots.shape[0] == 0:
+            raise ValueError("roots must name at least one source vertex")
+        return roots.to(torch.int32)
     if isinstance(roots, torch.Tensor):
         roots = roots.cpu().numpy()
     arr = np.asarray(roots)

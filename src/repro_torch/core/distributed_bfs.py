@@ -42,6 +42,11 @@ bytes to a :class:`repro_torch.comm.CommStats` — here, what each level
 actually sent, by the grid's local ranks.  The loop runs over the grid's
 local ranks only; ``DistBFSConfig.row_axes`` names the grid's row axes
 (``("pod", "data")`` on a grid with that row fold), as the JAX config does.
+
+On a ``meta`` grid (the dry-run's count: nothing has a value to read) one
+level runs, with every pass the policy uses and every rung of each
+adaptive exchange -- the while body the reference's program holds once --
+and the depth is 1.
 """
 
 from __future__ import annotations
@@ -168,6 +173,9 @@ def _level_loop(grid: Grid, part: Partition2D, cfg: DistBFSConfig, blocks,
                                              dtype=torch.bool, device=grid.device))
     host_counts = np.ones(b, np.int32)
     host_bu = np.full(b, policy.starts_bottom_up)
+    # on meta nothing has a value: one level runs with every pass the
+    # policy uses, the while body the reference's program holds once
+    symbolic = grid.device.type == "meta"
     depth, alive = 0, True
     while alive and depth < cfg.max_levels:
         bits_t = ex_transpose.ppermute(frontier, perm, fmt="membership")
@@ -178,8 +186,11 @@ def _level_loop(grid: Grid, part: Partition2D, cfg: DistBFSConfig, blocks,
                 grid.local(lambda q: alg.source_values(value[q], deg_own[q])), perm,
                 fmt="values")
             x_col = comm_cc.gather_values_planes(ex_values, x_t)
-        act = host_counts > 0
-        passes = (bool((act & ~host_bu).any()), bool((act & host_bu).any()))
+        if symbolic:
+            passes = (policy.uses_top_down, policy.uses_bottom_up)
+        else:
+            act = host_counts > 0
+            passes = (bool((act & ~host_bu).any()), bool((act & host_bu).any()))
         active = per_rank(lambda cn: cn > 0, counts)
         reduced = policy.expand_dist(ctx, value, f_col, use_bu, active, passes, x_col=x_col)
         old = value
@@ -203,6 +214,8 @@ def _level_loop(grid: Grid, part: Partition2D, cfg: DistBFSConfig, blocks,
         counts = new_counts
         level = per_rank(lambda nw, lv: torch.where(nw, depth + 1, lv), new, level)
         depth += 1
+        if symbolic:
+            break
         q = ranks[0]  # counts, flags and alive are global: any local rank's copy
         host = torch.cat([counts[q], use_bu[q].to(torch.int32),
                           alive_t[q].reshape(1).to(torch.int32)]).cpu().numpy()
@@ -224,7 +237,8 @@ def build_bfs(
     ``root`` may be a scalar (``(n,)`` outputs) or a ``(B,)`` batch of
     distinct sources (``(B, n)`` planes over the padded vertex space, one
     consensus round and one wire header per exchange serving all B
-    planes).  Roots are validated (dtype, range, duplicates) first.  For a
+    planes).  Roots are validated (dtype, range, duplicates; a ``meta``
+    root: shape and dtype) first.  For a
     value algebra (``cfg.algebra``) ``parent`` carries its finalized values
     (float32 for ``pagerank``).
     ``stats``, if given, gets every collective call's bytes (of the local
@@ -256,7 +270,10 @@ def build_bfs(
                 "shard_blocked returned")
         *blocks, root = args
         roots = bfs.validate_roots(root, part.n_orig)
-        roots_t = torch.as_tensor(np.atleast_1d(roots), device=grid.device)
+        if isinstance(roots, torch.Tensor):  # a meta root: shapes only
+            roots_t = roots.reshape(-1).to(grid.device)
+        else:
+            roots_t = torch.as_tensor(np.atleast_1d(roots), device=grid.device)
         value, level, depth = _level_loop(grid, part, cfg, blocks, roots_t, stats)
         parent, level = grid.assemble(value), grid.assemble(level)
         if roots.ndim == 0:

@@ -211,10 +211,12 @@ def _train_2d(mesh: Mesh, step, params, nf, pos, src, dst, targets, *, grid=None
                 pos=ranks(pos))
 
 
-def _bfs(mesh: Mesh, part: Partition2D, bcfg: dbfs.DistBFSConfig, src, dst, root):
+def _bfs(mesh: Mesh, part: Partition2D, bcfg: dbfs.DistBFSConfig, src, dst, root, *,
+         grid=None):
     """The distributed BFS over per-rank slices of the rank-major edge
-    blocks -> (parent, level, n_levels); ``root`` is read on the host."""
-    grid = make_grid(mesh, src.device)
+    blocks -> (parent, level, n_levels); ``root`` is read on the host (on
+    ``meta`` one level runs: :mod:`repro_torch.core.distributed_bfs`)."""
+    grid = grid or make_grid(mesh, src.device)
     lead = len(mesh.axis_names)
     fn = dbfs.build_bfs(grid, part, bcfg)
     return fn(_per_rank(grid, src, lead), _per_rank(grid, dst, lead), root)

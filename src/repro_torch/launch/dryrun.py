@@ -26,6 +26,21 @@ of the run, backward included:
   :func:`repro_torch.launch.roofline.count_collectives` counts -- they are
   what the grid actually executed, the port's counterpart of the HLO's.
 
+The graph500 cells (the paper's workload) run their distributed BFS on a
+``meta`` ``SimGrid`` of every rank of the mesh.  A ``meta`` tensor has no
+value, so the BFS runs one level, with each adaptive exchange running
+every rung of its ladder over every group and every pass the policy
+uses: the while body that the reference's HLO holds once, its ``lax.switch``
+branches and ``cond`` branches all present
+(:mod:`repro_torch.core.distributed_bfs`,
+:meth:`repro_torch.comm.engine.AdaptiveExchange.dispatch`).  Its
+collectives per kind, FLOPs and bytes are multiplied by the cell's
+``loop_mult`` (8), as the reference's ``parse_collectives`` and
+``terms_from_compiled`` do; ``memory`` is not.  The counts are products'
+FLOPs only, and the BFS has no product: its ``flops``, ``compute_s`` and
+``useful_flop_ratio`` are 0.  ``output_bytes`` and ``temp_bytes`` are the
+global program's peak over every rank of the grid.
+
 ``argument_bytes`` is per rank: each argument's shard under its placement
 spec (:func:`repro_torch.launch.mesh.shard_shape`).  ``output_bytes`` and
 ``temp_bytes`` are the global program's, the per-device ``cost`` and
@@ -39,16 +54,10 @@ Their ``fn`` does not depend on the mesh: under ``--both-meshes`` the
 second mesh reuses the count of a cell whose arguments have the same
 shapes.
 
-Two divergences from the reference's record.  The three graph500 cells
-are ``not_run``: their distributed BFS reads each level's ``alive`` flags
-and the buckets the groups chose on the host, and a ``meta`` tensor has no
-value; JAX traces such a data-dependent loop symbolically, eager PyTorch
-cannot.  Their record has ``meta``, ``memory.argument_bytes`` and the
-reason, and no ``cost`` or ``roofline``.  And ``output_bytes`` is the
-storage behind the outputs, not their own size: an output that views a
+One divergence from the reference's record: ``output_bytes`` is the
+storage behind the outputs, not their own size.  An output that views a
 larger tensor counts that tensor's storage, which the eager program keeps
-alive (XLA frees what an output does not need).  The LM prefill cells
-show it: ``prefill`` returns the last position of the full logits.
+alive (XLA frees what an output does not need).
 
 Usage (no card needed: every argument is on ``meta``)::
 
@@ -72,6 +81,7 @@ import time
 import traceback
 import weakref
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
@@ -84,11 +94,6 @@ from repro_torch.launch import roofline
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
                        "dryrun_torch")
-
-NOT_RUN = ("the distributed BFS reads each level's alive flags and the groups' chosen "
-           "buckets on the host (core/distributed_bfs.py, comm/engine.py), and a meta "
-           "tensor has no value: eager PyTorch cannot run this data-dependent loop "
-           "symbolically, as JAX traces it")
 
 #: ops that allocate and move no byte
 _ALLOC_ONLY = {"aten::empty", "aten::empty_like", "aten::empty_strided", "aten::new_empty",
@@ -203,10 +208,11 @@ def argument_bytes(args, in_shardings, mesh: meshlib.Mesh) -> int:
 
 def _count(cell: cellslib.Cell, mesh: meshlib.Mesh, variant: str,
            cache: dict | None) -> ProgramCounts:
-    """The cell's counts.  A 2D cell runs on the mesh's grid and is counted
-    each time; the others' ``fn`` does not depend on the mesh, and ``cache``
-    keeps their counts by arch, shape, variant and argument shapes."""
-    if cell.kind == "graph_train_2d":
+    """The cell's counts.  A 2D cell and a BFS cell run on the mesh's grid
+    and are counted each time; the others' ``fn`` does not depend on the
+    mesh, and ``cache`` keeps their counts by arch, shape, variant and
+    argument shapes."""
+    if cell.kind in ("graph_train_2d", "bfs"):
         grid = cellslib.make_grid(mesh, cellslib.META)
         return count_program(functools.partial(cell.fn, grid=grid), cell.args, grid)
     cache = {} if cache is None else cache
@@ -234,6 +240,30 @@ def ledger_against_count(st, roots, mode: str = "auto",
     with roofline.count_collectives(st.grid) as counted:
         fn(*st.blocks, roots)
     return roofline.compare_comm_stats(stats, counted)
+
+
+def batch_against_level(st, roots, mode: str = "auto", policy: str = "top_down"):
+    """One batch of the distributed BFS from ``roots`` on the grid of ``st``
+    (a :class:`repro_torch.bench.distributed.DistSetup` on a ``SimGrid``)
+    under :func:`~repro_torch.launch.roofline.count_collectives`, and the
+    count of one level at the same shapes on ``meta`` (every rung of each
+    adaptive exchange, every pass of ``policy``; what the dry-run counts).
+    Returns (the batch's count, the level's count, the batch's depth): the
+    batch's bytes per kind are at most the level's times the depth, and
+    equal to them under a plan with one format per exchange."""
+    from repro_torch.comm import SimGrid
+    from repro_torch.core import distributed_bfs as dbfs
+
+    cfg = dbfs.DistBFSConfig(mode=mode, policy=policy, expand=st.expand,
+                             row_axes=st.grid.row_axes)
+    with roofline.count_collectives(st.grid) as counted:
+        depth = dbfs.build_bfs(st.grid, st.bg, cfg)(*st.blocks, roots)[2]
+    grid = SimGrid(st.grid.rows, st.grid.cols, "meta", row_fold=st.grid.row_fold)
+    blocks = [[torch.empty_like(x, device="meta") for x in b] for b in st.blocks]
+    root = torch.empty(np.shape(roots), dtype=torch.int32, device="meta")
+    with roofline.count_collectives(grid) as level:
+        dbfs.build_bfs(grid, st.bg, cfg)(*blocks, root)
+    return counted, level, depth
 
 
 def proc_ledger_check(grid, spec: dict) -> dict:
@@ -272,32 +302,33 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
         rec["meta"] = {k: (float(v) if isinstance(v, (int, float)) else v)
                        for k, v in cell.meta.items()}
         arg_bytes = argument_bytes(cell.args, cell.in_shardings, m)
-        if cell.kind == "bfs":
-            rec.update(status="ok", memory={"argument_bytes": arg_bytes}, not_run=NOT_RUN)
-        else:
-            counts = _count(cell, m, variant, cache)
-            terms = roofline.terms_from_counts(counts, m.size, float(cell.meta["model_flops"]))
-            rec.update(
-                lower_s=counts.seconds,
-                compile_s=0.0,
-                memory={"output_bytes": counts.output_bytes, "temp_bytes": counts.temp_bytes,
-                        "argument_bytes": arg_bytes, "generated_code_bytes": None},
-                cost={"flops": counts.flops, "bytes_accessed": counts.bytes_accessed},
-                roofline={
-                    "compute_s": terms.compute_s,
-                    "memory_s": terms.memory_s,
-                    "collective_s": terms.collective_s,
-                    "dominant": terms.dominant,
-                    "model_flops": terms.model_flops,
-                    "hlo_flops_scaled": terms.hlo_flops,
-                    "hlo_bytes_scaled": terms.hlo_bytes,
-                    "collective_bytes": terms.collective_bytes,
-                    "collective_breakdown": dict(counts.collectives.per_op),
-                    "useful_flop_ratio": terms.useful_flop_ratio,
-                    "roofline_fraction": terms.roofline_fraction,
-                },
-                status="ok",
-            )
+        counts = _count(cell, m, variant, cache)
+        # a BFS cell's meta run is one level: scaled to the cell's depth
+        loop_mult = float(cell.meta["loop_mult"]) if cell.kind == "bfs" else 1.0
+        terms = roofline.terms_from_counts(counts, m.size, float(cell.meta["model_flops"]),
+                                           loop_mult=loop_mult)
+        rec.update(
+            lower_s=counts.seconds,
+            compile_s=0.0,
+            memory={"output_bytes": counts.output_bytes, "temp_bytes": counts.temp_bytes,
+                    "argument_bytes": arg_bytes, "generated_code_bytes": None},
+            cost={"flops": counts.flops, "bytes_accessed": counts.bytes_accessed},
+            roofline={
+                "compute_s": terms.compute_s,
+                "memory_s": terms.memory_s,
+                "collective_s": terms.collective_s,
+                "dominant": terms.dominant,
+                "model_flops": terms.model_flops,
+                "hlo_flops_scaled": terms.hlo_flops,
+                "hlo_bytes_scaled": terms.hlo_bytes,
+                "collective_bytes": terms.collective_bytes,
+                "collective_breakdown": {k: int(loop_mult * v)
+                                         for k, v in counts.collectives.per_op.items()},
+                "useful_flop_ratio": terms.useful_flop_ratio,
+                "roofline_fraction": terms.roofline_fraction,
+            },
+            status="ok",
+        )
     except Exception as e:  # noqa: BLE001 -- per-cell isolation is the point
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]
@@ -311,7 +342,7 @@ def _write(rec: dict, out_dir: str) -> dict:
     name = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}{suffix}.json"
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(rec, f, indent=1, default=str)
-    status = "not_run" if "not_run" in rec else rec["status"]
+    status = rec["status"]
     extra = rec.get("skip_reason", rec.get("error", ""))[:90]
     dom = rec.get("roofline", {}).get("dominant", "")
     print(f"[{status:7s}] {rec['arch']:22s} {rec['shape']:14s} {rec['mesh']:8s} "
@@ -320,8 +351,9 @@ def _write(rec: dict, out_dir: str) -> dict:
 
 
 def report(out_dir: str) -> dict[str, dict[str, int]]:
-    """Print the records' tally, in all and per mesh (``not_run`` apart from
-    the cells that were counted), and every error; returns the tallies."""
+    """Print the records' tally, in all and per mesh, and every error;
+    returns the tallies.  ``not_run`` counts records that carry the key
+    (every cell is counted, so it stays 0 for records this module writes)."""
     rows = []
     for fn in sorted(os.listdir(out_dir)):
         if fn.endswith(".json"):

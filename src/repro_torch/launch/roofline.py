@@ -89,8 +89,12 @@ def count_collectives(grid):
     ran over, as ``AdaptiveExchange`` records it; its grid bytes add the
     result of every local rank of those groups.  The grid's host
     bookkeeping (``assemble``, ``gather_objects``, ``barrier``) is not a
-    collective of the program and is not counted.  No loop multiplier is
-    needed: an eager run executes every level and every layer."""
+    collective of the program and is not counted.  An eager run executes
+    every level and every layer, so no loop multiplier is needed, with one
+    exception: the distributed BFS on a ``meta`` grid runs one level (each
+    adaptive exchange with every branch), the while body the reference's
+    HLO holds once, and the dry-run scales that count by the cell's
+    ``loop_mult`` as ``parse_collectives`` does."""
     counted = CollectiveStats(per_op={}, total_bytes=0, n_ops=0)
     saved = {name: grid.__dict__.get(name) for name in GRID_COLLECTIVES}
 
@@ -219,7 +223,8 @@ class RooflineTerms:
         return ideal_s / self.bound_s if self.bound_s else 0.0
 
 
-def terms_from_counts(counts, chips: int, model_flops: float) -> RooflineTerms:
+def terms_from_counts(counts, chips: int, model_flops: float,
+                      loop_mult: float = 1.0) -> RooflineTerms:
     """The three terms from the counts of a program run once on ``meta``
     (:class:`repro_torch.launch.dryrun.ProgramCounts`).
 
@@ -227,13 +232,16 @@ def terms_from_counts(counts, chips: int, model_flops: float) -> RooflineTerms:
     and bytes are the counted totals over ``chips``; ``compute_s`` and
     ``memory_s`` are those shares over ``PEAK_FLOPS`` and ``HBM_BW``, as in
     the reference.  ``collective_s`` is the counted per-rank collective
-    bytes over ``LINK_BW``.  No loop multiplier is applied: the reference
-    applies one only because ``cost_analysis`` visits a while-body once,
-    and an eager run counts every iteration it executes.
+    bytes over ``LINK_BW``.  FLOPs, bytes and collective bytes are
+    multiplied by ``loop_mult``, as ``terms_from_compiled`` does.  An eager
+    run counts every iteration it executes, so the default is 1; the
+    distributed BFS is the exception: on ``meta`` it runs one level, not
+    the loop, and its cells pass their ``loop_mult`` (the reference
+    applies one because ``cost_analysis`` visits a while-body once).
     """
-    flops = counts.flops / chips
-    bytes_ = counts.bytes_accessed / chips
-    coll = counts.collectives.total_bytes
+    flops = counts.flops * loop_mult / chips
+    bytes_ = counts.bytes_accessed * loop_mult / chips
+    coll = int(counts.collectives.total_bytes * loop_mult)
     return RooflineTerms(
         compute_s=flops / PEAK_FLOPS,
         memory_s=bytes_ / HBM_BW,

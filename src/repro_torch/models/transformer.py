@@ -495,8 +495,8 @@ def _mask_pad(cfg, logits):
     return logits + pad.to(logits.dtype) * -1e9  # pad logits out of the softmax
 
 
-def forward(cfg: TransformerConfig, params: Params, tokens):
-    """tokens (B, S) -> (logits (B, S, V_pad), aux_loss)."""
+def _hidden(cfg: TransformerConfig, params: Params, tokens):
+    """tokens (B, S) -> (the last layer's output (B, S, d), aux_loss)."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     pos = torch.arange(s, device=x.device).expand(b, s)
@@ -504,9 +504,19 @@ def forward(cfg: TransformerConfig, params: Params, tokens):
     for i in range(cfg.n_layers):
         x, a = _layer(cfg, _layer_params(params, i), x, pos)
         aux = aux + a
+    return x, aux
+
+
+def _head(cfg: TransformerConfig, params: Params, x):
+    """(..., d) -> the final norm and the LM head: logits (..., V_pad)."""
     x = rmsnorm(x, params["final_norm"])
-    logits = x @ params["lm_head"].to(cfg.compute_dtype)
-    return _mask_pad(cfg, logits), aux
+    return _mask_pad(cfg, x @ params["lm_head"].to(cfg.compute_dtype))
+
+
+def forward(cfg: TransformerConfig, params: Params, tokens):
+    """tokens (B, S) -> (logits (B, S, V_pad), aux_loss)."""
+    x, aux = _hidden(cfg, params, tokens)
+    return _head(cfg, params, x), aux
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch):
@@ -630,6 +640,8 @@ def decode_step(cfg: TransformerConfig, params: Params, cache, tokens, pos):
 
 def prefill(cfg: TransformerConfig, params: Params, tokens):
     """Prefill pass: full forward returning last-position logits (cache fill
-    is exercised by the decode path; prefill cells measure the forward)."""
-    logits, _ = forward(cfg, params, tokens)
-    return logits[:, -1]
+    is exercised by the decode path; prefill cells measure the forward).
+    The head runs on the last position only, so the (B, V_pad) result is
+    all that stays alive of the logits."""
+    x, _ = _hidden(cfg, params, tokens)
+    return _head(cfg, params, x[:, -1])

@@ -16,12 +16,21 @@ the end-to-end dry-run case of ``tests/test_cells.py``:
 * ``count_program`` exact on a hand-written product, relu, sum and
   backward, and ``terms_from_counts``' arithmetic;
 * ``run_cell`` on the cells of the reference's end-to-end case: an LM
-  prefill cell counted, an LM skip, a 2D cell's collectives, a graph500
-  cell ``not_run``.
+  prefill cell counted (its output the last position's logits only), an
+  LM skip, a 2D cell's collectives;
+* the distributed BFS on ``meta`` (one level, every rung of each adaptive
+  exchange) against the reference's compiled HLO, in one JAX subprocess
+  with 4 forced host devices: at n = 2**16 on 2x2 under ``raw``,
+  ``bitmap`` and ``auto``, ``parse_collectives(hlo, 1.0)`` per kind; and
+  the ``graph500/scale22`` cell (baseline and ``bitmaponly``) on a 2x2
+  mesh, ``parse_collectives(hlo, 8.0)`` per kind;
+* a real batch's collectives against that one-level count times its depth.
 """
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,10 +39,14 @@ import torch
 from repro.configs import common as jcfgs
 from repro.launch import roofline as jroofline
 from repro_torch.bench import distributed, graph500
-from repro_torch.comm import SimGrid, procgrid
+from repro_torch.comm import AdaptiveExchange, CommStats, SimGrid, procgrid
+from repro_torch.configs import common as configs
 from repro_torch.core import bfs
+from repro_torch.core import distributed_bfs as dbfs
 from repro_torch.core.csr import Partition2D
 from repro_torch.launch import cells, dryrun, mesh, roofline
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the keys of the reference's record (``repro/launch/dryrun.py``)
 MEMORY_KEYS = ("output_bytes", "temp_bytes", "argument_bytes", "generated_code_bytes")
@@ -51,6 +64,43 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(saved)
+
+
+#: the reference's HLO collectives, per op kind: the BFS at n = 2**16 on
+#: 2x2 per plan (loop body once) and the graph500/scale22 cell per variant
+#: (loop_mult 8), printed as JSON by a subprocess of 4 host devices
+JAX_HLO = """
+import json
+import jax, jax.numpy as jnp
+from repro import compat
+from repro.core import csr, distributed_bfs as dbfs
+from repro.launch import cells, roofline
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+part = csr.Partition2D(n=1 << 16, n_orig=1 << 16, rows=2, cols=2)
+blk = jax.ShapeDtypeStruct((2, 2, 4096), jnp.int32)
+out = {}
+for mode in ("raw", "bitmap", "auto"):
+    fn = dbfs.build_bfs(mesh, part, dbfs.DistBFSConfig(mode=mode))
+    hlo = jax.jit(fn).lower(blk, blk, jax.ShapeDtypeStruct((), jnp.int32)).compile().as_text()
+    out[mode] = roofline.parse_collectives(hlo, 1.0).per_op
+for variant in ("baseline", "bitmaponly"):
+    cell = cells.build_cell("graph500", "scale22", mesh, variant=variant)
+    with compat.set_mesh(mesh):
+        lowered = jax.jit(cell.fn, in_shardings=cell.in_shardings).lower(*cell.args)
+    hlo = lowered.compile().as_text()
+    out["scale22/" + variant] = roofline.parse_collectives(hlo, cell.meta["loop_mult"]).per_op
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_hlo() -> dict:
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", JAX_HLO], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout[-2000:]}\nSTDERR:\n{out.stderr[-3000:]}"
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="module")
@@ -219,6 +269,12 @@ def test_run_cell_lm_prefill_and_skip(tmp_path, capsys):
     assert roof["model_flops"] == rec["meta"]["model_flops"]
     assert _stored(rec, str(tmp_path)) == json.loads(json.dumps(rec, default=str))
 
+    # prefill keeps the last position's (B, V_pad) logits only
+    cfg = configs.get("gemma-2b").model_config()
+    batch = configs.get("gemma-2b").shape("prefill_32k").params["global_batch"]
+    itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    assert rec["memory"]["output_bytes"] == batch * cfg.padded_vocab * itemsize
+
     skip = dryrun.run_cell("minicpm-2b", "long_500k", True, str(tmp_path))
     want = jcfgs.get("minicpm-2b").shape("long_500k").skip_reason
     assert skip["status"] == "skip" and skip["skip_reason"] == want
@@ -248,11 +304,110 @@ def test_run_cell_2d_collectives_equal_the_count(tmp_path):
     assert rec["memory"]["output_bytes"] == counts.output_bytes > 0
 
 
-def test_run_cell_graph500_not_run(tmp_path):
-    rec = dryrun.run_cell("graph500", "scale22", False, str(tmp_path), mesh=TWO_BY_TWO)
-    assert rec["status"] == "ok" and rec["not_run"] == dryrun.NOT_RUN
-    assert "cost" not in rec and "roofline" not in rec
+@pytest.mark.parametrize("variant", ["baseline", "bitmaponly"])
+def test_run_cell_graph500_equals_the_hlo(tmp_path, jax_hlo, variant):
+    """The paper's cell on a 2x2 mesh: one level on meta, every rung,
+    times the cell's loop_mult, per kind equal to the reference's compiled
+    program's collectives; no product FLOPs, the peak of the global
+    program, the arguments per rank as before."""
+    rec = dryrun.run_cell("graph500", "scale22", False, str(tmp_path), variant=variant,
+                          mesh=TWO_BY_TWO)
+    assert rec["status"] == "ok" and "not_run" not in rec, rec.get("traceback")
+    assert set(MEMORY_KEYS) <= set(rec["memory"]) and set(ROOFLINE_KEYS) <= set(rec["roofline"])
+    roof = rec["roofline"]
+    assert roof["collective_breakdown"] == jax_hlo[f"scale22/{variant}"]
+    assert roof["collective_bytes"] == sum(jax_hlo[f"scale22/{variant}"].values())
+    assert rec["meta"]["loop_mult"] == 8.0
+    assert rec["cost"]["flops"] == 0 and roof["compute_s"] == 0
+    assert roof["useful_flop_ratio"] == 0
+    assert roof["hlo_bytes_scaled"] == 8 * rec["cost"]["bytes_accessed"] / 4
+    assert rec["memory"]["temp_bytes"] > 0 and rec["memory"]["output_bytes"] > 0
     e_cap = int(rec["meta"]["e_cap"])
     # src and dst blocks (2, 2, e_cap) int32 split over (data, model), the root
-    assert rec["memory"] == {"argument_bytes": 2 * e_cap * 4 + 4}
-    assert dryrun.report(str(tmp_path))["2x2"]["not_run"] == 1
+    assert rec["memory"]["argument_bytes"] == 2 * e_cap * 4 + 4
+    tally = dryrun.report(str(tmp_path))
+    assert tally["2x2"] == {"cells": 1, "ok": 1, "not_run": 0, "skip": 0, "error": 0}
+
+
+# ---------------------------------------------------------------------------
+# the distributed BFS on meta
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_meta_level_equals_the_hlo(jax_hlo, mode):
+    """The reference test's partition on a meta 2x2 grid: one level, each
+    adaptive exchange with every branch, is the while body of the
+    reference's compiled program, byte for byte per kind."""
+    grid = SimGrid(2, 2, "meta")
+    part = Partition2D(n=1 << 16, n_orig=1 << 16, rows=2, cols=2)
+    blk = grid.local(lambda q: torch.empty(4096, dtype=torch.int32, device="meta"))
+    fn = dbfs.build_bfs(grid, part, dbfs.DistBFSConfig(mode=mode))
+    with roofline.count_collectives(grid) as counted:
+        parent, level, depth = fn(blk, blk, torch.empty((), dtype=torch.int32, device="meta"))
+    assert counted.per_op == jax_hlo[mode]
+    assert depth == 1 and parent.shape == level.shape == (1 << 16,)
+    assert parent.device.type == "meta"
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("mode", MODES)
+def test_batch_within_level_count_times_depth(scale16, mode, batch):
+    """A real batch on the CPU grid sends, per kind, the one-level meta
+    count times its depth: exactly for the single-format plans, at most
+    that for ``auto`` (a level runs one rung where the count holds all)."""
+    roots = bfs.hub_roots(scale16.g.degrees(), batch)
+    roots = np.int32(roots[0]) if batch == 1 else roots
+    counted, level, depth = dryrun.batch_against_level(scale16, roots, mode)
+    assert depth > 1 and set(counted.per_op) == set(level.per_op)
+    bound = {k: depth * v for k, v in level.per_op.items()}
+    if mode == "auto":
+        assert all(counted.per_op[k] <= bound[k] for k in bound), (counted.per_op, bound)
+        assert counted.per_op["all-to-all"] < bound["all-to-all"]
+    else:
+        assert counted.per_op == bound
+
+
+def _exchange(grid, stats=None):
+    return AdaptiveExchange("bfs/column", grid, "data", None, stats)
+
+
+def test_dispatch_on_meta_runs_every_branch_over_every_group():
+    grid = SimGrid(2, 2, "meta")
+    stats = CommStats()
+    ex = _exchange(grid, stats)
+    ran = []
+
+    def branch(k):
+        def run(groups):
+            ran.append((k, groups))
+            return ex.all_gather(grid.local(lambda p: torch.empty(8, device="meta")),
+                                 fmt=f"f{k}", groups=groups)
+        return run
+
+    bucket = grid.local(lambda p: torch.empty((), dtype=torch.int32, device="meta"))
+    out = ex.dispatch(bucket, [branch(0), branch(1), branch(2)])
+    assert ran == [(k, grid.groups("data")) for k in range(3)]
+    assert all(o.shape == (16,) and o.device.type == "meta" for o in out)
+    # the trace-time ledger: the consensus and every rung
+    assert {r.fmt for r in stats.records()} == {"consensus", "f0", "f1", "f2"}
+
+
+def test_dispatch_refuses_meta_mixed_with_another_device():
+    grid = SimGrid(2, 2, "cpu")
+    bucket = grid.local(lambda p: torch.zeros((), dtype=torch.int32))
+    bucket[0] = torch.empty((), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        _exchange(grid).dispatch(bucket, [lambda gs: [None] * 4, lambda gs: [None] * 4])
+
+
+def test_validate_roots_on_meta():
+    """Shape and dtype only, as the reference checks a traced root."""
+    root = bfs.validate_roots(torch.empty(4, dtype=torch.int64, device="meta"), 16)
+    assert root.device.type == "meta" and root.dtype == torch.int32 and root.shape == (4,)
+    with pytest.raises(TypeError):
+        bfs.validate_roots(torch.empty((), device="meta"), 16)
+    with pytest.raises(ValueError):
+        bfs.validate_roots(torch.empty(2, 2, dtype=torch.int32, device="meta"), 16)
+    with pytest.raises(ValueError):
+        bfs.validate_roots(torch.empty(0, dtype=torch.int32, device="meta"), 16)

@@ -256,13 +256,17 @@ def test_forward_loss_and_gradients_match_jax(arch):
     toks = _tokens(cfg, (2, 64))
     logits, aux = tfm.forward(cfg, p, torch.from_numpy(toks))
     jbatch = {"tokens": jnp.asarray(toks)}
-    (jlogits, jaux), (jloss, jgrads) = jax.jit(lambda q: (
+    (jlogits, jaux), (jloss, jgrads), jlast = jax.jit(lambda q: (
         jtfm.forward(jcfg, q, jbatch["tokens"]),
-        jax.value_and_grad(lambda r: jtfm.loss_fn(jcfg, r, jbatch))(q)))(jp)
+        jax.value_and_grad(lambda r: jtfm.loss_fn(jcfg, r, jbatch))(q),
+        jtfm.prefill(jcfg, q, jbatch["tokens"])))(jp)
     assert logits.shape == (2, 64, cfg.padded_vocab)
     assert _gap(logits, jlogits) <= TOL
     assert abs(float(aux) - float(jaux)) <= TOL * max(abs(float(jaux)), 1.0)
-    assert torch.equal(tfm.prefill(cfg, p, torch.from_numpy(toks)), logits[:, -1])
+    # the head runs on the last position only: its storage is (B, V_pad)
+    last = tfm.prefill(cfg, p, torch.from_numpy(toks))
+    assert last.untyped_storage().nbytes() == 2 * cfg.padded_vocab * last.element_size()
+    assert _gap(last, jlast) <= TOL and _gap(last, logits[:, -1].numpy()) <= TOL
 
     flat, unflatten = tree.flatten(p)
     leaves = [x.clone().requires_grad_(True) for x in flat]
