@@ -574,6 +574,26 @@ def pack_ragged_inputs(gen, dev) -> list:
     return cases
 
 
+def unpack_ragged_inputs(gen, dev) -> list:
+    """(label, words, b) inputs of unpack at every width: 1 to 8 planes of 1
+    to 5 chunks, 70,000 one-chunk planes (past the 65,535 of a y grid
+    dimension) and a words view one word into its storage (the scalar-load
+    route at b > 1)."""
+    import torch
+    from repro_torch.kernels.bitpack import ref as bp_ref
+
+    cases = []
+    for b in bp_ref.B_CLASSES:
+        for planes, chunks in ((1, 1), (3, 5), (7, 2), (8, 3), (70_000, 1)):
+            w = torch.randint(-2**31, 2**31 - 1, (planes, chunks * 32 * b), generator=gen,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+            cases.append((f"b={b} B={planes} chunks={chunks}", w, b))
+        w = torch.randint(-2**31, 2**31 - 1, (3, 2 * 32 * b), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+        cases.append((f"b={b} B=3 1 word in", offset_view(w), b))
+    return cases
+
+
 def popcount_ragged_inputs(gen, dev) -> list:
     """(label, words) inputs that take both routes of popcount_planes: w =
     0..3 (mod 4), w = 0, views one word into their storage, all-ones words
@@ -718,12 +738,8 @@ def check_ragged() -> None:
         routes["popcount_planes"].add(kernels.vec_rows(words))
     routes["interleave_values"] = check_helpers_ragged(dev)
     expect(all(r == {0, 1} for r in routes.values()), ("both routes launched", routes))
-    for planes, chunks in ((1, 1), (3, 5), (7, 2)):
-        for b in bp_ref.B_CLASSES:
-            w = torch.randint(-2**31, 2**31 - 1, (planes, chunks * 32 * b), generator=gen,
-                              device=dev, dtype=torch.int64).to(torch.int32)
-            expect(same(bp_ops.unpack_planes(w, b), bp_ref.unpack_planes(w, b)),
-                   ('unpack', planes, chunks, b))
+    for label, w, b in unpack_ragged_inputs(gen, dev):
+        expect(same(bp_ops.unpack_planes(w, b), bp_ref.unpack_planes(w, b)), ("unpack", label))
     words = torch.randint(-2**31, 2**31 - 1, (5, 1500), generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
     expect(same(pc_ops.popcount_words(words), pc_ref.popcount_words(words)), 'popcount_words')
@@ -1943,7 +1959,8 @@ def algebra_step(setup, roots, st, card) -> tuple[dict, dict, dict]:
 def check_quantize_ragged() -> None:
     """The quantize kernel against its plain version exactly on ragged
     inputs: N = 128, N not a multiple of 1024, an all-zero group, scales
-    1e-3 to 1e3, groups with a NaN, a +inf and a -inf (each dequantizes to
+    1e-3 to 1e3, 3, 7, 9 and 4,097 groups (not multiples of the G groups a
+    warp takes a step), groups with a NaN, a +inf and a -inf (each dequantizes to
     NaN, as in the reference), and half-way values (a group with max 127,
     so scale 1.0: 0.5, 1.5, 2.5 give 0, 2, 2); a misaligned input raises."""
     import torch
@@ -1954,6 +1971,8 @@ def check_quantize_ragged() -> None:
     for n, scale in ((128, 1.0), (128 * 13, 1e-3), (1024 * 5 + 128 * 3, 1e3), (1024, 7.0)):
         cases.append(torch.randn(n, generator=gen, device="cuda") * scale)
     cases[-1][256:384] = 0.0  # an all-zero group
+    for groups in (3, 7, 9, 4097):  # tails of the G groups a warp takes a step
+        cases.append(torch.randn(128 * groups, generator=gen, device="cuda") * groups)
     bad = torch.randn(384, generator=gen, device="cuda")
     bad[5], bad[130], bad[300] = float("nan"), float("inf"), -float("inf")
     cases.append(bad)
@@ -2060,7 +2079,8 @@ def gnn_step(card) -> tuple[dict, dict]:
     for r in rows:
         print(describe(r, card))
     print("ragged shapes: quantize (N = 128, 1,664, 5,504, 1,024 with a zero group, "
-          "384 with NaN/+inf/-inf groups, half-way values): exact")
+          "128 x 3, 7, 9, 4,097 groups, 384 with NaN/+inf/-inf groups, half-way values): "
+          "exact")
 
     kernels.reset_launches()
     res = gnn_bench.run(st, requests=4)
@@ -3245,7 +3265,7 @@ def main() -> int:
     print("ragged shapes: pack (b=1..32, bool/uint8/int32), popcount_planes and "
           "interleave_values (B = 2..17, sentinel columns untouched) on both routes, "
           "frontier_mask, popcount_blocks (W = 1..33,792, 1 word in) on both routes, "
-          "unpack (b=1..32), popcount_words, "
+          "unpack (b=1..32, up to 70,000 planes, a view one word in), popcount_words, "
           "spmv push/pull (B planes and one): exact")
 
     setup = graph500.build(args.scale, 16, 1, "hybrid", "cuda")

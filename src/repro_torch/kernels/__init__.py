@@ -146,11 +146,20 @@ def cfunc(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def current_stream(device: torch.device | None = None) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (default: the
+    current device), as ``torch.cuda.current_stream(device).cuda_stream``
+    gives it, without building a ``torch.cuda.Stream`` object (which costs
+    several us a call)."""
+    index = device.index if device is not None else None
+    return torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice() if index is None else index)
+
+
 def launch(kernel: str, name: str, argtypes, *args) -> None:
     """Launch C entry point ``name`` on PyTorch's current stream, raise if
     the launch was refused, and count one launch of ``kernel``."""
-    fn = cfunc(name, argtypes)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = cfunc(name, argtypes)(*args, current_stream())
     if err:
         msg = library().rt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
@@ -195,6 +204,12 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     the CPU or all on ``meta`` (shapes only: the plain version runs, and no
     kernel runs on any path); anything else (mixed, or another device type)
     raises."""
+    if len(tensors) == 1 and isinstance(tensors[0], torch.Tensor):
+        t = tensors[0]  # the common case, without building sets of devices
+        if t.is_cuda:
+            return True
+        if t.is_cpu or t.is_meta:
+            return False
     devices = {t.device for t in tensors}
     kinds = {d.type for d in devices}
     if kinds == {"cpu"} or kinds == {"meta"}:

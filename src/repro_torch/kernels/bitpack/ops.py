@@ -26,8 +26,8 @@ UNPACK_KERNEL = "unpack"
 _ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I64, kernels.I32, kernels.I32,
          kernels.I32)
 _BYTE_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I64, kernels.I32, kernels.I32)
-_UNPACK_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I32)
-_MAX_PLANES = 65535  # gridDim.y of unpack
+_UNPACK_BITS_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I32)
+_UNPACK_ARGS = (kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I32, kernels.I32)
 
 
 def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
@@ -79,15 +79,16 @@ def unpack_planes(words: torch.Tensor, b: int) -> torch.Tensor:
         raise ValueError(f"unpack_planes: {w} words at width {b} are not whole chunks")
     if b == 32:
         return words
-    if planes > _MAX_PLANES:
-        raise ValueError(f"unpack_planes: at most {_MAX_PLANES} planes, got {planes}")
-    dtype = torch.bool if b == 1 else torch.int32
-    out = torch.empty((planes, w * 32 // b), dtype=dtype, device=words.device)
+    out = torch.empty((planes, w * 32 // b), dtype=torch.bool if b == 1 else torch.int32,
+                      device=words.device)
     if out.numel() == 0:
         return out
-    name = "rt_unpack_u8" if b == 1 else "rt_unpack_u32"
-    kernels.launch(UNPACK_KERNEL, name, _UNPACK_ARGS, words.data_ptr(), out.data_ptr(),
-                   w, planes, b)
+    if b == 1:
+        kernels.launch(UNPACK_KERNEL, "rt_unpack_u8", _UNPACK_BITS_ARGS, words.data_ptr(),
+                       out.data_ptr(), w, planes)
+    else:
+        kernels.launch(UNPACK_KERNEL, "rt_unpack_u32", _UNPACK_ARGS, words.data_ptr(),
+                       out.data_ptr(), w, planes, b, kernels.vec_rows(words))
     return out
 
 

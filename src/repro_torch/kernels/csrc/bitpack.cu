@@ -51,25 +51,39 @@
 //
 // unpack is the inverse, bound by bytes as well: each word is read once and
 // its 32/b values written once (1 byte each for b = 1 membership planes, 4
-// bytes otherwise).  One thread per packed word: thread j of a chunk loads its
-// word once and writes value k*32b + j for k < 32/b, so for a fixed k
-// neighbouring threads store neighbouring values and both the loads and the
-// stores coalesce.  b = 1 writes uint8 (read as bool) so that a received
+// bytes otherwise).  b = 1 writes uint8 (read as bool) so that a received
 // bitmap needs no cast pass; the TPU's (32, 128) output tile is not kept.
+//
+// unpack, b = 1: the inverse of pack's warp transpose.  One warp takes one
+// (plane, chunk) item at a time in a grid-stride loop over a grid sized to
+// the card, so any number of planes is taken.  Lane j loads word j of the
+// chunk (one 128-byte coalesced load; streaming, as each word is read once).
+// Word j is row j of a 32 x 32 bit matrix whose column k is value 32k + j;
+// the five-stage __shfl_xor_sync transpose gives lane k column k, that is
+// values 32k..32k+31 at bits 0..31.  Two more shuffles give lane L the half
+// rows it stores, as pack's lanes load them: values 16L..16L+15 (half L & 1
+// of lane L/2's column) and 512 + 16L.. (of lane 16 + L/2's).  Each half
+// spreads over 16 bytes (a multiply a nibble) and goes out as one 16-byte
+// store, so a warp writes the chunk's 1,024 bytes in two store instructions
+// of 512 contiguous bytes, every 32-byte sector whole.  Storing each lane's
+// own 32 values at byte 32k and 32k + 16 instead takes the same two
+// instructions but writes every sector in two halves: on an H100 at (8,
+// 65,536) words it took 8.70-8.82 us of device time, this map 5.71-5.88 and
+// the thread-a-word kernel it replaced (32 one-byte stores a thread)
+// 7.82-7.97, against a bound of 5.63 (bench/kernel_sweep.py).  The stores are ordinary ones: the
+// exchange reads the received bitmap next, from L2.
+//
+// unpack, b > 1 (the id streams of comm/formats.py): one thread per 4
+// consecutive words j..j+3 of a chunk, b a template argument.  One 16-byte
+// load of the words, then for k < 32/b one 16-byte store of values
+// k*32b + j..j+3 (the inverse of pack_words_kernel's map).  The loads need a
+// 16-byte aligned base (the wrapper says whether it is); a view at another
+// offset loads the 4 words as scalars.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // 2048 resident threads an SM at 256 a block
-
-// Grid of a grid-stride loop over `threads` threads' worth of items: enough
-// to cover them, at most one full residency of the card.
-unsigned stride_grid(long long threads) {
-  const long long need = (threads + kThreads - 1) / kThreads;
-  const long long card = static_cast<long long>(rt::sm_count()) * kBlocksPerSm;
-  return static_cast<unsigned>(need < card ? need : card);
-}
+constexpr int kThreads = rt::kStrideBlock;
 
 // Even bits to the low half (bit 2k -> k), odd bits to the high half
 // (2k + 1 -> 16 + k): the inverse perfect shuffle (Hacker's Delight 7-2).
@@ -79,6 +93,22 @@ __device__ __forceinline__ uint32_t unshuffle(uint32_t x) {
   t = (x ^ (x >> 2)) & 0x0C0C0C0Cu; x ^= t ^ (t << 2);
   t = (x ^ (x >> 4)) & 0x00F000F0u; x ^= t ^ (t << 4);
   t = (x ^ (x >> 8)) & 0x0000FF00u; x ^= t ^ (t << 8);
+  return x;
+}
+
+// A 32 x 32 bit transpose over the warp: lane l holds row l (bit c = column
+// c); returns column l (bit r = row r).  Stage s swaps, between lanes l and
+// l ^ s, the s x s blocks off the diagonal of each 2s x 2s block.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  const uint32_t masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u,
+                             0x55555555u};
+#pragma unroll
+  for (int stage = 0; stage < 5; ++stage) {
+    const int s = 16 >> stage;
+    const uint32_t m = masks[stage];
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, s);
+    x = (lane & s) ? ((x & ~m) | ((y >> s) & m)) : ((x & m) | ((y & m) << s));
+  }
   return x;
 }
 
@@ -103,17 +133,9 @@ __device__ __forceinline__ uint32_t transpose_shuffle(const uint4& lo, const uin
   // even lane 2m: h0, h1 = columns 0..15 of rows m, 16 + m; odd: columns 16..31
   const bool odd = lane & 1;
   const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? h0 : h1, 1);
-  uint32_t x = odd ? (got | (h1 << 16)) : (h0 | (got << 16));  // row m or 16 + m
-  const uint32_t masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u,
-                             0x55555555u};
-#pragma unroll
-  for (int stage = 0; stage < 5; ++stage) {
-    const int s = 16 >> stage;
-    const uint32_t m = masks[stage];
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, s);
-    x = (lane & s) ? ((x & ~m) | ((y >> s) & m)) : ((x & m) | ((y & m) << s));
-  }
-  return unshuffle(x);  // bit 2m = row m, bit 2m + 1 = row 16 + m -> bit k = row k
+  const uint32_t x = odd ? (got | (h1 << 16)) : (h0 | (got << 16));  // row m or 16 + m
+  // bit 2m = row m, bit 2m + 1 = row 16 + m -> bit k = row k
+  return unshuffle(transpose32(x, lane));
 }
 
 __device__ __forceinline__ uint4 load16_or_zero(const uint8_t* p, int64_t i, int64_t n) {
@@ -186,7 +208,7 @@ template <bool kVec>
 int launch_pack_bytes(const void* values, void* out, long long n, long long chunks,
                       int planes, cudaStream_t stream) {
   const long long items = chunks * planes;
-  pack_bytes_kernel<kVec><<<stride_grid(items * 32), kThreads, 0, stream>>>(
+  pack_bytes_kernel<kVec><<<rt::stride_grid(items * 32), kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(values), static_cast<uint32_t*>(out), n, chunks, items);
   return rt::launch_status();
 }
@@ -196,7 +218,7 @@ int launch_pack_words(const void* values, void* out, long long n, long long word
                       int planes, int vec, cudaStream_t stream) {
   const long long quads = words_per_plane / 4;  // 32b words a chunk: a multiple of 4
   const long long items = quads * planes;
-  const unsigned grid = stride_grid(items);
+  const unsigned grid = rt::stride_grid(items);
   const auto* v = static_cast<const uint32_t*>(values);
   auto* o = static_cast<uint32_t*>(out);
   if (vec)
@@ -206,28 +228,78 @@ int launch_pack_words(const void* values, void* out, long long n, long long word
   return rt::launch_status();
 }
 
-template <typename T>
-__global__ void unpack_kernel(const uint32_t* __restrict__ words, T* __restrict__ out,
-                              int64_t words_per_plane, int b) {
-  const int64_t w = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (w >= words_per_plane) return;
-  const int64_t plane = blockIdx.y;
-  const int wc = 32 * b;
-  const int64_t first = (w / wc) * rt::kChunk + (w % wc);
-  const uint32_t word = __ldg(words + plane * words_per_plane + w);
-  const uint32_t mask = (1u << b) - 1u;  // b < 32: width 32 never launches
-  T* o = out + plane * (words_per_plane * (32 / b));
-  for (int k = 0; k < 32 / b; ++k)
-    o[first + static_cast<int64_t>(k) * wc] = static_cast<T>((word >> (k * b)) & mask);
+// Bits 0..3 of `nibble` as bytes 0..3 of the result, each 0 or 1: the
+// multiply puts bit e at bit 8e (no two partial products overlap).
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t nibble) {
+  return (nibble * 0x00204081u) & 0x01010101u;
 }
 
-template <typename T>
-int launch_unpack(const void* words, void* out, long long words_per_plane, int planes, int b,
-                  void* stream) {
-  const dim3 grid(static_cast<unsigned>((words_per_plane + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(planes));
-  unpack_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<T*>(out), words_per_plane, b);
+// Bits 0..15 of `v` as 16 bytes, each 0 or 1.
+__device__ __forceinline__ uint4 bytes16(uint32_t v) {
+  return make_uint4(nibble_bytes(v & 0xFu), nibble_bytes((v >> 4) & 0xFu),
+                    nibble_bytes((v >> 8) & 0xFu), nibble_bytes((v >> 12) & 0xFu));
+}
+
+// b = 1 to bytes: one warp per (plane, chunk) item, see the head note.
+__global__ void __launch_bounds__(kThreads)
+    unpack_bits_kernel(const uint32_t* __restrict__ words, uint8_t* __restrict__ out,
+                       int64_t items) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t item = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+       item < items; item += warps) {  // warp-uniform: the shuffles see all 32 lanes
+    // item = plane * chunks + chunk: its words start at 32 * item, its bytes at 1024 * item
+    const uint32_t x = transpose32(__ldcs(words + item * 32 + lane), lane);
+    const int half = 16 * (lane & 1);
+    const uint32_t lo = __shfl_sync(0xffffffffu, x, lane >> 1) >> half;
+    const uint32_t hi = __shfl_sync(0xffffffffu, x, 16 + (lane >> 1)) >> half;
+    uint4* o = reinterpret_cast<uint4*>(out + item * rt::kChunk) + lane;
+    o[0] = bytes16(lo);   // values 16L..16L+15
+    o[32] = bytes16(hi);  // values 512 + 16L..512 + 16L + 15
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ uint4 load4(const uint32_t* p) {
+  if (kVec) return __ldcs(reinterpret_cast<const uint4*>(p));
+  return make_uint4(__ldcs(p), __ldcs(p + 1), __ldcs(p + 2), __ldcs(p + 3));
+}
+
+// Width B > 1 to uint32 values: one thread per 4 consecutive words of a chunk.
+template <int B, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    unpack_words_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
+                        int64_t quads_per_plane, int64_t items) {
+  constexpr int kWc = 32 * B;  // words per chunk
+  constexpr uint32_t kMask = (1u << B) - 1u;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t item = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       item < items; item += stride) {
+    const int64_t plane = item / quads_per_plane;
+    const int64_t w = 4 * (item - plane * quads_per_plane);  // word within the plane
+    const uint4 x = load4<kVec>(words + 4 * item);           // plane * 4 * quads + w
+    uint32_t* o = out + plane * (4 * quads_per_plane * (32 / B)) + (w / kWc) * rt::kChunk +
+                  (w % kWc);
+#pragma unroll
+    for (int k = 0; k < 32 / B; ++k)
+      *reinterpret_cast<uint4*>(o + k * kWc) =
+          make_uint4((x.x >> (k * B)) & kMask, (x.y >> (k * B)) & kMask,
+                     (x.z >> (k * B)) & kMask, (x.w >> (k * B)) & kMask);
+  }
+}
+
+template <int B>
+int launch_unpack_words(const void* words, void* out, long long words_per_plane, int planes,
+                        int vec, cudaStream_t stream) {
+  const long long quads = words_per_plane / 4;  // 32b words a chunk: a multiple of 4
+  const long long items = quads * planes;
+  const unsigned grid = rt::stride_grid(items);
+  const auto* w = static_cast<const uint32_t*>(words);
+  auto* o = static_cast<uint32_t*>(out);
+  if (vec)
+    unpack_words_kernel<B, true><<<grid, kThreads, 0, stream>>>(w, o, quads, items);
+  else
+    unpack_words_kernel<B, false><<<grid, kThreads, 0, stream>>>(w, o, quads, items);
   return rt::launch_status();
 }
 
@@ -258,15 +330,28 @@ RT_API int rt_pack_u32(const void* values, void* out, long long n, long long wor
   }
 }
 
-// words: (planes, words_per_plane) uint32, b = 1; out: (planes, 32 * words_per_plane)
-// uint8 (0/1, a bool tensor).
+// words: (planes, words_per_plane) uint32, b = 1, words_per_plane = 32 * chunks;
+// out: (planes, 32 * words_per_plane) uint8 (0/1, a bool tensor), 16-byte aligned.
 RT_API int rt_unpack_u8(const void* words, void* out, long long words_per_plane, int planes,
-                        int b, void* stream) {
-  return launch_unpack<uint8_t>(words, out, words_per_plane, planes, b, stream);
+                        void* stream) {
+  const long long items = words_per_plane / 32 * planes;
+  unpack_bits_kernel<<<rt::stride_grid(items * 32), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<uint8_t*>(out), items);
+  return rt::launch_status();
 }
 
-// words as above, b in {2, 4, 8, 16}; out: (planes, words_per_plane * 32 / b) int32.
+// words as above, b in {2, 4, 8, 16}, words_per_plane = 32b * chunks; out:
+// (planes, words_per_plane * 32 / b) int32, 16-byte aligned.  vec: every plane of
+// words starts 16-byte aligned.
 RT_API int rt_unpack_u32(const void* words, void* out, long long words_per_plane, int planes,
-                         int b, void* stream) {
-  return launch_unpack<uint32_t>(words, out, words_per_plane, planes, b, stream);
+                         int b, int vec, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (b) {
+    case 2: return launch_unpack_words<2>(words, out, words_per_plane, planes, vec, s);
+    case 4: return launch_unpack_words<4>(words, out, words_per_plane, planes, vec, s);
+    case 8: return launch_unpack_words<8>(words, out, words_per_plane, planes, vec, s);
+    case 16: return launch_unpack_words<16>(words, out, words_per_plane, planes, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

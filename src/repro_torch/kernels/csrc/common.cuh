@@ -40,6 +40,20 @@ inline int sm_count() {
   return count;
 }
 
+// Threads a block of the grid-stride kernels, and blocks an SM at full
+// residency (2048 threads an SM at 256 a block).
+constexpr int kStrideBlock = 256;
+constexpr int kBlocksPerSm = 8;
+
+// Grid of a grid-stride loop over `threads` threads' worth of items: enough
+// kStrideBlock-thread blocks to cover them, at most one full residency of
+// the card.
+inline unsigned stride_grid(long long threads) {
+  const long long need = (threads + kStrideBlock - 1) / kStrideBlock;
+  const long long card = static_cast<long long>(sm_count()) * kBlocksPerSm;
+  return static_cast<unsigned>(need < card ? need : card);
+}
+
 // Every C entry point returns this right after its launch: a launch that
 // was refused never runs, and a later synchronize would not report it.
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

@@ -28,7 +28,7 @@ def _ticket_scratch(device: torch.device, planes: int) -> torch.Tensor:
 
     Calls on one stream run in order, so each finds the words as the last
     one left them, 0; calls on two streams get separate words."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    key = (device, kernels.current_stream(device))
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < planes:
         buf = torch.zeros(max(planes, 1024), dtype=torch.int64, device=device)

@@ -28,6 +28,8 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"quantize: N={n} is not a multiple of {ref.GROUP}")
     if x.data_ptr() % 16:
         raise ValueError("quantize: x must be 16-byte aligned (float4 loads)")
+    # two allocations: one buffer cut into the codes and the scales took more
+    # host time (two views) than the second allocation saved (bench.host_floor)
     q = torch.empty(n, dtype=torch.int8, device=x.device)
     scales = torch.empty(n // ref.GROUP, dtype=torch.float32, device=x.device)
     if n == 0:

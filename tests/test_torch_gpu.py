@@ -50,6 +50,26 @@ def test_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_launch_stream_is_the_current_stream(cuda):
+    """``kernels.current_stream`` (the raw handle every launch takes) is
+    ``torch.cuda.current_stream().cuda_stream``, on the default stream and
+    inside a side stream, and a kernel launched inside the side stream runs
+    there: its output is ready once that stream is synchronized."""
+    assert kernels.current_stream() == torch.cuda.current_stream().cuda_stream
+    assert kernels.current_stream(cuda) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    words = torch.randint(-2**31, 2**31 - 1, (8, 65536), device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        assert kernels.current_stream() == side.cuda_stream != torch.cuda.default_stream(
+            cuda).cuda_stream
+        got = bp_ops.unpack_planes(words, 1)
+    side.synchronize()
+    assert torch.equal(got, bp_ref.unpack_planes(words, 1))
+
+
+@pytest.mark.gpu
 def test_pack_and_popcount_routes_match_plain_on_card(cuda):
     """The pack and popcount_planes inputs of ``chip_smoke.check_ragged``
     (plane views 1 byte or 1 word into their storage, n = 0..15 mod 16, w =
@@ -368,18 +388,56 @@ def test_algebras_on_card_match_cpu(cuda, alg):
 
 
 @pytest.mark.gpu
+def test_unpack_kernel_matches_plain_on_card(cuda):
+    """unpack_planes at every width on the smoke script's ragged inputs (1
+    to 8 planes, 70,000 planes -- past the 65,535 of a y grid dimension --
+    and a words view one word into its storage, the scalar-load route at
+    b > 1) equals the plain version exactly; one launch a call below b = 32,
+    none at b = 32 (the words themselves)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    cases = chip_smoke.unpack_ragged_inputs(gen, cuda)
+    assert {w.shape[0] for _, w, _ in cases} >= {1, 3, 8, 70_000}
+    assert {w.storage_offset() for _, w, _ in cases} == {0, 1}
+    kernels.reset_launches()
+    for label, words, b in cases:
+        got = bp_ops.unpack_planes(words, b)
+        assert got.dtype == (torch.bool if b == 1 else torch.int32), label
+        assert torch.equal(got, bp_ref.unpack_planes(words, b)), label
+        if b == 32:
+            assert got is words, label
+    assert dict(kernels.LAUNCHES) == {"unpack": sum(b < 32 for _, _, b in cases)}
+    words = torch.zeros((2, 1024), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # not whole chunks: raises, no fallback
+        bp_ops.unpack_planes(words[:, :16].contiguous(), 1)
+
+
+@pytest.mark.gpu
 def test_quantize_kernel_matches_plain_on_card(cuda):
     """The int8 block-quantize kernel against its plain version exactly on
     the smoke script's ragged and half-way inputs (N = 128, N off 1024, an
-    all-zero group, NaN and +/-inf groups, 0.5 / 1.5 / 2.5 at scale 1.0); a
-    misaligned input raises; each call on a CUDA tensor launches the kernel."""
+    all-zero group, NaN and +/-inf groups, 0.5 / 1.5 / 2.5 at scale 1.0) and
+    at 1, 3, 7, 9 and 4,097 groups (not multiples of the G groups a warp
+    takes a step, every third value 0); a misaligned input raises; each call on a CUDA tensor
+    launches the kernel."""
     import chip_smoke
     from repro_torch.kernels.quant import ops as q_ops
+    from repro_torch.kernels.quant import ref as q_ref
 
     kernels.reset_launches()
     chip_smoke.check_quantize_ragged()
-    # 6 inputs, then the non-finite and the ties again; the misaligned one raises
-    assert kernels.LAUNCHES["quantize"] == 8
+    # 10 inputs, then the non-finite and the ties again; the misaligned one raises
+    assert kernels.LAUNCHES["quantize"] == 12
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for groups in (1, 3, 7, 9, 4097):  # tails of the G groups a warp takes a step
+        x = torch.randn(128 * groups, generator=gen, device=cuda) * 10.0 ** (groups % 5 - 2)
+        x[::3] = 0.0  # zeros take the kernel's own route round the division
+        (q, s), (qr, sr) = q_ops.quantize(x), q_ref.quantize(x)
+        assert torch.equal(q, qr) and torch.equal(s, sr), groups
+        assert (q.dtype, q.shape, s.dtype, s.shape) == (
+            torch.int8, (128 * groups,), torch.float32, (groups,))
+    assert kernels.LAUNCHES["quantize"] == 17
     x = torch.zeros(256, device=cuda)
     with pytest.raises(ValueError):  # not a multiple of 128: raises, no fallback
         q_ops.quantize(x[:200])

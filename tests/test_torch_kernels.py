@@ -394,3 +394,167 @@ def test_single_plane_spmv_matches_jax(n_rows, k, n_real):
     np.testing.assert_array_equal(sp_ops.spmv_min(t_nbr, _i32(f1), n_cols).numpy(), push)
     np.testing.assert_array_equal(
         sp_ops.spmv_pull_min(t_nbr, _i32(f1), _i32(u1), n_cols).numpy(), pull)
+
+
+# ---------------------------------------------------------------------------
+# numpy models of the CUDA index maps of unpack and quantize (csrc/bitpack.cu,
+# csrc/quant.cu): what each lane loads, exchanges and stores, and which items
+# the grid-stride loops visit
+# ---------------------------------------------------------------------------
+
+_TRANSPOSE_MASKS = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+
+
+def _transpose32_model(rows: np.ndarray) -> np.ndarray:
+    """``transpose32`` over (..., 32) uint32 lanes: the five
+    ``__shfl_xor_sync`` stages; lane l of the result holds column l."""
+    x = rows.astype(np.uint32)
+    lane = np.arange(32)
+    for stage, m in enumerate(_TRANSPOSE_MASKS):
+        s = 16 >> stage
+        m = np.uint32(m)
+        y = x[..., lane ^ s]
+        hi = (x & ~m) | ((y >> np.uint32(s)) & m)
+        lo = (x & m) | ((y & m) << np.uint32(s))
+        x = np.where((lane & s) != 0, hi, lo)
+    return x
+
+
+def _unpack_bits_model(words: np.ndarray) -> np.ndarray:
+    """``unpack_bits_kernel`` on (planes, W) uint32 words: one warp per
+    (plane, chunk) item; lane j loads word j, after the transpose lane k
+    holds values 32k..32k+31; lane L then takes half L & 1 of lanes L/2 and
+    16 + L/2 (two shuffles) and stores each as a 16-byte vector (the bytes of
+    four ``nibble_bytes`` words) at byte 16L and 512 + 16L of the item."""
+    planes, w = words.shape
+    items = words.reshape(-1, 32)  # item = plane * chunks + chunk
+    cols = _transpose32_model(items)
+    lane = np.arange(32)
+    half = (16 * (lane & 1)).astype(np.uint32)
+    lo = cols[:, lane >> 1] >> half
+    hi = cols[:, 16 + (lane >> 1)] >> half
+
+    def bytes16(v):  # (items, 32) -> (items, 32, 16) bytes
+        nib = (v[..., None] >> (4 * np.arange(4, dtype=np.uint32))) & np.uint32(0xF)
+        return (nib.astype(np.uint64) * 0x00204081 & 0x01010101).astype(np.uint32).view(
+            np.uint8).reshape(*v.shape, 16)
+
+    out = np.full(planes * w * 32, 0xAA, dtype=np.uint8)  # a value no store writes
+    written = np.zeros(out.shape, dtype=np.int64)
+    for item in range(items.shape[0]):
+        for L in range(32):
+            for offset, vec in ((16 * L, bytes16(lo)), (512 + 16 * L, bytes16(hi))):
+                at = item * 1024 + offset
+                out[at:at + 16] = vec[item, L]
+                written[at:at + 16] += 1
+    assert (written == 1).all()
+    return out.reshape(planes, w * 32)
+
+
+def _unpack_words_model(words: np.ndarray, b: int) -> np.ndarray:
+    """``unpack_words_kernel<b>`` on (planes, W) uint32 words: one thread per
+    4 consecutive words (one 16-byte load), 32/b 16-byte stores of values
+    k*32b + j..j+3 of the chunk."""
+    planes, w = words.shape
+    wc, quads = 32 * b, w // 4
+    flat = words.reshape(-1)
+    out = np.zeros(planes * w * 32 // b, dtype=np.uint32)
+    written = np.zeros(out.shape, dtype=np.int64)
+    for item in range(planes * quads):
+        plane, j = divmod(item, quads)
+        j *= 4
+        x = flat[4 * item:4 * item + 4]
+        base = plane * (4 * quads * (32 // b)) + (j // wc) * 1024 + j % wc
+        for k in range(32 // b):
+            at = base + k * wc
+            out[at:at + 4] = (x >> np.uint32(k * b)) & np.uint32((1 << b) - 1)
+            written[at:at + 4] += 1
+    assert (written == 1).all()
+    return out.reshape(planes, -1)
+
+
+@pytest.mark.parametrize("planes,chunks", [(1, 1), (1, 4), (3, 2), (2, 8)])
+def test_unpack_bits_lane_model_matches_plain_and_pallas(planes, chunks):
+    """The b = 1 kernel's map (lane k's row from the five transpose stages,
+    lane L's halves from lanes L/2 and 16 + L/2, stores at 16L and
+    512 + 16L) gives the plain unpack and the Pallas kernel in interpret
+    mode on random words."""
+    rng = np.random.default_rng(97 * planes + chunks)
+    words = rng.integers(0, 2**32, size=(planes, 32 * chunks), dtype=np.uint64).astype(
+        np.uint32)
+    got = _unpack_bits_model(words)
+    assert set(np.unique(got)) <= {0, 1}
+    np.testing.assert_array_equal(got, bp_ref.unpack_planes(_i32(words), 1).numpy())
+    if chunks % 4 == 0:  # the Pallas kernel takes 128-word blocks
+        for p in range(planes):
+            pallas = jbitpack.unpack_pallas(jnp.asarray(words[p]), 1, interpret=True)
+            np.testing.assert_array_equal(got[p], np.asarray(pallas))
+
+
+def test_transpose32_model_is_the_transpose():
+    """Lane l of ``transpose32``'s result holds bit l of every input lane:
+    bit r of lane l is bit l of lane r."""
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, 2**32, size=(4, 32), dtype=np.uint64).astype(np.uint32)
+    bits = (rows[..., None] >> np.arange(32, dtype=np.uint32)) & 1  # [item, lane, bit]
+    got = (_transpose32_model(rows)[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    np.testing.assert_array_equal(got, bits.transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("b", [2, 4, 8, 16])
+@pytest.mark.parametrize("planes,chunks", [(1, 1), (3, 2)])
+def test_unpack_words_quad_model_matches_plain(b, planes, chunks):
+    """The b > 1 kernel's quad map gives the plain unpack, every value
+    written once."""
+    rng = np.random.default_rng(b + 11 * planes + chunks)
+    words = rng.integers(0, 2**32, size=(planes, 32 * b * chunks), dtype=np.uint64).astype(
+        np.uint32)
+    got = _unpack_words_model(words, b)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  bp_ref.unpack_planes(_i32(words), b).numpy())
+
+
+def _grid_stride_visits(items: int, warps: int, per_step: int) -> tuple[np.ndarray, np.ndarray]:
+    """How often the warp-level grid-stride loop of ``quantize_kernel`` (G =
+    ``per_step`` = 4 groups a step) or ``unpack_bits_kernel`` (one item a
+    step) visits each item, and how often a step's scale stores (lanes < G
+    whose group exists) write it: warp w starts at w * G and strides
+    warps * G; items past the end in a step are not visited (they load
+    zeros, store nothing)."""
+    seen = np.zeros(items, dtype=np.int64)
+    stored = np.zeros(items, dtype=np.int64)
+    for warp in range(warps):
+        g0 = warp * per_step
+        while g0 < items:  # warp-uniform
+            for t in range(per_step):
+                if g0 + t < items:
+                    seen[g0 + t] += 1
+            for lane in range(32):
+                if lane < per_step and g0 + lane < items:
+                    stored[g0 + lane] += 1
+            g0 += warps * per_step
+    return seen, stored
+
+
+def _card_warps(items: int, per_step: int, sms: int) -> int:
+    """Warps of the grid ``rt::stride_grid`` sizes: enough 256-thread blocks
+    for a warp a step, at most 8 blocks an SM."""
+    need = -(-items // per_step) * 32
+    return min(-(-need // 256), sms * 8) * 8
+
+
+@pytest.mark.parametrize("per_step", [1, 4])
+@pytest.mark.parametrize("items", [1, 3, 7, 9, 4097])
+def test_grid_stride_walk_visits_every_item_once(items, per_step):
+    """On a one-SM grid (64 warps, so the larger walks wrap) and for tails
+    not a multiple of G, every group or (plane, chunk) item is visited
+    exactly once, and each group's scale is stored once."""
+    seen, stored = _grid_stride_visits(items, _card_warps(items, per_step, 1), per_step)
+    assert (seen == 1).all() and (stored == 1).all()
+
+
+def test_unpack_walk_takes_planes_past_the_old_grid_cap():
+    """70,000 one-chunk planes (past the 65,535 of a y grid dimension) are
+    each visited once by the b = 1 kernel's walk at the card's grid."""
+    items = 70_000
+    assert (_grid_stride_visits(items, _card_warps(items, 1, 132), 1)[0] == 1).all()
