@@ -30,7 +30,10 @@ cells counted on ``meta``):
    (CUDA events, and the profiler's device time) and plain version
    (popcount_planes also at CC's single plane); popcount_blocks on inputs
    that take both of its routes (W = 1, 7, 1,500, 3 x 1,024 + 3, views one
-   word into their storage);
+   word into their storage); and the launch's routing on one card: inside
+   a side stream, ``unpack`` hands its C entry point that stream (the
+   current stream of its tensors' card) with that card current, and its
+   output is exact once the stream is synchronized;
 4. runs the Graph500 harness (scale S, edgefactor 16, seed 1, 64 valid
    roots in batches of 8, ``direction_opt`` + ``hybrid``, every tree
    validated) with the launch counts zeroed just before and read just
@@ -715,6 +718,46 @@ def check_helpers_ragged(dev) -> set:
     return routes
 
 
+def check_launch_stream() -> str:
+    """The single-card half of the launch routing (``kernels.launch``): a
+    wrapper called inside a side stream of its tensors' card hands the C
+    entry point that stream, with that card current (no guard entered),
+    and its output equals the plain version once the stream is
+    synchronized.  Returns the line to print."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.bitpack import ops as bp_ops, ref as bp_ref
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    words = torch.randint(-2**31, 2**31 - 1, (8, 65536), device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    side = torch.cuda.Stream(dev)
+    seen, real = [], kernels.cfunc
+
+    def cfunc(name, argtypes):
+        fn = real(name, argtypes)
+
+        def call(*args):
+            seen.append((args[-1], torch.cuda.current_device()))
+            return fn(*args)
+        return call
+
+    torch.cuda.synchronize()
+    kernels.cfunc = cfunc
+    try:
+        with torch.cuda.stream(side):
+            got = bp_ops.unpack_planes(words, 1)
+    finally:
+        kernels.cfunc = real
+    side.synchronize()
+    if seen != [(side.cuda_stream, dev.index)]:
+        raise AssertionError(f"launch routing: the C call took (stream, current device) "
+                             f"{seen}, want [({side.cuda_stream}, {dev.index})]")
+    expect(same(got, bp_ref.unpack_planes(words, 1)), "unpack in a side stream")
+    return (f"launch routing: unpack inside a side stream of {dev} launched on that stream "
+            f"with {dev} current (no guard), output exact")
+
+
 def check_ragged() -> None:
     """Exact kernel-vs-plain agreement on small ragged shapes: pack,
     popcount_planes, interleave_values and popcount_blocks on inputs that
@@ -1095,18 +1138,9 @@ def require_launched(counts: dict, kernels_of_path, path: str) -> None:
 
 def require_no_children() -> None:
     """Every process this one started has ended and been reaped."""
-    alive = []
-    for d in filter(str.isdigit, os.listdir("/proc")):
-        try:
-            with open(f"/proc/{d}/stat") as f:
-                fields = f.read().rsplit(")", 1)[1].split()
-            if int(fields[1]) == os.getpid():
-                with open(f"/proc/{d}/cmdline", "rb") as f:
-                    alive.append((int(d), f.read().replace(b"\0", b" ").decode()[:120]))
-        except (FileNotFoundError, ProcessLookupError):  # ended meanwhile
-            continue
-    if alive:
-        raise AssertionError(f"processes started here still alive: {alive}")
+    from repro_torch.comm.procgrid import require_no_children as check
+
+    check()
 
 
 @contextlib.contextmanager
@@ -2163,7 +2197,7 @@ def train_step(card) -> tuple[dict, list]:
     workers summed apart) and the quantize rows at the train path's inputs."""
     import torch
     from repro_torch import kernels, tree
-    from repro_torch.bench import gnn as gnn_bench, gnn_train
+    from repro_torch.bench import gnn as gnn_bench, gnn_train, multicard
     from repro_torch.comm import CommStats, SimGrid, procgrid
     from repro_torch.comm.engine import AdaptiveExchange
     from repro_torch.comm.grid import ROW_AXIS, pmean_trees
@@ -2312,25 +2346,12 @@ def train_step(card) -> tuple[dict, list]:
                            args=(TRAIN_PROC_SPEC,), timeout_s=600)
     spawn_s = time.perf_counter() - t1
 
-    def gaps(runs, sim) -> tuple[float, float, float]:
-        """(outputs, loss, gradients) of the workers against ``sim``: max
-        abs gaps over the outputs' and the gradients' peaks, the loss's
-        relative gap."""
-        out_peak = max(float(np.abs(o).max()) for o in sim["out"])
-        out = max(float(np.abs(run["captured"]["out"][run["rank"]]
-                               - sim["out"][run["rank"]]).max()) for run in runs) / out_peak
-        loss = max(abs(run["captured"]["loss"] - sim["loss"]) for run in runs) / abs(sim["loss"])
-        g_peak = max(float(np.abs(g).max()) for g in sim["grads"])
-        grads = max(float(np.abs(a - b).max()) for a, b in zip(runs[0]["captured"]["grads"],
-                                                              sim["grads"])) / g_peak
-        return out, loss, grads
-
     fp32_runs, int8_runs = ([p[k] for p in procs] for k in range(2))
-    fp32_gaps = gaps(fp32_runs, sim32)
+    fp32_gaps = multicard.train_gaps(fp32_runs, sim32)
     if not max(fp32_gaps) <= GNN_FP32_REL:
         raise AssertionError(f"train: process grid fp32 against SimGrid (outputs, loss, "
                              f"gradients): {fp32_gaps} > {GNN_FP32_REL}")
-    int8_gaps = gaps(int8_runs, cap)
+    int8_gaps = multicard.train_gaps(int8_runs, cap)
     int8_loss = int8_runs[0]["captured"]["loss"]
     rel = abs(int8_loss - sim32["loss"]) / abs(sim32["loss"])
     finite = all(np.isfinite(g).all() and np.abs(g).max() > 0
@@ -3267,6 +3288,7 @@ def main() -> int:
           "frontier_mask, popcount_blocks (W = 1..33,792, 1 word in) on both routes, "
           "unpack (b=1..32, up to 70,000 planes, a view one word in), popcount_words, "
           "spmv push/pull (B planes and one): exact")
+    print(check_launch_stream())
 
     setup = graph500.build(args.scale, 16, 1, "hybrid", "cuda")
     info = graph500.summary(setup)

@@ -10,19 +10,26 @@ import time
 import torch
 
 
-def card(device=None) -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them (its
-    device name where ``nvidia-smi`` cannot run), or ``cpu`` for a CPU
-    device."""
-    if device is not None and torch.device(device).type != "cuda":
-        return "cpu"
+def cards() -> list[str]:
+    """Every card's name and power limit as ``nvidia-smi`` gives them, one
+    entry a card in ``nvidia-smi``'s order (the device names where
+    ``nvidia-smi`` cannot run)."""
     try:
-        return subprocess.run(
+        lines = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=30,
-        ).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(0)
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        lines = []
+    return lines or [torch.cuda.get_device_name(k) for k in range(torch.cuda.device_count())]
+
+
+def card(device=None) -> str:
+    """The first card's name and power limit as ``nvidia-smi`` gives them
+    (:func:`cards`), or ``cpu`` for a CPU device."""
+    if device is not None and torch.device(device).type != "cuda":
+        return "cpu"
+    return cards()[0]
 
 
 def mean_us(fn, reps: int, device) -> float:

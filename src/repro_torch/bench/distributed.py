@@ -17,8 +17,9 @@ simulated on one card.  ``--procs R*C`` runs one process per rank instead
 and keeps its own block; the trees are gathered and validated on rank 0,
 and the processes' ledgers are merged.  Under gloo the ranks may share one
 card and exchange through host memory (the staging time is reported);
-under nccl each rank has a card of its own.  Either way the ledger counts
-the bytes the exchanges would move between cards.  ``--betweenness``
+under nccl rank p runs on ``cuda:p``, a card of its own, and the header
+names each process's card.  Either way the ledger counts the bytes the
+exchanges would move between cards.  ``--betweenness``
 prints the 5 most central vertices of the last batch's trees
 (:func:`repro_torch.core.centrality.tree_betweenness`, on the card).
 """
@@ -34,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.bench import graph500, teps
+from repro_torch.bench import cards, graph500, teps
 from repro_torch.comm import CommStats, SimGrid
 from repro_torch.comm.grid import Grid
 from repro_torch.core import csr
@@ -221,12 +222,19 @@ def top_central(parents, levels, g, device, k: int = 5) -> list[dict]:
     return [{"vertex": v, "degree": int(deg[v]), "centrality": float(bc[v])} for v in order]
 
 
+def device_name(device: torch.device) -> str:
+    """``device`` and, for a card, its name."""
+    if device.type != "cuda":
+        return str(device)
+    return f"{device} ({torch.cuda.get_device_name(device)})"
+
+
 def harness(grid: Grid, args) -> dict:
     """The harness of :func:`main` on ``grid``, in this process: generation,
     partition, an untimed warm-up batch, the timed batches, and the
     betweenness of the last batch.  On a grid of one process per rank only
-    rank 0 returns the results (with every process's staging seconds);
-    the other ranks return ``{}``."""
+    rank 0 returns the results (with every process's staging seconds and
+    device); the other ranks return ``{}``."""
     g, gen_s, k1_s = graph500.generate(args.scale, args.edgefactor, args.seed)
     st = setup(g, grid, args.expand)
     roots = teps.valid_roots(g, args.roots, seed=2)
@@ -235,10 +243,11 @@ def harness(grid: Grid, args) -> dict:
     staged = grid.staging_s
     out = search(st, roots, args.batch, args.mode, args.policy, not args.no_validate)
     staging = grid.gather_objects(grid.staging_s - staged)
+    devices = grid.gather_objects(device_name(grid.device))
     if 0 not in grid.local_ranks:
         return {}
     out.update(generation_s=gen_s, kernel1_s=k1_s, partition_s=st.partition_s,
-               containers_s=st.containers_s, staging_s=staging)
+               containers_s=st.containers_s, staging_s=staging, devices=devices)
     if args.betweenness:
         out["central"] = top_central(*out["trees"][-1], g, grid.device)
     return out
@@ -275,11 +284,10 @@ def main(argv=None) -> dict:
                      f"{rows * cols} ranks")
         out = procgrid.spawn(harness, rows, cols, backend=args.backend, device=args.device,
                              args=(args,))[0]
-        dev = torch.device("cuda" if args.device is None else args.device)
-        cards = (1 if args.backend == "gloo" else args.procs) if dev.type == "cuda" else 0
-        on = torch.cuda.get_device_name(0) if cards else "cpu"
-        where = (f"{args.procs} processes on {cards} card(s) over {args.backend}"
-                 if cards else f"{args.procs} processes on the CPU over {args.backend}")
+        devices = sorted(set(out["devices"]))
+        on = "; ".join(devices)
+        where = (f"{args.procs} processes on {len(devices)} card(s) over {args.backend}"
+                 if "cuda" in on else f"{args.procs} processes on the CPU over {args.backend}")
     else:
         grid = SimGrid(rows, cols, device=args.device)
         out = harness(grid, args)
@@ -287,10 +295,12 @@ def main(argv=None) -> dict:
         where = f"{grid.size} ranks simulated on one device"
     print(f"# distributed Graph500 scale={args.scale} grid={args.grid} mode={args.mode} "
           f"policy={args.policy} expand={args.expand} batch={args.batch}: {where} ({on})")
+    if "cuda" in on:
+        print("cards (nvidia-smi name, power limit): " + "; ".join(cards()))
     print(f"generation {out['generation_s']:.3f}s  Kernel1 {out['kernel1_s']:.3f}s  "
           f"partition {out['partition_s']:.3f}s  containers {out['containers_s']:.3f}s  "
           f"BFS {out['bfs_s']:.3f}s  validation {out['validation_s']:.3f}s")
-    if args.procs and cards and args.backend == "gloo":
+    if args.procs and "cuda" in on and args.backend == "gloo":
         print(f"staging through host memory, per process: "
               f"{[round(x, 4) for x in out['staging_s']]} s of {out['bfs_s']:.4f} s of "
               f"batches (share {max(out['staging_s']) / out['bfs_s']:.4f})")

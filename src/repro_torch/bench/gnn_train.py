@@ -31,12 +31,14 @@ each process's staging seconds (host copies of gloo's CUDA tensors).
     python -m repro_torch.bench.gnn_train                # graphcast, 4 layers, refinement 6, 2x2
     python -m repro_torch.bench.gnn_train --arch nequip  # egnn, nequip (fp32 payloads)
     python -m repro_torch.bench.gnn_train --procs 4      # the 2x2 grid as 4 processes (gloo)
+    python -m repro_torch.bench.gnn_train --procs 4 --backend nccl  # one card a process
     python -m repro_torch.bench.gnn_train --device cpu --refine 2 --smoke [--arch egnn]
 
 On ``SimGrid`` the R*C ranks run on one card one after another; under
-``--procs`` the R*C processes share the one card and exchange through host
-memory (gloo).  Neither is a multi-card figure.  Matrix products are
-float32 with TF32 off.
+``--procs`` with gloo the R*C processes share one card and exchange
+through host memory, neither a multi-card figure; with ``--backend nccl``
+process p runs on ``cuda:p``, a card of its own, and the exchanges go
+over NCCL.  Matrix products are float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -180,6 +182,7 @@ def train(st: gnn_bench.GnnSetup, steps: int, quantize: bool, seed: int = 0,
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
         "staging_s": grid.staging_s - staging0, "launches": launches,
         "rank": r0 if len(grid.local_ranks) == 1 else None, "captured": captured,
+        "device": distributed.device_name(dev),
     }
 
 
@@ -229,7 +232,9 @@ def main(argv=None) -> list:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true", help="the arch's smoke widths")
     ap.add_argument("--procs", type=int, default=0,
-                    help="run one process per rank (R*C of them, gloo) instead of a SimGrid")
+                    help="run one process per rank (R*C of them) instead of a SimGrid")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the process group's backend with --procs")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -246,10 +251,12 @@ def main(argv=None) -> list:
         if args.procs != rows * cols:
             ap.error(f"--procs {args.procs} does not match the {args.grid} grid's "
                      f"{rows * cols} ranks")
-        results = [r[0] for r in procgrid.spawn(proc_train, rows, cols, device=args.device,
-                                                 args=(spec,))]
-        where = (f"{args.procs} processes on {'one card' if dev.type == 'cuda' else 'the CPU'} "
-                 f"over gloo ({on})")
+        results = [r[0] for r in procgrid.spawn(proc_train, rows, cols, backend=args.backend,
+                                                 device=args.device, args=(spec,))]
+        devices = sorted({r["device"] for r in results})
+        where = (f"{args.procs} processes on {len(devices)} card(s) over {args.backend} "
+                 f"({'; '.join(devices)})" if dev.type == "cuda"
+                 else f"{args.procs} processes on the CPU over {args.backend}")
     else:
         st = gnn_bench.setup(args.arch, args.refine, (rows, cols), args.seed, args.smoke,
                              args.device, layers)
@@ -258,11 +265,15 @@ def main(argv=None) -> list:
     res = results[0]
     _print(res, where)
     if args.procs:
+        slowest = [max(r["steps"][k]["step_s"] for r in results)
+                   for k in range(len(res["steps"]))]
+        print(f"step seconds, slowest process: {[round(t, 4) for t in slowest]}; peak device "
+              f"memory per process {[r['peak_bytes'] for r in results]}")
+    if args.procs and args.backend == "gloo":
         step_s = sum(r["step_s"] for r in res["steps"])
         print(f"staging through host memory, per process: "
               f"{[round(r['staging_s'], 4) for r in results]} s of {step_s:.4f} s of steps "
-              f"(share {max(r['staging_s'] for r in results) / step_s:.4f}); peak device "
-              f"memory per process {[r['peak_bytes'] for r in results]}")
+              f"(share {max(r['staging_s'] for r in results) / step_s:.4f})")
     for r in results:
         r.pop("captured")
     print(json.dumps({"where": where, "results": results}))

@@ -69,8 +69,15 @@ def generate(scale: int, edgefactor: int = 16, seed: int = 1):
 def build(scale: int, edgefactor: int = 16, seed: int = 1, expand: str = "hybrid",
           device=None) -> Graph500Setup:
     """Generate, build the CSR (Kernel 1) and move the containers."""
-    dev = resolve_device(device)
     g, generation_s, kernel1_s = generate(scale, edgefactor, seed)
+    return place(g, expand, device, edgefactor, generation_s, kernel1_s)
+
+
+def place(g: builder.CSRGraph, expand: str = "hybrid", device=None, edgefactor: int = 16,
+          generation_s: float = 0.0, kernel1_s: float = 0.0) -> Graph500Setup:
+    """Move the containers of a built graph to ``device``."""
+    dev = resolve_device(device)
+    scale = g.n.bit_length() - 1
     t2 = time.perf_counter()
     backend = expand_mod.resolve(expand)
     extra = backend.graph_arrays(g.src, g.dst, g.n)

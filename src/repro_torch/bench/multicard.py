@@ -1,0 +1,576 @@
+"""The four-card check: the paper's distributed BFS, SSSP and the GNN train
+step as one process per card over NCCL, held against ``SimGrid``.
+
+    python -m repro_torch.bench.multicard                     # 4 cards, nccl, scale 22
+    python -m repro_torch.bench.multicard --backend gloo      # 4 processes on one card
+    python -m repro_torch.bench.multicard --device cpu --backend gloo --scale 12 \\
+        --refine 2 --smoke                                     # 4 CPU processes
+
+In order:
+
+1. the cards: every card's name and power limit (``nvidia-smi``), peer
+   access for each pair (``torch.cuda.can_device_access_peer``) and
+   ``nvidia-smi topo -m``;
+2. the Graph500 Kronecker graph of ``--scale`` (edgefactor 16, seed 1) and
+   :data:`N_ROOTS` valid roots (seed 2), generated once here and read by the
+   workers from a file in a temporary directory;
+3. four processes (:func:`repro_torch.comm.procgrid.spawn`, rank p on
+   ``cuda:p`` under nccl), each holding its rank of a 2x2 and then of a
+   1x4 :class:`~repro_torch.comm.procgrid.ProcessGrid`: after one uncounted
+   warm-up batch a grid, the roots in batches of :data:`BATCH` under
+   ``direction_opt`` + ``hybrid`` for each wire plan of :data:`BFS_CASES`,
+   and one SSSP batch (:data:`SSSP_CASE`) on 2x2, the launch counts read
+   around the counted batches only; one more ``auto`` batch on 2x2 is
+   traced on rank 0 (device time in NCCL's kernels, the port's, and the
+   rest);
+4. the same batches on a ``SimGrid`` on the first device, and the checks:
+   every process's value and level planes (SHA-256 of their bytes), level
+   counts and merged ledger equal ``SimGrid``'s, batch for batch; every
+   BFS plan gives the same trees, and those trees are valid (Graph500
+   validation on the host; SSSP: ``algebras.sssp_certificate``); every
+   kernel of :data:`PATH` launched in every process; under nccl each
+   process reports its own card current and its blocks on it, four cards
+   in all;
+5. one process, ``cuda:0`` current: the single-device BFS of the first
+   batch on ``cuda:1`` and on ``cuda:3`` gives ``cuda:0``'s planes, and its
+   kernels launched (each on its tensors' card, :func:`kernels.launch`);
+6. the GraphCast train step (``bench.gnn_train``: 4 layers, ``--refine``,
+   published widths unless ``--smoke``) as four processes, fp32 then int8
+   payloads, one step each after a warm-up: the fp32 outputs, loss and
+   gradients within :data:`GNN_FP32_REL` of ``SimGrid``'s, the int8 loss
+   within :data:`TRAIN_INT8_LOSS_REL` of the fp32 one, its gradients finite
+   and nonzero, ``quantize`` launched in every process.
+
+It prints, per case, each batch's seconds (its slowest process) and the
+harmonic-mean TEPS beside ``SimGrid``'s, the ledger's bytes by phase and
+format, and the train step's seconds beside ``SimGrid``'s; under nccl the
+transports NCCL reports choosing (``NCCL_DEBUG=INFO`` of the workers, into
+files of the temporary directory) and any warning it gave.  The last line
+is one JSON object of every number.
+Any mismatch exits nonzero, and no process it started outlives it.  On a
+CPU device, or under gloo on one card, the checks of step 5 and of the
+processes' cards are left out, and nothing is traced.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.bench import algebras, cards, distributed, gnn_train, graph500, teps
+from repro_torch.bench import gnn as gnn_bench
+from repro_torch.comm import SimGrid, procgrid
+from repro_torch.core import bfs as bfsmod
+from repro_torch.graphgen import builder
+
+SCALE = 22
+BATCH = 8
+N_ROOTS = 16
+#: the wire plans each grid runs, every one under direction_opt + hybrid
+BFS_CASES = {(2, 2): ("raw", "bitmap", "auto", "btfly"), (1, 4): ("auto", "btfly")}
+#: SSSP on the 2x2 grid, one batch (chip_smoke.PROC_CASES's)
+SSSP_CASE = {"mode": "auto", "policy": "top_down", "algebra": "sssp"}
+#: the kernels of the single-device BFS, of the distributed BFS and of SSSP
+GRAPH500_PATH = ("pack", "popcount_planes", "frontier_mask", "spmv_min_planes",
+                 "spmv_pull_min_planes")
+PATH = GRAPH500_PATH + ("unpack", "gspmm_min_planes", "interleave_values")
+#: the train step: fp32 against SimGrid (the same float32 products, index_add_
+#: summing by atomics in another order on a card), int8 against fp32 (the
+#: reference's own bar, tests/test_dist.py:137) -- chip_smoke.py's bounds
+GNN_FP32_REL = 1e-5
+TRAIN_INT8_LOSS_REL = 0.05
+GRAPH_FIELDS = ("row_ptr", "col_idx", "src", "dst")
+#: seconds each spawn, and each collective in it, may take: a hang fails
+#: the run well inside a chip call's limit
+SPAWN_TIMEOUT_S = 900.0
+
+
+def case_key(shape, case: dict) -> str:
+    alg = case.get("algebra", "bfs")
+    return f"{shape[0]}x{shape[1]} {alg} {case['mode']} {case['policy']}"
+
+
+def grid_cases() -> list:
+    """[(shape, [case, ...]), ...]: every grid's cases, each with the number
+    of batches it runs."""
+    out = []
+    for shape, modes in BFS_CASES.items():
+        cases = [{"mode": m, "policy": "direction_opt", "batches": N_ROOTS // BATCH}
+                 for m in modes]
+        if shape == (2, 2):
+            cases.append({**SSSP_CASE, "batches": 1})
+        out.append((shape, cases))
+    return out
+
+
+def digest(value: torch.Tensor, level: torch.Tensor) -> str:
+    """SHA-256 of the planes' bytes, with their shapes."""
+    h = hashlib.sha256()
+    for t in (value, level):
+        a = t.cpu().numpy()
+        h.update(repr((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def save_graph(g: builder.CSRGraph, directory: str) -> str:
+    path = os.path.join(directory, "graph.npz")
+    np.savez(path, n=g.n, m_input=g.m_input, **{k: getattr(g, k) for k in GRAPH_FIELDS})
+    return path
+
+
+def load_graph(path: str) -> builder.CSRGraph:
+    with np.load(path) as f:
+        return builder.CSRGraph(n=int(f["n"]), m_input=int(f["m_input"]),
+                                **{k: f[k] for k in GRAPH_FIELDS})
+
+
+def run_batches(st: distributed.DistSetup, roots: np.ndarray, case: dict,
+                launched: collections.Counter) -> list[dict]:
+    """``case``'s batches of ``roots`` (:data:`BATCH` roots each) on the
+    set-up grid, each one's launch
+    counts added to ``launched``: per batch the seconds (slowest process),
+    level count, merged ledger, planes' digest and planes (on the grid's
+    device)."""
+    case = dict(case)
+    runs = []
+    for b in range(case.pop("batches")):
+        kernels.reset_launches()
+        r = distributed.run_case(st, roots[b * BATCH:(b + 1) * BATCH], **case)
+        launched.update(kernels.LAUNCHES)
+        runs.append({"batch_s": r["batch_s"], "n_levels": r["n_levels"], "stats": r["stats"],
+                     "digest": digest(r["value"], r["level"]),
+                     "value": r["value"], "level": r["level"]})
+    return runs
+
+
+def kernel_class(name: str, port: set) -> str:
+    if name.lower().startswith("nccl"):
+        return "nccl"
+    return "port" if name in port else "other"
+
+
+def traced_batch(st: distributed.DistSetup, roots: np.ndarray, case: dict) -> dict | None:
+    """One batch of ``case`` on every process, traced by ``torch.profiler``
+    in the process of rank 0: its seconds and device ms by class (NCCL's
+    kernels, the port's, the rest); None in the other processes."""
+    if 0 not in st.grid.local_ranks:
+        distributed.run_case(st, roots, **case)
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r = distributed.run_case(st, roots, **case)
+    port = kernels.source_kernels()
+    ms: dict[str, float] = collections.defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            ms[kernel_class(kernels.kernel_name(e.key), port)] += e.self_device_time_total / 1e3
+    return {"case": case_key((st.grid.rows, st.grid.cols), case), "batch_s": r["batch_s"],
+            "device_ms": dict(ms)}
+
+
+def proc_cases(grid, spec: dict) -> dict:
+    """One process of the four: its rank of each grid of ``spec["grids"]``
+    (the spawned grid first, then a new ``ProcessGrid`` of the same
+    processes for each other shape), one uncounted warm-up batch a grid,
+    then every case's batches (:func:`run_batches`, the planes left out of
+    the result); on the spawned grid a traced ``auto`` batch after them.
+    Returns the process's card, the device its blocks lie on per grid, the
+    counted launches and each case's batches."""
+    from repro_torch.comm.procgrid import ProcessGrid
+
+    g = load_graph(spec["graph"])
+    roots = np.asarray(spec["roots"], np.int32)
+    cuda = grid.device.type == "cuda"
+    out = {"rank": grid.rank, "device": str(grid.device),
+           "current_device": torch.cuda.current_device() if cuda else None,
+           "card": distributed.device_name(grid.device), "blocks": {}, "cases": {},
+           "traced": None}
+    launched: collections.Counter = collections.Counter()
+    for shape, cases in spec["grids"]:
+        shape = tuple(shape)
+        pg = grid if shape == (grid.rows, grid.cols) else ProcessGrid(*shape, device=grid.device)
+        st = distributed.setup(g, pg, "hybrid")
+        out["blocks"][f"{shape[0]}x{shape[1]}"] = str(st.blocks[0][pg.rank].device)
+        first = {k: v for k, v in cases[0].items() if k != "batches"}
+        distributed.run_case(st, roots[:BATCH], **first)  # warm-up
+        for case in cases:
+            runs = run_batches(st, roots, case, launched)
+            out["cases"][case_key(shape, case)] = [
+                {k: v for k, v in r.items() if k not in ("value", "level")} for r in runs]
+        if pg is grid and cuda:
+            out["traced"] = traced_batch(st, roots[:BATCH],
+                                         {"mode": "auto", "policy": "direction_opt"})
+        del st
+    out["launches"] = dict(launched)
+    return out
+
+
+def nccl_env(directory: str) -> dict:
+    """NCCL's INFO log of the workers' set-up, one file a process in
+    ``directory``: it names the transport of each connection."""
+    return {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT",
+            "NCCL_DEBUG_FILE": os.path.join(directory, "nccl.%h.%p.log")}
+
+
+def nccl_report(directory: str) -> dict:
+    """The transports NCCL chose (``via X`` of its connection lines,
+    counted), its version line and its warnings, from the logs of
+    :func:`nccl_env`."""
+    via: collections.Counter = collections.Counter()
+    warnings, version = [], None
+    for name in sorted(os.listdir(directory)):
+        if not name.startswith("nccl."):
+            continue
+        with open(os.path.join(directory, name), errors="replace") as f:
+            for line in f:
+                m = re.search(r" via (\S+)", line)
+                if m:
+                    via[m.group(1)] += 1
+                if " WARN " in line:
+                    warnings.append(line.strip())
+                if version is None and "NCCL version" in line:
+                    version = line.split("NCCL version", 1)[1].strip()
+    return {"via": dict(via), "version": version, "warnings": warnings[:20]}
+
+
+def transport_label(via: dict, topo: str, nvlink: str) -> str:
+    """What the exchanges went over, from NCCL's own report, and the links
+    ``nvidia-smi`` shows (``NV#`` in the topology matrix, or the first
+    card's active NVLink links)."""
+    kinds = sorted({v.split("/")[0] for v in via})
+    links = sorted(set(re.findall(r"\bNV\d+\b", topo)))
+    rates = re.findall(r"Link \d+: ([\d.]+ GB/s)", nvlink)
+    if links:
+        over = f"NVLink ({', '.join(links)} in nvidia-smi topo -m)"
+    elif rates:
+        over = f"NVLink ({len(rates)} links of cuda:0 active at {', '.join(sorted(set(rates)))})"
+    else:
+        over = "peer-to-peer (nvidia-smi did not show the links)"
+    if not kinds:
+        return "NCCL reported no transport"
+    if kinds == ["P2P"]:
+        return f"NCCL P2P ({', '.join(sorted(via))}): card to card over {over}"
+    return f"NCCL {', '.join(sorted(via))}: NOT only card to card (shared memory or network)"
+
+
+def _smi(*args: str) -> str:
+    try:
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return f"nvidia-smi {' '.join(args)} could not run"
+    return (out.stdout + out.stderr).strip()
+
+
+def print_cards() -> dict:
+    """Step 1: the cards, their peer access, the topology and the first
+    card's NVLink links."""
+    names = cards()
+    n = torch.cuda.device_count()
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+            for a in range(n) for b in range(n) if a != b}
+    topo, nvlink = _smi("topo", "-m"), _smi("nvlink", "--status", "-i", "0")
+    print(f"cards ({n}), nvidia-smi name and power limit: " + "; ".join(names))
+    print("peer access: " + ", ".join(f"{k} {v}" for k, v in peer.items()))
+    print("nvidia-smi topo -m:\n" + topo)
+    print("nvidia-smi nvlink --status -i 0:\n" + nvlink)
+    return {"cards": names, "peer_access": peer, "topo": topo, "nvlink": nvlink}
+
+
+class Checks:
+    """Failures gathered over the run; the run exits nonzero if any."""
+
+    def __init__(self):
+        self.failures: list[str] = []
+
+    def expect(self, ok: bool, what: str) -> None:
+        if not ok:
+            self.failures.append(what)
+            print(f"MISMATCH: {what}")
+
+
+def bfs_step(args, g, roots, dev, backend, tmp, checks: Checks) -> tuple[dict, list]:
+    """Steps 3 and 4: the process grid's batches against SimGrid's.  Returns
+    the report and the BFS trees, (parent, level) host planes a batch,
+    which every case and process gave."""
+    spec = {"graph": save_graph(g, tmp), "roots": roots.tolist(), "grids": grid_cases()}
+    env = nccl_env(tmp) if backend == "nccl" else None
+    t0 = time.perf_counter()
+    procs = procgrid.spawn(proc_cases, 2, 2, backend=backend, device=args.device,
+                           args=(spec,), env=env, timeout_s=SPAWN_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    sim, sim_launched, planes = {}, collections.Counter(), {}
+    for shape, cases in spec["grids"]:
+        st = distributed.setup(g, SimGrid(*shape, device=dev), "hybrid")
+        first = {k: v for k, v in cases[0].items() if k != "batches"}
+        distributed.run_case(st, roots[:BATCH], **first)  # warm-up, as the workers
+        for case in cases:
+            key = case_key(shape, case)
+            sim[key] = run_batches(st, roots, case, sim_launched)
+            planes[key] = [(r.pop("value").cpu().numpy(), r.pop("level").cpu().numpy())
+                           for r in sim[key]]
+        del st
+    for key, want in sim.items():
+        for proc in procs:
+            got = proc["cases"][key]
+            for b, (x, w) in enumerate(zip(got, want)):
+                where = f"{key} batch {b} rank {proc['rank']}"
+                checks.expect(x["digest"] == w["digest"], f"{where}: planes differ from SimGrid")
+                checks.expect(x["n_levels"] == w["n_levels"],
+                              f"{where}: {x['n_levels']} levels, SimGrid {w['n_levels']}")
+                checks.expect(x["stats"].table() == w["stats"].table(),
+                              f"{where}: merged ledger differs from SimGrid's")
+    bfs_keys = [k for k in sim if " bfs " in k]
+    for key in bfs_keys[1:]:
+        checks.expect([r["digest"] for r in sim[key]] == [r["digest"] for r in sim[bfs_keys[0]]],
+                      f"{key}: trees differ from {bfs_keys[0]}'s")
+    trees = planes[bfs_keys[0]]
+    times = [r["batch_s"] for r in sim[bfs_keys[0]]]
+    v = graph500.verdicts(g, roots, trees, times, BATCH, True)
+    checks.expect(v["n_valid"] == len(roots), f"invalid BFS trees: {v['failures']}")
+    (sssp_key,) = [k for k in sim if " sssp " in k]
+    src, dst = torch.as_tensor(g.src, device=dev), torch.as_tensor(g.dst, device=dev)
+    failures = algebras.sssp_certificate(src, dst, g.n, roots[:BATCH],
+                                         torch.as_tensor(planes[sssp_key][0][0], device=dev))
+    checks.expect(not failures, f"{sssp_key}: certificate failures {failures[:4]}")
+    del src, dst
+    for proc in procs if dev.type == "cuda" else ():  # CPU tensors launch no kernel
+        missing = [k for k in PATH if proc["launches"].get(k, 0) == 0]
+        checks.expect(not missing, f"rank {proc['rank']}: kernels never launched {missing}")
+    report = {"spawn_s": spawn_s, "validated_trees": v["n_valid"], "cases": {},
+              "processes": [{k: p[k] for k in ("rank", "device", "current_device", "card",
+                                                 "blocks", "launches")} for p in procs],
+              "traced": procs[0]["traced"]}
+    for key, want in sim.items():
+        got = procs[0]["cases"][key]
+        batch_s = [r["batch_s"] for r in got]
+        rec = {"batch_s": batch_s, "simgrid_batch_s": [r["batch_s"] for r in want],
+               "n_levels": [r["n_levels"] for r in got],
+               "bytes": distributed.zone_bytes([r["stats"] for r in got]),
+               "ledger_views": distributed.ledger_views([r["stats"] for r in got])}
+        if " bfs " in key:
+            te = v["traversed_edges"]
+            rec["teps"] = teps.harmonic_mean(
+                [te[i] / (batch_s[i // BATCH] / BATCH) for i in range(len(roots))])
+            rec["simgrid_teps"] = teps.harmonic_mean(
+                [te[i] / (rec["simgrid_batch_s"][i // BATCH] / BATCH)
+                 for i in range(len(roots))])
+        report["cases"][key] = rec
+    return report, trees
+
+
+def off_current_device(g, roots, checks: Checks) -> dict:
+    """Step 5: with ``cuda:0`` current, the single-device BFS of ``roots``
+    on ``cuda:1`` and on ``cuda:3`` against the same BFS on ``cuda:0``."""
+    torch.cuda.set_device(0)
+    out, want = {}, None
+    for k in (0, 1, 3):
+        setup = graph500.place(g, "hybrid", f"cuda:{k}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = bfsmod.bfs(setup.src, setup.dst, roots, g.n, policy="direction_opt",
+                         expand="hybrid", device=setup.device, block=setup.block)
+        got = (res.parent.cpu(), res.level.cpu())
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        missing = [name for name in GRAPH500_PATH if launches.get(name, 0) == 0]
+        checks.expect(not missing, f"bfs on cuda:{k}: kernels never launched {missing}")
+        checks.expect(res.parent.device == setup.device,
+                      f"bfs on cuda:{k}: planes on {res.parent.device}")
+        checks.expect(torch.cuda.current_device() == 0,
+                      f"bfs on cuda:{k} left cuda:{torch.cuda.current_device()} current")
+        if want is None:
+            want = got
+        else:
+            checks.expect(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"bfs on cuda:{k}: planes differ from cuda:0's")
+        out[f"cuda:{k}"] = {"launches": launches, "n_levels": res.n_levels,
+                            "seconds": seconds}
+        del setup, res
+    return out
+
+
+def train_gaps(runs, sim) -> tuple[float, float, float]:
+    """(outputs, loss, gradients) of the processes' captured step against
+    ``sim``'s: max abs gaps over the outputs' and the gradients' peaks, the
+    loss's relative gap."""
+    out_peak = max(float(np.abs(o).max()) for o in sim["out"])
+    out = max(float(np.abs(run["captured"]["out"][run["rank"]] - sim["out"][run["rank"]]).max())
+              for run in runs) / out_peak
+    loss = max(abs(run["captured"]["loss"] - sim["loss"]) for run in runs) / abs(sim["loss"])
+    g_peak = max(float(np.abs(g).max()) for g in sim["grads"])
+    grads = max(float(np.abs(a - b).max())
+                for a, b in zip(runs[0]["captured"]["grads"], sim["grads"])) / g_peak
+    return out, loss, grads
+
+
+def train_step(args, dev, backend, checks: Checks) -> dict:
+    """Step 6: the GraphCast train step on the four processes against
+    SimGrid's."""
+    layers = gnn_train.LAYERS
+    st = gnn_bench.setup("graphcast", args.refine, (2, 2), 0, args.smoke, dev, layers)
+    sim = [gnn_train.train(st, 1, q, 0, capture=True) for q in (False, True)]
+    del st
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    spec = {"refine": args.refine, "seed": 0, "smoke": args.smoke, "layers": layers,
+            "steps": 1, "capture": True,
+            "cases": [{"arch": "graphcast", "quantize": q} for q in (False, True)]}
+    t0 = time.perf_counter()
+    procs = procgrid.spawn(gnn_train.proc_train, 2, 2, backend=backend, device=args.device,
+                           args=(spec,), timeout_s=SPAWN_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    fp32, int8 = ([p[k] for p in procs] for k in range(2))
+    fp32_gaps = train_gaps(fp32, sim[0]["captured"])
+    checks.expect(max(fp32_gaps) <= GNN_FP32_REL,
+                  f"train fp32 (outputs, loss, gradients) {fp32_gaps} from SimGrid's > "
+                  f"{GNN_FP32_REL}")
+    loss8, loss32 = int8[0]["captured"]["loss"], sim[0]["captured"]["loss"]
+    rel = abs(loss8 - loss32) / abs(loss32)
+    checks.expect(rel < TRAIN_INT8_LOSS_REL,
+                  f"train int8 loss {loss8} vs fp32 {loss32}: {rel} >= {TRAIN_INT8_LOSS_REL}")
+    grads = int8[0]["captured"]["grads"]
+    checks.expect(all(np.isfinite(g).all() and np.abs(g).max() > 0 for g in grads),
+                  "train int8: a gradient leaf is non-finite or zero")
+    for run in int8 if dev.type == "cuda" else ():
+        checks.expect(run["launches"].get("quantize", 0) > 0,
+                      f"train int8 rank {run['rank']}: quantize never launched")
+    return {"fp32_gaps": fp32_gaps, "int8_loss": loss8, "fp32_loss": loss32,
+            "int8_loss_rel": rel, "int8_gaps": train_gaps(int8, sim[1]["captured"]),
+            "step_s": {"fp32": max(r["steps"][0]["step_s"] for r in fp32),
+                       "int8": max(r["steps"][0]["step_s"] for r in int8)},
+            "simgrid_step_s": {"fp32": sim[0]["steps"][0]["step_s"],
+                               "int8": sim[1]["steps"][0]["step_s"]},
+            "parts_s": {k: max(r["steps"][0][k] for r in int8)
+                        for k in ("fwd_bwd_s", "pmean_s", "adamw_s")},
+            "simgrid_parts_s": {k: sim[1]["steps"][0][k]
+                                for k in ("fwd_bwd_s", "pmean_s", "adamw_s")},
+            "peak_bytes": [r["peak_bytes"] for r in int8],
+            "devices": [r["device"] for r in int8], "spawn_s": spawn_s,
+            "launches": [r["launches"] for r in int8]}
+
+
+def print_report(bfs: dict, where: str, sim_where: str) -> None:
+    for key, rec in bfs["cases"].items():
+        teps_part = (f"; TEPS {rec['teps']:.6e} vs SimGrid {rec['simgrid_teps']:.6e}"
+                     if "teps" in rec else "")
+        print(f"{key}: batches {[round(t, 4) for t in rec['batch_s']]} s ({where}, slowest "
+              f"process) vs {[round(t, 4) for t in rec['simgrid_batch_s']]} s ({sim_where}); "
+              f"levels {rec['n_levels']}{teps_part}")
+        for zone, fmts in sorted(rec["bytes"].items()):
+            parts = ", ".join(f"{f} {b:,}" for f, b in sorted(fmts.items()))
+            print(f"    {zone:18s} {sum(fmts.values()):>14,} B  ({parts})")
+    traced = bfs["traced"]
+    if traced:
+        ms = traced["device_ms"]
+        total = sum(ms.values())
+        print(f"traced batch on rank 0 ({traced['case']}, {traced['batch_s']:.4f} s): device "
+              f"ms {', '.join(f'{k} {v:.3f}' for k, v in sorted(ms.items()))}; share NCCL "
+              f"{ms.get('nccl', 0) / total:.4f}, port kernels {ms.get('port', 0) / total:.4f}, "
+              f"other {ms.get('other', 0) / total:.4f}")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"])
+    ap.add_argument("--scale", type=int, default=SCALE)
+    ap.add_argument("--refine", type=int, default=6, help="the train step's multimesh")
+    ap.add_argument("--smoke", action="store_true", help="the train step at smoke widths")
+    args = ap.parse_args(argv)
+
+    dev = torch.device("cuda" if args.device is None else args.device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise SystemExit("multicard: no CUDA device is available")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    summary: dict = {"scale": args.scale, "backend": args.backend, "device": str(dev)}
+    if cuda:
+        summary.update(print_cards())
+        procgrid.check_transport(args.backend, 4, torch.cuda.device_count())
+    checks = Checks()
+    t0 = time.perf_counter()
+    g = graph500.generate(args.scale, 16, 1)[0]
+    roots = teps.valid_roots(g, N_ROOTS, seed=2)
+    summary["generation_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="multicard-") as tmp:
+        bfs, trees = bfs_step(args, g, roots, dev, args.backend, tmp, checks)
+        if args.backend == "nccl":
+            summary["nccl"] = nccl_report(tmp)
+    summary["bfs"] = bfs
+    procs = bfs["processes"]
+    if args.backend == "nccl":
+        devices = [p["device"] for p in procs]
+        for p in procs:
+            checks.expect(p["current_device"] == p["rank"]
+                          and set(p["blocks"].values()) == {f"cuda:{p['rank']}"}
+                          and p["device"] == f"cuda:{p['rank']}",
+                          f"rank {p['rank']}: current device {p['current_device']}, grid on "
+                          f"{p['device']}, blocks on {p['blocks']}")
+        checks.expect(len(set(devices)) == 4, f"the processes share cards: {devices}")
+        summary["transport"] = transport_label(summary["nccl"]["via"], summary["topo"],
+                                               summary["nvlink"])
+        where = f"4 processes on 4 cards over nccl, {summary['transport']}"
+    elif cuda:
+        where = "4 processes on one card over gloo (host memory)"
+    else:
+        where = "4 processes on the CPU over gloo"
+    sim_where = f"SimGrid on {dev}"
+    print(f"# multicard scale {args.scale} ({g.n:,} vertices, {len(g.src):,} stored edges), "
+          f"{len(roots)} roots in batches of {BATCH}, direction_opt + hybrid: {where}")
+    for p in procs:
+        print(f"rank {p['rank']}: {p['card']}, current device {p['current_device']}, blocks "
+              f"{p['blocks']}, launches {p['launches']}")
+    if args.backend == "nccl":
+        rep = summary["nccl"]
+        print(f"NCCL {rep['version']}: transports {rep['via']}; warnings {rep['warnings']}")
+    print_report(bfs, where, sim_where)
+    if cuda and torch.cuda.device_count() >= 4:
+        summary["off_current_device"] = off_current_device(g, roots[:BATCH], checks)
+        print("single process, cuda:0 current: bfs of the first batch on cuda:1 and cuda:3 "
+              "equal to cuda:0's: " + "; ".join(
+                  f"{k} {v['seconds']:.4f} s, launches {v['launches']}"
+                  for k, v in summary["off_current_device"].items()))
+    train = train_step(args, dev, args.backend, checks)
+    summary["train"] = train
+    print(f"train (GraphCast {gnn_train.LAYERS} layers, refinement {args.refine}, 2x2): fp32 "
+          f"gaps to SimGrid (outputs, loss, gradients) "
+          f"{', '.join(f'{x:.3e}' for x in train['fp32_gaps'])} (bound {GNN_FP32_REL}); int8 "
+          f"loss {train['int8_loss']:.6f} vs fp32 {train['fp32_loss']:.6f} (rel "
+          f"{train['int8_loss_rel']:.3e}, bound {TRAIN_INT8_LOSS_REL}); step s fp32 "
+          f"{train['step_s']['fp32']:.4f}, int8 {train['step_s']['int8']:.4f} ({where}, "
+          f"slowest process; parts {train['parts_s']}) vs SimGrid "
+          f"{train['simgrid_step_s']['int8']:.4f} (parts {train['simgrid_parts_s']}); peak "
+          f"bytes {train['peak_bytes']}")
+    summed: collections.Counter = collections.Counter()
+    for counts in [p["launches"] for p in procs] + train["launches"]:
+        summed.update(counts)
+    summary["launches_summed"] = dict(summed)
+    print(f"launches, the four processes summed (BFS and SSSP batches, int8 train step): "
+          f"{summary['launches_summed']}")
+    procgrid.require_no_children()
+    summary["failures"] = checks.failures
+    summary["where"] = where
+    print(json.dumps(summary, default=str))
+    if checks.failures:
+        print(f"multicard: {len(checks.failures)} mismatch(es)", file=sys.stderr)
+        raise SystemExit(1)
+    summary["trees"] = trees
+    return summary
+
+
+if __name__ == "__main__":
+    main()

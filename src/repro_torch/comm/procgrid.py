@@ -25,8 +25,12 @@ The transport is the default group's backend, and nothing swaps it:
   processes share one card and exchange over host memory, and
   :attr:`ProcessGrid.staging_s` accumulates the copies' time.
 * **nccl** — device tensors go straight to the collective; each rank needs
-  a card of its own (``cuda:<rank>``), and the grid raises when R*C exceeds
-  ``torch.cuda.device_count()``.
+  a card of its own (``cuda:<rank>``: :func:`rank_device`), and the grid
+  raises when R*C exceeds ``torch.cuda.device_count()``.  Each process
+  makes its card current before it joins the group and binds the group to
+  it (``device_id``), and the grid runs one all-reduce on each of its
+  groups when it is built, so that every communicator is set up with all
+  its members before a ``ppermute`` leaves one out.
 
 A rank's compute stays on its device: the grid never moves it to the CPU.
 :func:`spawn` starts the R*C processes with a ``file://`` rendezvous and
@@ -58,11 +62,32 @@ def check_transport(backend: str, world: int, cards: int) -> None:
                          "card(s); rehearse on one card with backend='gloo'")
 
 
+def rank_device(backend: str, rank: int, device=None) -> torch.device:
+    """The device of rank ``rank``'s tensors under ``backend``.
+
+    nccl: every rank on a card of its own, ``cuda:<rank>``.  ``None`` and
+    ``"cuda"`` without an index mean that card; an explicit ``cuda:k`` must
+    be it, and any other device raises.  gloo: ``device`` as
+    :func:`repro_torch.resolve_device` takes it (every rank on one card, or
+    on the CPU)."""
+    if backend == "nccl":
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type != "cuda":
+            raise ValueError(f"nccl moves CUDA tensors: give the grid a CUDA device, not {dev}")
+        if dev.index is not None and dev.index != rank:
+            raise ValueError(f"under nccl rank {rank} runs on cuda:{rank}, not on {dev}")
+        return torch.device("cuda", rank)
+    if backend == "gloo":
+        return resolve_device(device)
+    raise ValueError(f"unsupported backend {backend!r}: gloo or nccl")
+
+
 class ProcessGrid(Grid):
     """This process's rank of an R x C grid over the default process group.
 
-    ``device=None`` means ``cuda`` (``cuda:<rank>`` under nccl); ``row_fold``
-    as for :class:`repro_torch.comm.grid.Grid`."""
+    ``device`` as :func:`rank_device` takes it (``None`` means ``cuda``,
+    ``cuda:<rank>`` under nccl); ``row_fold`` as for
+    :class:`repro_torch.comm.grid.Grid`."""
 
     def __init__(self, rows: int, cols: int, *, row_fold=None, device=None):
         super().__init__(rows, cols, row_fold)
@@ -77,15 +102,9 @@ class ProcessGrid(Grid):
         self.backend = str(dist.get_backend()).lower()
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
         check_transport(self.backend, world, cards)
+        self.device = rank_device(self.backend, self.rank, device)
         if self.backend == "nccl":
-            self.device = resolve_device(f"cuda:{self.rank}" if device is None else device)
-            if self.device.type != "cuda":
-                raise ValueError("nccl moves CUDA tensors: give the grid a CUDA device")
             torch.cuda.set_device(self.device)
-        elif self.backend == "gloo":
-            self.device = resolve_device(device)
-        else:
-            raise ValueError(f"unsupported backend {self.backend!r}: gloo or nccl")
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.staging_s = 0.0  # host<->device copies of the staged transport
         # one subgroup per communicator group, created in the same order in
@@ -97,6 +116,13 @@ class ProcessGrid(Grid):
                 if self.rank in g:
                     self._groups[kind] = (g, pg)
         self._groups["all"] = (list(range(self.size)), dist.group.WORLD)
+        if self.backend == "nccl":
+            # NCCL sets a group's communicator up at its first call, with
+            # every member; a ppermute batch that leaves a member out would
+            # wait for it forever, so each group has its first call here
+            probe = torch.zeros(1, device=self.device)
+            for kind in ("all", "row", "col"):
+                dist.all_reduce(probe, group=self._groups[kind][1])
 
     def __repr__(self) -> str:
         fold = "" if self.row_fold is None else f", row_fold={self.row_fold}"
@@ -262,7 +288,10 @@ class ProcessGrid(Grid):
         return out
 
     def barrier(self) -> None:
-        dist.barrier()
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -271,15 +300,21 @@ class ProcessGrid(Grid):
 
 
 def _worker(fn, rank: int, rows: int, cols: int, backend: str, device, init: str,
-            row_fold, timeout_s: float, results, args) -> None:
+            row_fold, timeout_s: float, env: dict, results, args) -> None:
     try:
+        os.environ.update(env)
         n = rows * cols
         if device is None or torch.device(device).type == "cuda":
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
         else:
             torch.set_num_threads(1)
+        bind = {}
+        if backend == "nccl":  # the rank's card current, and the group bound to it
+            bind["device_id"] = rank_device(backend, rank, device)
+            torch.cuda.set_device(bind["device_id"])
         dist.init_process_group(backend, init_method=f"file://{init}", world_size=n,
-                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s),
+                                **bind)
         try:
             out = fn(ProcessGrid(rows, cols, row_fold=row_fold, device=device), *args)
         finally:
@@ -292,24 +327,32 @@ def _worker(fn, rank: int, rows: int, cols: int, backend: str, device, init: str
 
 def spawn(fn: Callable, rows: int, cols: int, *, backend: str = "gloo", device=None,
           init_file: str | None = None, row_fold=None, args: tuple = (),
-          timeout_s: float = 900.0, grace_s: float = 20.0) -> list:
+          timeout_s: float = 900.0, grace_s: float = 20.0, env: dict | None = None) -> list:
     """Run ``fn(grid, *args)`` in R*C new processes, one rank each, and
     return each rank's result in rank order.
 
     Each process initializes the default group (``backend``, a ``file://``
     rendezvous at ``init_file``, default a file in a new temporary
-    directory, so that concurrent callers never share a port) and builds a
+    directory, so that concurrent callers never share a port; under nccl
+    bound to the rank's card, :func:`rank_device`) and builds a
     :class:`ProcessGrid` on ``device``.  ``fn`` and its results must pickle
-    (``fn`` a module-level function).  When any rank fails, the others get
-    ``grace_s`` seconds to finish or fail before they are stopped, and a
-    ``RuntimeError`` carries every rank's traceback; so does a rank that
-    dies without a word, or a run past ``timeout_s``.
+    (``fn`` a module-level function).  ``env`` is added to the processes'
+    environment (theirs only); under nccl ``NCCL_DEBUG`` defaults to
+    ``WARN``, so that NCCL's own errors reach the processes' stderr.  When
+    any rank fails, the others get ``grace_s`` seconds to finish or fail
+    before they are stopped, and a ``RuntimeError`` carries every rank's
+    traceback; so does a rank that dies without a word, or a run past
+    ``timeout_s`` (also each collective's time limit: a collective that
+    hangs fails the run).
 
     Nothing it starts outlives the call: the spawn method's first process
     also starts multiprocessing's resource tracker, which would live until
     the caller exits and end just after it, and a tracker that this call
     started is stopped before it returns."""
     n = rows * cols
+    env = dict(env or {})
+    if backend == "nccl" and "NCCL_DEBUG" not in os.environ:
+        env.setdefault("NCCL_DEBUG", "WARN")
     tracker = multiprocessing.resource_tracker._resource_tracker
     tracker_was_running = tracker._fd is not None
     ctx = torch.multiprocessing.get_context("spawn")
@@ -317,7 +360,8 @@ def spawn(fn: Callable, rows: int, cols: int, *, backend: str = "gloo", device=N
     with tempfile.TemporaryDirectory(prefix="procgrid-") as tmp:
         init = init_file or os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_worker, args=(fn, rank, rows, cols, backend, device,
-                                                   init, row_fold, timeout_s, results, args))
+                                                   init, row_fold, timeout_s, env, results,
+                                                   args))
                  for rank in range(n)]
         for p in procs:
             p.start()
@@ -366,3 +410,20 @@ def spawn(fn: Callable, rows: int, cols: int, *, backend: str = "gloo", device=N
         raise RuntimeError(f"{len(errors)} of {n} ranks failed:\n" + "\n".join(
             f"--- rank {rank}:\n{msg}" for rank, msg in sorted(errors.items())))
     return [done[rank] for rank in range(n)]
+
+
+def require_no_children() -> None:
+    """Raise if any process this one started is still alive (a child not
+    yet reaped included)."""
+    alive = []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) == os.getpid():
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    alive.append((int(d), f.read().replace(b"\0", b" ").decode()[:120]))
+        except (FileNotFoundError, ProcessLookupError):  # ended meanwhile
+            continue
+    if alive:
+        raise AssertionError(f"processes started here still alive: {alive}")

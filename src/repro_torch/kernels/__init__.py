@@ -156,14 +156,34 @@ def current_stream(device: torch.device | None = None) -> int:
         torch._C._cuda_getDevice() if index is None else index)
 
 
-def launch(kernel: str, name: str, argtypes, *args) -> None:
-    """Launch C entry point ``name`` on PyTorch's current stream, raise if
-    the launch was refused, and count one launch of ``kernel``."""
-    err = cfunc(name, argtypes)(*args, current_stream())
+def launch(kernel: str, name: str, argtypes, device: torch.device, *args) -> None:
+    """Launch C entry point ``name`` on PyTorch's current stream of
+    ``device``, the card its tensors lie on; raise if the launch was
+    refused, and count one launch of ``kernel``.
+
+    The C entry points launch on the CUDA runtime's current device, so when
+    ``device`` is another card the call runs under a ``torch.cuda.device``
+    guard of it: a kernel runs where its tensors lie, whichever card is
+    current, as JAX computes where its arrays live."""
+    fn = cfunc(name, argtypes)
+    stream = current_stream(device)
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err:
         msg = library().rt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
     LAUNCHES[kernel] += 1
+
+
+def source_kernels() -> set[str]:
+    """The names of the ``__global__`` kernels in ``csrc/*.cu``: the kernels
+    of this package, as a profiler key cut by :func:`kernel_name` gives
+    them."""
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {name for src in CSRC.glob("*.cu") for name in pattern.findall(src.read_text())}
 
 
 def kernel_name(key: str) -> str:

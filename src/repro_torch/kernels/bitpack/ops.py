@@ -53,11 +53,11 @@ def pack_planes(values: torch.Tensor, b: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     if values.dtype == torch.int32:
-        kernels.launch(KERNEL, "rt_pack_u32", _ARGS, values.data_ptr(), out.data_ptr(), n,
-                       words, planes, b, kernels.vec_rows(values))
+        kernels.launch(KERNEL, "rt_pack_u32", _ARGS, values.device, values.data_ptr(),
+                       out.data_ptr(), n, words, planes, b, kernels.vec_rows(values))
     else:
-        kernels.launch(KERNEL, "rt_pack_u8", _BYTE_ARGS, values.data_ptr(), out.data_ptr(), n,
-                       words, planes, kernels.vec_rows(values))
+        kernels.launch(KERNEL, "rt_pack_u8", _BYTE_ARGS, values.device, values.data_ptr(),
+                       out.data_ptr(), n, words, planes, kernels.vec_rows(values))
     return out
 
 
@@ -84,11 +84,12 @@ def unpack_planes(words: torch.Tensor, b: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     if b == 1:
-        kernels.launch(UNPACK_KERNEL, "rt_unpack_u8", _UNPACK_BITS_ARGS, words.data_ptr(),
-                       out.data_ptr(), w, planes)
+        kernels.launch(UNPACK_KERNEL, "rt_unpack_u8", _UNPACK_BITS_ARGS, words.device,
+                       words.data_ptr(), out.data_ptr(), w, planes)
     else:
-        kernels.launch(UNPACK_KERNEL, "rt_unpack_u32", _UNPACK_ARGS, words.data_ptr(),
-                       out.data_ptr(), w, planes, b, kernels.vec_rows(words))
+        kernels.launch(UNPACK_KERNEL, "rt_unpack_u32", _UNPACK_ARGS, words.device,
+                       words.data_ptr(), out.data_ptr(), w, planes, b,
+                       kernels.vec_rows(words))
     return out
 
 

@@ -1,6 +1,7 @@
 // Shared helpers of the repro_torch CUDA kernels (plain C interface, sm_90a).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -27,17 +28,24 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// The card's SM count (the device current at first call), for grids sized
-// to the card rather than to the work; 0 if the query failed, which makes
-// the launch fail and report it.
+// The SM count of the runtime's current device (the card the launch goes
+// to), for grids sized to the card rather than to the work; one value kept
+// per device index, so a process that launches on several cards sizes each
+// grid to its own card.  0 if the query failed, which makes the launch fail
+// and report it.
 inline int sm_count() {
-  static const int count = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return count;
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> counts[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  int sms = counts[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      return 0;
+    }
+    counts[dev].store(sms, std::memory_order_relaxed);
+  }
+  return sms;
 }
 
 // Threads a block of the grid-stride kernels, and blocks an SM at full

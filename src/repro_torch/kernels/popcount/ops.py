@@ -24,7 +24,8 @@ _SCRATCH: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _ticket_scratch(device: torch.device, planes: int) -> torch.Tensor:
-    """The zeroed ticket words of the current stream on ``device``.
+    """The zeroed ticket words of the current stream on ``device``: the
+    stream :func:`kernels.launch` launches on for tensors on ``device``.
 
     Calls on one stream run in order, so each finds the words as the last
     one left them, 0; calls on two streams get separate words."""
@@ -54,7 +55,7 @@ def popcount_planes(words: torch.Tensor) -> torch.Tensor:
     if planes == 0:
         return out
     scratch = _ticket_scratch(words.device, planes)
-    kernels.launch(PLANES_KERNEL, "rt_popcount_planes", _PLANES_ARGS,
+    kernels.launch(PLANES_KERNEL, "rt_popcount_planes", _PLANES_ARGS, words.device,
                    words.data_ptr(), out.data_ptr(), scratch.data_ptr(), w, planes,
                    kernels.vec_rows(words))
     return out
@@ -73,7 +74,7 @@ def popcount_blocks(words: torch.Tensor) -> torch.Tensor:
                       device=words.device)
     if out.numel() == 0:
         return out
-    kernels.launch(BLOCKS_KERNEL, "rt_popcount_blocks", _BLOCKS_ARGS,
+    kernels.launch(BLOCKS_KERNEL, "rt_popcount_blocks", _BLOCKS_ARGS, words.device,
                    words.data_ptr(), out.data_ptr(), words.shape[0],
                    int(words.data_ptr() % 16 == 0))
     return out
@@ -89,7 +90,7 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     if words.numel() == 0:
         return out
     kernels.launch(WORDS_KERNEL, "rt_popcount_words",
-                   (kernels.P, kernels.P, kernels.I64),
+                   (kernels.P, kernels.P, kernels.I64), words.device,
                    words.data_ptr(), out.data_ptr(), words.numel())
     return out
 

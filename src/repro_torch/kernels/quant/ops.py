@@ -35,5 +35,5 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if n == 0:
         return q, scales
     kernels.launch(KERNEL, "rt_quantize", (kernels.P, kernels.P, kernels.P, kernels.I64),
-                   x.data_ptr(), q.data_ptr(), scales.data_ptr(), n // ref.GROUP)
+                   x.device, x.data_ptr(), q.data_ptr(), scales.data_ptr(), n // ref.GROUP)
     return q, scales

@@ -55,7 +55,7 @@ def frontier_mask(f_words: torch.Tensor) -> torch.Tensor:
         return mask
     kernels.launch(MASK_KERNEL, "rt_frontier_mask",
                    (kernels.P, kernels.P, kernels.I64, kernels.I32, kernels.I64),
-                   f_words.data_ptr(), mask.data_ptr(), 32 * wf, planes, wf)
+                   f_words.device, f_words.data_ptr(), mask.data_ptr(), 32 * wf, planes, wf)
     return mask
 
 
@@ -98,8 +98,8 @@ def _interleave_into(x: torch.Tensor, mask: torch.Tensor, xi: torch.Tensor) -> N
     kernels.launch(INTERLEAVE_KERNEL, "rt_interleave_values",
                    (kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
                     kernels.I32),
-                   x.data_ptr(), mask.data_ptr(), xi.data_ptr(), x.shape[0], x.shape[1],
-                   mask.shape[1], interleave_vec(x, mask))
+                   x.device, x.data_ptr(), mask.data_ptr(), xi.data_ptr(), x.shape[0],
+                   x.shape[1], mask.shape[1], interleave_vec(x, mask))
 
 
 def _mask(f_words: torch.Tensor):
@@ -135,8 +135,8 @@ def _ell(nbr, f_words, u_words, n_cols: int, kernel: str) -> torch.Tensor:
         kernel, "rt_spmv_min_planes",
         (kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
          kernels.I32, kernels.I32, kernels.I64, kernels.I32),
-        nbr.data_ptr(), _ptr(mask), f_words.data_ptr(), _ptr(u_words), out.data_ptr(),
-        n_rows, k, n_cols, planes, 0 if u_words is None else u_words.shape[1],
+        nbr.device, nbr.data_ptr(), _ptr(mask), f_words.data_ptr(), _ptr(u_words),
+        out.data_ptr(), n_rows, k, n_cols, planes, 0 if u_words is None else u_words.shape[1],
         kernels.vec_rows(nbr),
     )
     return out
@@ -253,8 +253,8 @@ def _gather(nbr, f_words, x, u_words, n_cols: int, op: str, max_weight: int, row
         (kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
          kernels.I32, kernels.I32, kernels.I32, kernels.I32, kernels.I32, kernels.I64,
          kernels.I32, kernels.I32, kernels.I32, kernels.I32, kernels.I32),
-        nbr.data_ptr(), _ptr(mask), f_words.data_ptr(), x.data_ptr(), _ptr(xi), _ptr(u_words),
-        out.data_ptr(), n_rows, k, n_cols, x.shape[1], planes,
+        nbr.device, nbr.data_ptr(), _ptr(mask), f_words.data_ptr(), x.data_ptr(), _ptr(xi),
+        _ptr(u_words), out.data_ptr(), n_rows, k, n_cols, x.shape[1], planes,
         0 if u_words is None else u_words.shape[1], int(row_base), int(col_base),
         int(op == "minplus"), int(max_weight), kernels.vec_rows(nbr),
     )

@@ -130,10 +130,11 @@ class AsyncCheckpointer:
         self.written: list[int] = []
 
     def submit(self, state: Any, step: int) -> None:
-        """Copy ``state`` to host memory now (after the card's work on it is
-        done) and queue it for writing as ``step``."""
-        if any(isinstance(x, torch.Tensor) and x.is_cuda for x in tree.leaves(state)):
-            torch.cuda.current_stream().synchronize()
+        """Copy ``state`` to host memory now (after the work of each card that
+        holds a part of it is done) and queue it for writing as ``step``."""
+        for dev in {x.device for x in tree.leaves(state)
+                    if isinstance(x, torch.Tensor) and x.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
         snapshot = tree.tree_map(_host, state)
         with self._lock:
             self._pending = (snapshot, step)

@@ -643,6 +643,96 @@ def test_process_grid_on_card_equals_simgrid(cuda, mode):
             assert proc["launches"].get(name, 0) > 0, (proc["rank"], name)
 
 
+@pytest.fixture(scope="module")
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    return [torch.device("cuda", k) for k in range(4)]
+
+
+NCCL_MODES = ("auto", "btfly")
+
+
+@pytest.fixture(scope="module")
+def nccl_2x2(four_cards):
+    """Scale 16, four roots, 2x2 as four processes over nccl (rank p on
+    cuda:p), every mode of NCCL_MODES in one spawn; the same cases on
+    SimGrid on cuda:0."""
+    from repro_torch.bench import distributed as dist_bench, graph500
+    from repro_torch.comm import procgrid
+
+    scale, roots = 16, [3, 17, 1000, 12345]
+    cases = [{"mode": m, "policy": "direction_opt"} for m in NCCL_MODES]
+    procs = procgrid.spawn(dist_bench.proc_cases, 2, 2, backend="nccl", device="cuda",
+                           timeout_s=300, args=({"scale": scale, "roots": roots,
+                                                 "cases": cases},))
+    st = dist_bench.setup(graph500.generate(scale, 16, 1)[0], SimGrid(2, 2, four_cards[0]),
+                          "hybrid")
+    return procs, [dist_bench.run_case(st, roots, **case) for case in cases]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", range(len(NCCL_MODES)), ids=NCCL_MODES)
+def test_nccl_2x2_equals_simgrid(nccl_2x2, k):
+    """Four processes on four cards over nccl: the same planes, level count
+    and merged ledger as SimGrid on cuda:0, nothing staged, and every
+    worker launched the distributed path's kernels."""
+    procs, sim = nccl_2x2
+    want = sim[k]
+    np.testing.assert_array_equal(procs[0]["cases"][k]["value"], want["value"].cpu().numpy())
+    np.testing.assert_array_equal(procs[0]["cases"][k]["level"], want["level"].cpu().numpy())
+    assert [proc["rank"] for proc in procs] == [0, 1, 2, 3]
+    for proc in procs:
+        got = proc["cases"][k]
+        assert got["n_levels"] == want["n_levels"]
+        assert got["stats"].table() == want["stats"].table()
+        assert got["staging_s"] == 0.0
+        for name in ("pack", "unpack", "popcount_planes", "spmv_min_planes"):
+            assert proc["launches"].get(name, 0) > 0, (proc["rank"], name)
+
+
+@pytest.mark.gpu
+def test_bfs_off_the_current_card_equals_cuda0(four_cards):
+    """One process with cuda:0 current: the BFS of a batch on cuda:1 and on
+    cuda:3 gives cuda:0's planes, launches its kernels, and leaves cuda:0
+    current."""
+    from repro_torch.bench import graph500
+
+    g = builder.build_csr(kronecker.kronecker_edges(16, seed=1), n=1 << 16)
+    roots = np.asarray([3, 17, 1000, 12345], np.int32)
+    torch.cuda.set_device(0)
+    runs = []
+    for k in (0, 1, 3):
+        setup = graph500.place(g, "hybrid", four_cards[k])
+        kernels.reset_launches()
+        res = bfs.bfs(setup.src, setup.dst, roots, g.n, policy="direction_opt",
+                      expand="hybrid", device=setup.device, block=setup.block)
+        assert res.parent.device == four_cards[k] and torch.cuda.current_device() == 0
+        assert kernels.LAUNCHES["spmv_min_planes"] > 0 and kernels.LAUNCHES["pack"] > 0
+        runs.append((res.parent.cpu(), res.level.cpu()))
+    for parent, level in runs[1:]:
+        assert torch.equal(parent, runs[0][0]) and torch.equal(level, runs[0][1])
+
+
+@pytest.mark.gpu
+def test_nccl_train_step_equals_simgrid(four_cards):
+    """The fp32 GraphCast train step (refinement 4, smoke widths, 2x2) as
+    four processes over nccl: outputs, loss and gradients within 1e-5 of
+    SimGrid's on cuda:0 (index_add_ sums by atomics in another order)."""
+    from repro_torch.bench import gnn as gnn_bench, gnn_train, multicard
+    from repro_torch.comm import procgrid
+
+    spec = {"refine": 4, "seed": 0, "smoke": True, "layers": None, "steps": 1,
+            "capture": True, "cases": [{"arch": "graphcast", "quantize": False}]}
+    procs = procgrid.spawn(gnn_train.proc_train, 2, 2, backend="nccl", device="cuda",
+                           timeout_s=300, args=(spec,))
+    st = gnn_bench.setup("graphcast", 4, (2, 2), 0, True, four_cards[0])
+    sim = gnn_train.train(st, 1, False, 0, capture=True)
+    runs = [p[0] for p in procs]
+    assert sorted(r["device"].split(" ")[0] for r in runs) == [str(d) for d in four_cards]
+    assert max(multicard.train_gaps(runs, sim["captured"])) <= multicard.GNN_FP32_REL
+
+
 @pytest.mark.gpu
 def test_tree_betweenness_on_card_equals_cpu(cuda):
     """One index_add_ a level on the card gives the CPU's float64 sums."""
