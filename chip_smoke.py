@@ -190,7 +190,12 @@ cells counted on ``meta``):
    its teacher-forced ``forward`` in fp32 (the MoE archs with a capacity
    factor of their expert count, drop-free) within ``SERVE_FP32_REL`` of
    the peak at every position (the logits of the vocab: padded ones hold
-   -1e9).  Ticks,
+   -1e9); (4) gemma-2b and dbrx-132b cut to 2 layers, fp32 with TF32 off,
+   served on a ``SimGrid`` 2x2 on the card by the grid engine (the weights
+   placed FSDP x TP by ``param_specs``, the cache's slots over the rows and
+   its sequence over the columns: ``models.transformer_sharded``) and by
+   the one-device engine: the same tokens, and every tick's logits within
+   ``SERVE_GRID_REL`` of the one-device engine's peak.  Ticks,
    generated tokens per second, the median ms per tick, the weights' bytes
    and the peak memory beside the card;
 15. AutoInt (``repro_torch.bench.recsys``; no kernel of the ten runs on
@@ -245,8 +250,9 @@ cells counted on ``meta``):
    frontier_mask must have launched; (3) ``run_cell`` for
    ``DRYRUN_CELLS`` on meta on the host, each record printed on one line:
    the LM prefill, the 2D cell and the graph500 cell counted (temp bytes,
-   collective bytes for the 2D and graph500 cells only, FLOPs but for the
-   BFS, which has no products), the graph500 cell's collectives per kind
+   collective bytes -- the LM prefill's of its sharded program on every
+   rank of the two-pod mesh, one layer times its depth --, FLOPs but for
+   the BFS, which has no products), the graph500 cell's collectives per kind
    those of the reference's compiled program (``GRAPH500_HLO``), the LM
    skip a skip, and no kernel launched; (4) check 2's partition with
    ``top_down`` for ``raw``, ``bitmap`` and ``auto``: a real batch's
@@ -440,6 +446,13 @@ SERVE_CHECK_SEQ = 128
 #: 32-token group a capacity of 9 per expert, which its random router
 #: overflows (the forward then drops choices that decode keeps)
 SERVE_TF_PROMPT = 32
+#: check (4): the grid engine on a SimGrid 2x2 against the one-device
+#: engine, both fp32 with TF32 off (the same products split over ranks and
+#: summed in another order), over the logits' peak
+SERVE_GRID_ARCHS = ("gemma-2b", "dbrx-132b")
+SERVE_GRID_LAYERS = 2
+SERVE_GRID_REL = 1e-4
+SERVE_GRID_CELL = {"requests": 6, "prompt_len": (8, 24), "max_new": 4, "max_seq": 64}
 
 
 #: AutoInt (step 15): the published config's fused table, fp32 on the card
@@ -2795,9 +2808,57 @@ def serve_step(card) -> dict:
         del params, ref
         torch.cuda.empty_cache()
         print(f"{arch}: {time.perf_counter() - t1:.1f}s")
-    print(f"serve launches (all five archs): {launches or 'none'} (no kernel of the ten is "
-          f"on this path, as in the reference)")
+    for name, c in serve_grid_check(card).items():
+        launches[name] = launches.get(name, 0) + c
+    print(f"serve launches (all five archs, and the grid engine): {launches or 'none'} (no "
+          f"kernel of the ten is on this path, as in the reference)")
     print(f"serve step: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def serve_grid_check(card) -> dict:
+    """Step 14 check (4): the grid engine on a SimGrid 2x2 against the
+    one-device engine.  Returns the launch counts of the grid engine's run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.bench import serve as serve_bench
+    from repro_torch.comm import SimGrid
+    from repro_torch.models import transformer_sharded as tsh
+
+    launches: dict = {}
+    c = SERVE_GRID_CELL
+    for arch in SERVE_GRID_ARCHS:
+        t1 = time.perf_counter()
+        with no_tf32():
+            cfg, params = serve_bench.model(arch, SERVE_GRID_LAYERS, dtype="fp32", device="cuda")
+            prompts = serve_bench.prompts(cfg.vocab, c["requests"], *c["prompt_len"])
+            kw = dict(slots=serve_bench.SLOTS, max_seq=c["max_seq"], max_new=c["max_new"],
+                      keep_logits=True)
+            one = serve_bench.serve(cfg, params, prompts, device="cuda", **kw)
+            grid = SimGrid(2, 2, "cuda")
+            specs = tsh.serving_specs(cfg, grid)
+            kernels.reset_launches()
+            res = serve_bench.serve(cfg, tsh.shard_params(cfg, params, grid, specs), prompts,
+                                    grid=grid, specs=specs, **kw)
+            for name, k in kernels.LAUNCHES.items():
+                launches[name] = launches.get(name, 0) + k
+        want = [r.out for r in one["requests"]]
+        got = [r.out for r in res["requests"]]
+        full = [torch.from_numpy(x) for x in one["logits"]]
+        rows = [torch.from_numpy(x) for x in res["logits"]]  # grid rank 0: slots 0-3
+        gap = max(_gap(g, f[:g.shape[0]]) for g, f in zip(rows, full))
+        if not (got == want and len(rows) == len(full) and gap <= SERVE_GRID_REL):
+            raise AssertionError(f"{arch} grid engine 2x2: tokens {got} vs one device {want}, "
+                                 f"logits gap {gap} (bound {SERVE_GRID_REL})")
+        print(f"{arch} check 4 ({SERVE_GRID_LAYERS} layers, fp32, TF32 off): the grid engine on "
+              f"a SimGrid 2x2 (FSDP x TP) gave the one-device engine's tokens for "
+              f"{len(prompts)} requests over {res['ticks']} ticks, rank 0's logits within "
+              f"{gap:.3e} of the peak (bound {SERVE_GRID_REL}); median ms per tick "
+              f"{res['median_tick_ms']:.3f} vs {one['median_tick_ms']:.3f} on one device, "
+              f"peak memory {res['peak_bytes'] / 2**30:.2f} GiB; on {card}; "
+              f"{time.perf_counter() - t1:.1f}s")
+        del one, res, params
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -3239,10 +3300,9 @@ def dryrun_step(card, scale: int, counted: dict) -> dict:
             if not skip:
                 roof = rec["roofline"]
                 coll = roof["collective_bytes"]
-                graph = shape == "ogb_products" or arch == "graph500"
                 if (not rec["memory"]["temp_bytes"] > 0
                         or (rec["cost"]["flops"] > 0) != (arch != "graph500")
-                        or (coll > 0) != graph
+                        or not coll > 0
                         or (arch == "graph500" and roof["collective_breakdown"] != GRAPH500_HLO)):
                     raise AssertionError(f"{arch}/{shape}: memory {rec['memory']}, cost "
                                          f"{rec['cost']}, collectives "

@@ -1,10 +1,13 @@
 """The four-card check: the paper's distributed BFS, SSSP and the GNN train
-step as one process per card over NCCL, held against ``SimGrid``.
+step as one process per card over NCCL, held against ``SimGrid``; and LM
+serving sharded FSDP x TP over the four cards, held against one card.
 
     python -m repro_torch.bench.multicard                     # 4 cards, nccl, scale 22
+    python -m repro_torch.bench.multicard --case lm           # the LM case instead
     python -m repro_torch.bench.multicard --backend gloo      # 4 processes on one card
     python -m repro_torch.bench.multicard --device cpu --backend gloo --scale 12 \\
         --refine 2 --smoke                                     # 4 CPU processes
+    python -m repro_torch.bench.multicard --device cpu --backend gloo --case lm --smoke
 
 In order:
 
@@ -41,6 +44,26 @@ In order:
    within :data:`TRAIN_INT8_LOSS_REL` of the fp32 one, its gradients finite
    and nonzero, ``quantize`` launched in every process.
 
+7. the LM case (``--case lm``, in place of steps 2-6): :data:`LM_CASES`
+   served as four processes by the grid engine (``bench.serve.proc_serve``:
+   each process draws only its slices of the weights), the serving cell's
+   traffic of ``bench.serve.CELLS`` (8 requests of 16-64 prompt tokens, 16
+   new tokens, 8 slots of a 2,048-token cache).  A case held against one
+   card is first served by the one-device engine on the first card, its
+   logits and fed tokens kept a tick: the processes' greedy tokens must
+   equal it and each tick's logits lie within :data:`LM_LOGIT_REL` of its
+   peak.  The 1x4 deepseek-coder-33b processes then serve twice more on the
+   same weights: with TF32 products (a control that must read above
+   :data:`LM_LOGIT_REL`) and in bf16 (within :data:`LM_BF16_RATIO` times
+   the one-card bf16 engine's own gap to its fp32 logits), each slot
+   compared while both runs fed it the same tokens.  deepseek-coder-33b at
+   its full 62 layers (bf16, 1x4) does not fit on one card and is timed:
+   tokens/s, median ms per tick (rank 0), every card's peak memory while
+   drawing the weights and while serving, each process's host microseconds
+   a kernel launch; after each case :data:`LM_TRACE` more ticks are traced
+   on rank 0 (wall ms, kernels and device ms a tick in NCCL's kernels,
+   matrix products and the rest).
+
 It prints, per case, each batch's seconds (its slowest process) and the
 harmonic-mean TEPS beside ``SimGrid``'s, the ledger's bytes by phase and
 format, and the train step's seconds beside ``SimGrid``'s; under nccl the
@@ -71,6 +94,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.bench import algebras, cards, distributed, gnn_train, graph500, teps
 from repro_torch.bench import gnn as gnn_bench
+from repro_torch.bench import serve as serve_bench
 from repro_torch.comm import SimGrid, procgrid
 from repro_torch.core import bfs as bfsmod
 from repro_torch.graphgen import builder
@@ -95,6 +119,28 @@ GRAPH_FIELDS = ("row_ptr", "col_idx", "src", "dst")
 #: seconds each spawn, and each collective in it, may take: a hang fails
 #: the run well inside a chip call's limit
 SPAWN_TIMEOUT_S = 900.0
+#: the LM case, four processes a row: (arch, layers, compute dtype, grid,
+#: held against one card, the variants of ``bench.serve.VARIANTS`` the same
+#: processes serve after the timed run, each against one card)
+LM_CASES = (("deepseek-coder-33b", 8, "fp32", (1, 4), True, ("tf32", "bf16")),
+            ("deepseek-coder-33b", 8, "fp32", (2, 2), True, ()),
+            ("dbrx-132b", 2, "fp32", (2, 2), True, ()),
+            ("deepseek-coder-33b", 62, "bf16", (1, 4), False, ()))
+#: fp32 logits of the processes against the one-card engine's, over its
+#: peak: the same float32 products split over four cards and summed in
+#: another order (NCCL moves them; the grid adds in group order), TF32 off.
+#: Sound runs read 1.6e-6 to 2.3e-6; the TF32 variant must lie above it
+LM_LOGIT_REL = 1e-5
+#: the bf16 variant against the one-card bf16 engine: within this many
+#: times the one-card bf16 engine's own gap to its fp32 logits (both where
+#: the runs fed equal tokens): the grid's bf16 rounding adds noise of
+#: bf16's own size, a fault far more (tests/test_torch_lm_sharded.py holds
+#: the grid on the CPU to the same rule)
+LM_BF16_RATIO = 2.0
+#: ticks of a throwaway engine before the timed serving, in each process
+LM_WARMUP = 4
+#: ticks traced on rank 0 after the serving (device ms by class)
+LM_TRACE = 4
 
 
 def case_key(shape, case: dict) -> str:
@@ -462,6 +508,155 @@ def train_step(args, dev, backend, checks: Checks) -> dict:
             "launches": [r["launches"] for r in int8]}
 
 
+def lm_reference(arch: str, layers: int, dtype: str, dev, path: str, smoke: bool = False) -> dict:
+    """The one-card engine on ``arch`` cut to ``layers`` (``smoke``: at
+    its smoke widths) in ``dtype`` serving the cell's traffic, its logits
+    and fed tokens a tick saved to ``path`` (.npz)."""
+    cell = serve_bench.CELLS[arch]
+    cfg, params = serve_bench.model(arch, layers, smoke, dtype=dtype, device=dev)
+    prompts = serve_bench.prompts(cfg.vocab, cell["requests"], *cell["prompt_len"])
+    t0 = time.perf_counter()
+    res = serve_bench.serve(cfg, params, prompts, serve_bench.SLOTS, cell["max_seq"],
+                            cell["max_new"], device=dev, keep_logits=True)
+    np.savez(path, logits=np.stack(res["logits"]), fed=np.stack(res["fed"]))
+    out = {"tokens": [r.out for r in res["requests"]], "ticks": res["ticks"],
+           "tokens_per_s": res["tokens_per_s"], "median_tick_ms": res["median_tick_ms"],
+           "peak_bytes": res["peak_bytes"], "path": path, "seconds": time.perf_counter() - t0}
+    del res, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"lm {arch} {layers} layers {dtype}: one card's engine in {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def lm_step(args, dev, backend, tmp, checks: Checks) -> dict:
+    """Step 7: :data:`LM_CASES` on four processes, against one card where
+    the case has a reference."""
+    report, refs = {}, {}
+
+    def reference(arch, layers, dtype):
+        if (arch, layers, dtype) not in refs:
+            refs[arch, layers, dtype] = lm_reference(
+                arch, layers, dtype, dev, os.path.join(tmp, f"{arch}-{layers}-{dtype}.npz"),
+                args.smoke)
+        return refs[arch, layers, dtype]
+
+    for arch, layers, dtype, shape, against, variants in LM_CASES:
+        cell = serve_bench.CELLS[arch]
+        key = f"{arch} {layers} layers {dtype} {shape[0]}x{shape[1]}"
+        ref = reference(arch, layers, dtype) if against else None
+        vrefs = {v: reference(arch, layers, serve_bench.VARIANTS[v][0]) for v in variants}
+        cfg = serve_bench.config(arch, layers, args.smoke, dtype)
+        prompts = [p.tolist() for p in serve_bench.prompts(cfg.vocab, cell["requests"],
+                                                           *cell["prompt_len"])]
+        spec = {"arch": arch, "layers": layers, "smoke": args.smoke, "dtype": dtype, "seed": 0,
+                "slots": serve_bench.SLOTS, "max_seq": cell["max_seq"],
+                "max_new": cell["max_new"], "prompts": prompts, "warmup": LM_WARMUP,
+                "log_every": 16, "trace": LM_TRACE,
+                "reference": ref["path"] if ref else None,
+                "variants": [(v, r["path"]) for v, r in vrefs.items()]}
+        print(f"lm {key}: {shape[0] * shape[1]} processes", flush=True)
+        t0 = time.perf_counter()
+        runs = procgrid.spawn(serve_bench.proc_serve, *shape, backend=backend,
+                              device=args.device, args=(spec,), timeout_s=SPAWN_TIMEOUT_S,
+                              env=nccl_env(tmp) if backend == "nccl" else None)
+        rec = {"spawn_s": time.perf_counter() - t0,
+               **{k: runs[0][k] for k in ("ticks", "generated_tokens", "tokens_per_s",
+                                          "median_tick_ms", "wall_s")},
+               "init_s": [r["init_s"] for r in runs],
+               "init_peak_bytes": [r["init_peak_bytes"] for r in runs],
+               "peak_bytes": [r["peak_bytes"] for r in runs],
+               "launch_us": [r["launch_us"] for r in runs],
+               "devices": [r["device"] for r in runs], "trace": runs[0].get("trace")}
+        for r in runs:
+            checks.expect(r["tokens"] == runs[0]["tokens"],
+                          f"{key}: rank {r['rank']} picked other tokens than rank 0")
+            checks.expect(all(len(t) == cell["max_new"] for t in r["tokens"]),
+                          f"{key}: rank {r['rank']} left requests unfinished")
+        if ref:
+            rec["logit_gap"] = max(r["logit_gap"] for r in runs)
+            rec["reference"] = {k: ref[k] for k in ("ticks", "tokens_per_s", "median_tick_ms",
+                                                    "peak_bytes", "seconds")}
+            checks.expect(runs[0]["tokens"] == ref["tokens"],
+                          f"{key}: tokens {runs[0]['tokens']} vs one card {ref['tokens']}")
+            checks.expect(all(r["ref_ticks"] == r["ticks"] for r in runs),
+                          f"{key}: {runs[0]['ticks']} ticks vs one card {ref['ticks']}")
+            checks.expect(rec["logit_gap"] <= LM_LOGIT_REL,
+                          f"{key}: logits {rec['logit_gap']} of the one-card peak > "
+                          f"{LM_LOGIT_REL}")
+        rec["variants"] = {v: lm_variant(key, v, [r["variants"][v] for r in runs], vrefs[v],
+                                         refs, arch, layers, dev, checks) for v in variants}
+        report[key] = rec
+    return report
+
+
+def lm_variant(key: str, name: str, runs: list, ref: dict, refs: dict, arch: str, layers: int,
+               dev, checks: Checks) -> dict:
+    """A variant's checks: the processes agree with each other, and the
+    ``tf32`` control lies above :data:`LM_LOGIT_REL` (the bound tells TF32
+    products from fp32 ones) or the ``bf16`` logits lie within
+    :data:`LM_BF16_RATIO` times the one-card bf16 engine's own gap to its
+    fp32 logits."""
+    rec = {"logit_gap": max(r["logit_gap"] for r in runs),
+           "compared": [r["compared"] for r in runs], "pairs": [r["pairs"] for r in runs],
+           "tokens_equal": sum(a == b for a, b in zip(runs[0]["tokens"], ref["tokens"])),
+           "requests": len(ref["tokens"])}
+    for r in runs:
+        checks.expect(r["tokens"] == runs[0]["tokens"],
+                      f"{key} {name}: processes picked different tokens")
+        checks.expect(r["ticks"] == r["ref_ticks"],
+                      f"{key} {name}: {r['ticks']} ticks vs one card {r['ref_ticks']}")
+    if name == "tf32":  # TF32 is the card's: on the CPU the control is only printed
+        checks.expect(dev.type != "cuda" or rec["logit_gap"] > LM_LOGIT_REL,
+                      f"{key} tf32: the control's logits lie within {rec['logit_gap']} of the "
+                      f"one-card peak, under the fp32 bound {LM_LOGIT_REL}")
+    else:
+        with np.load(ref["path"]) as lo, np.load(refs[arch, layers, "fp32"]["path"]) as hi:
+            rec["one_card_gap"] = serve_bench.agreeing_gap(
+                list(lo["logits"]), list(lo["fed"]), hi["logits"], hi["fed"], slice(None))[0]
+        rec["bound"] = LM_BF16_RATIO * rec["one_card_gap"]
+        checks.expect(rec["logit_gap"] <= rec["bound"],
+                      f"{key} bf16: logits {rec['logit_gap']} of the one-card bf16 peak > "
+                      f"{LM_BF16_RATIO} x the one-card bf16 gap to fp32 {rec['one_card_gap']}")
+    return rec
+
+
+def _gib(xs) -> str:
+    return ", ".join("not measured (CPU)" if x is None else f"{x / 2**30:.2f}" for x in xs)
+
+
+def print_lm(lm: dict, where: str, card_name: str) -> None:
+    for key, rec in lm.items():
+        ref = rec.get("reference")
+        against = (f"; greedy tokens equal to one card's, logits within "
+                   f"{rec['logit_gap']:.3e} of its peak (bound {LM_LOGIT_REL}); one card "
+                   f"{ref['tokens_per_s']:.2f} tokens/s, median {ref['median_tick_ms']:.3f} ms "
+                   f"a tick, peak GiB {_gib([ref['peak_bytes']])}" if ref else "")
+        peaks, init = _gib(rec["peak_bytes"]), _gib(rec["init_peak_bytes"])
+        tr = rec.get("trace")
+        traced = ("" if not tr else f"; {tr['ticks']} traced ticks on rank 0: wall "
+                  f"{tr['wall_ms']:.3f} ms a tick, {tr['kernels_per_tick']:.1f} kernels a "
+                  f"tick, device ms a tick " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(tr["device_ms"].items())))
+        launch = ("" if rec["launch_us"][0] is None else "; host us a kernel launch "
+                  + ", ".join(f"{x:.3f}" for x in rec["launch_us"]))
+        print(f"lm {key}: {rec['ticks']} ticks, {rec['generated_tokens']} tokens, "
+              f"{rec['tokens_per_s']:.2f} tokens/s, median {rec['median_tick_ms']:.3f} ms a "
+              f"tick (rank 0; {where}); peak GiB a card serving [{peaks}], drawing the "
+              f"weights [{init}]{against}{traced}{launch}; on {card_name}")
+        for name, v in rec["variants"].items():
+            side = "above" if v["logit_gap"] > LM_LOGIT_REL else "NOT above"
+            bound = (f"{side} the fp32 bound {LM_LOGIT_REL}" if name == "tf32" else
+                     f"bound {v['bound']:.3e} = {LM_BF16_RATIO} x the one-card bf16 engine's "
+                     f"gap to its fp32 logits {v['one_card_gap']:.3e}")
+            dtype = serve_bench.VARIANTS[name][0]
+            print(f"lm {key} then {name}: logits within {v['logit_gap']:.3e} of the one-card "
+                  f"{dtype} engine's peak ({bound}) over {v['compared']} of {v['pairs']} "
+                  f"(tick, slot) pairs fed alike; {v['tokens_equal']} of {v['requests']} "
+                  f"requests' tokens equal to one card's")
+
+
 def print_report(bfs: dict, where: str, sim_where: str) -> None:
     for key, rec in bfs["cases"].items():
         teps_part = (f"; TEPS {rec['teps']:.6e} vs SimGrid {rec['simgrid_teps']:.6e}"
@@ -488,7 +683,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"])
     ap.add_argument("--scale", type=int, default=SCALE)
     ap.add_argument("--refine", type=int, default=6, help="the train step's multimesh")
-    ap.add_argument("--smoke", action="store_true", help="the train step at smoke widths")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the train step and the LM case at smoke widths")
+    ap.add_argument("--case", default="graph", choices=["graph", "lm"],
+                    help="the graph cases (steps 2-6) or the LM case (step 7)")
     args = ap.parse_args(argv)
 
     dev = torch.device("cuda" if args.device is None else args.device)
@@ -502,16 +700,20 @@ def main(argv=None) -> dict:
         summary.update(print_cards())
         procgrid.check_transport(args.backend, 4, torch.cuda.device_count())
     checks = Checks()
-    t0 = time.perf_counter()
-    g = graph500.generate(args.scale, 16, 1)[0]
-    roots = teps.valid_roots(g, N_ROOTS, seed=2)
-    summary["generation_s"] = time.perf_counter() - t0
+    graph, lm = args.case == "graph", args.case == "lm"
     with tempfile.TemporaryDirectory(prefix="multicard-") as tmp:
-        bfs, trees = bfs_step(args, g, roots, dev, args.backend, tmp, checks)
+        if graph:
+            t0 = time.perf_counter()
+            g = graph500.generate(args.scale, 16, 1)[0]
+            roots = teps.valid_roots(g, N_ROOTS, seed=2)
+            summary["generation_s"] = time.perf_counter() - t0
+            bfs, trees = bfs_step(args, g, roots, dev, args.backend, tmp, checks)
+            summary["bfs"] = bfs
+        if lm:
+            summary["lm"] = lm_step(args, dev, args.backend, tmp, checks)
         if args.backend == "nccl":
             summary["nccl"] = nccl_report(tmp)
-    summary["bfs"] = bfs
-    procs = bfs["processes"]
+    procs = summary["bfs"]["processes"] if graph else []
     if args.backend == "nccl":
         devices = [p["device"] for p in procs]
         for p in procs:
@@ -520,7 +722,11 @@ def main(argv=None) -> dict:
                           and p["device"] == f"cuda:{p['rank']}",
                           f"rank {p['rank']}: current device {p['current_device']}, grid on "
                           f"{p['device']}, blocks on {p['blocks']}")
-        checks.expect(len(set(devices)) == 4, f"the processes share cards: {devices}")
+        for key, rec in summary.get("lm", {}).items():
+            checks.expect(rec["devices"] == [f"cuda:{k}" for k in range(len(rec["devices"]))],
+                          f"lm {key}: the processes ran on {rec['devices']}")
+        if graph:
+            checks.expect(len(set(devices)) == 4, f"the processes share cards: {devices}")
         summary["transport"] = transport_label(summary["nccl"]["via"], summary["topo"],
                                                summary["nvlink"])
         where = f"4 processes on 4 cards over nccl, {summary['transport']}"
@@ -528,39 +734,44 @@ def main(argv=None) -> dict:
         where = "4 processes on one card over gloo (host memory)"
     else:
         where = "4 processes on the CPU over gloo"
-    sim_where = f"SimGrid on {dev}"
-    print(f"# multicard scale {args.scale} ({g.n:,} vertices, {len(g.src):,} stored edges), "
-          f"{len(roots)} roots in batches of {BATCH}, direction_opt + hybrid: {where}")
-    for p in procs:
-        print(f"rank {p['rank']}: {p['card']}, current device {p['current_device']}, blocks "
-              f"{p['blocks']}, launches {p['launches']}")
     if args.backend == "nccl":
         rep = summary["nccl"]
         print(f"NCCL {rep['version']}: transports {rep['via']}; warnings {rep['warnings']}")
-    print_report(bfs, where, sim_where)
-    if cuda and torch.cuda.device_count() >= 4:
-        summary["off_current_device"] = off_current_device(g, roots[:BATCH], checks)
-        print("single process, cuda:0 current: bfs of the first batch on cuda:1 and cuda:3 "
-              "equal to cuda:0's: " + "; ".join(
-                  f"{k} {v['seconds']:.4f} s, launches {v['launches']}"
-                  for k, v in summary["off_current_device"].items()))
-    train = train_step(args, dev, args.backend, checks)
-    summary["train"] = train
-    print(f"train (GraphCast {gnn_train.LAYERS} layers, refinement {args.refine}, 2x2): fp32 "
-          f"gaps to SimGrid (outputs, loss, gradients) "
-          f"{', '.join(f'{x:.3e}' for x in train['fp32_gaps'])} (bound {GNN_FP32_REL}); int8 "
-          f"loss {train['int8_loss']:.6f} vs fp32 {train['fp32_loss']:.6f} (rel "
-          f"{train['int8_loss_rel']:.3e}, bound {TRAIN_INT8_LOSS_REL}); step s fp32 "
-          f"{train['step_s']['fp32']:.4f}, int8 {train['step_s']['int8']:.4f} ({where}, "
-          f"slowest process; parts {train['parts_s']}) vs SimGrid "
-          f"{train['simgrid_step_s']['int8']:.4f} (parts {train['simgrid_parts_s']}); peak "
-          f"bytes {train['peak_bytes']}")
-    summed: collections.Counter = collections.Counter()
-    for counts in [p["launches"] for p in procs] + train["launches"]:
-        summed.update(counts)
-    summary["launches_summed"] = dict(summed)
-    print(f"launches, the four processes summed (BFS and SSSP batches, int8 train step): "
-          f"{summary['launches_summed']}")
+    if lm:
+        print_lm(summary["lm"], where, "; ".join(summary.get("cards", [])) or str(dev))
+    train = None
+    if graph:
+        sim_where = f"SimGrid on {dev}"
+        print(f"# multicard scale {args.scale} ({g.n:,} vertices, {len(g.src):,} stored "
+              f"edges), {len(roots)} roots in batches of {BATCH}, direction_opt + hybrid: "
+              f"{where}")
+        for p in procs:
+            print(f"rank {p['rank']}: {p['card']}, current device {p['current_device']}, "
+                  f"blocks {p['blocks']}, launches {p['launches']}")
+        print_report(bfs, where, sim_where)
+        if cuda and torch.cuda.device_count() >= 4:
+            summary["off_current_device"] = off_current_device(g, roots[:BATCH], checks)
+            print("single process, cuda:0 current: bfs of the first batch on cuda:1 and "
+                  "cuda:3 equal to cuda:0's: " + "; ".join(
+                      f"{k} {v['seconds']:.4f} s, launches {v['launches']}"
+                      for k, v in summary["off_current_device"].items()))
+        train = train_step(args, dev, args.backend, checks)
+        summary["train"] = train
+        print(f"train (GraphCast {gnn_train.LAYERS} layers, refinement {args.refine}, 2x2): "
+              f"fp32 gaps to SimGrid (outputs, loss, gradients) "
+              f"{', '.join(f'{x:.3e}' for x in train['fp32_gaps'])} (bound {GNN_FP32_REL}); "
+              f"int8 loss {train['int8_loss']:.6f} vs fp32 {train['fp32_loss']:.6f} (rel "
+              f"{train['int8_loss_rel']:.3e}, bound {TRAIN_INT8_LOSS_REL}); step s fp32 "
+              f"{train['step_s']['fp32']:.4f}, int8 {train['step_s']['int8']:.4f} ({where}, "
+              f"slowest process; parts {train['parts_s']}) vs SimGrid "
+              f"{train['simgrid_step_s']['int8']:.4f} (parts {train['simgrid_parts_s']}); "
+              f"peak bytes {train['peak_bytes']}")
+        summed: collections.Counter = collections.Counter()
+        for counts in [p["launches"] for p in procs] + train["launches"]:
+            summed.update(counts)
+        summary["launches_summed"] = dict(summed)
+        print(f"launches, the four processes summed (BFS and SSSP batches, int8 train step): "
+              f"{summary['launches_summed']}")
     procgrid.require_no_children()
     summary["failures"] = checks.failures
     summary["where"] = where
@@ -568,7 +779,8 @@ def main(argv=None) -> dict:
     if checks.failures:
         print(f"multicard: {len(checks.failures)} mismatch(es)", file=sys.stderr)
         raise SystemExit(1)
-    summary["trees"] = trees
+    if graph:
+        summary["trees"] = trees
     return summary
 
 

@@ -6,16 +6,20 @@ The port's counterpart of ``repro/launch/cells.py``: the same 43
 skip for each of the 5 LM archs), the same FLOP models and ``meta``.
 :func:`build_cell` returns
 
-* ``fn``           -- the port's step for the cell's kind: for the LM,
-                      AutoInt and the single-device GNN cells the
-                      single-device step at the global shapes; for
+* ``fn``           -- the port's step for the cell's kind: for the LM
+                      train, AutoInt and the single-device GNN cells the
+                      single-device step at the global shapes; for the LM
+                      prefill and decode cells the sharded serving program
+                      (:mod:`repro_torch.models.transformer_sharded`) under
+                      the cell's param specs; for
                       ``ogb_products`` (``dist="2d"``) the 2D train step
                       (:func:`repro_torch.models.gnn_dist.build_2d_train_step`)
                       and for graph500 the distributed BFS
                       (:func:`repro_torch.core.distributed_bfs.build_bfs`),
-                      both on a :class:`~repro_torch.comm.SimGrid` of
+                      all on a :class:`~repro_torch.comm.SimGrid` of
                       :func:`~repro_torch.launch.mesh.grid_rows_cols` on the
-                      arguments' device;
+                      arguments' device, or on the grid of their ``grid=``
+                      keyword;
 * ``args``         -- tensors on ``torch.device("meta")``: shape and dtype,
                       never storage (the counterpart of
                       ``jax.ShapeDtypeStruct``);
@@ -53,6 +57,7 @@ from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import gnn, gnn_dist, recsys
 from repro_torch.models import transformer as tfm
+from repro_torch.models import transformer_sharded as tsh
 from repro_torch.optim import adamw
 from repro_torch.train import step as tstep
 
@@ -184,9 +189,9 @@ def recsys_flops(cfg: recsys.AutoIntConfig, batch: int) -> float:
 
 def make_grid(mesh: Mesh, device) -> SimGrid:
     """The mesh's 2D grid on ``device``: grid row ``i`` folds the FSDP axes
-    row-major, column ``j`` is ``model``.  The 2D cells' ``fn`` runs on this
-    grid, or on the one its ``grid=`` keyword names (the dry-run passes one
-    whose collectives it counts); the BFS cells' ``fn`` runs on this grid."""
+    row-major, column ``j`` is ``model``.  The 2D, BFS and LM serving cells'
+    ``fn`` runs on this grid, or on the one its ``grid=`` keyword names (the
+    dry-run passes one whose collectives it counts)."""
     rows, cols = meshlib.grid_rows_cols(mesh)
     fsdp = meshlib.fsdp_axes(mesh)
     fold = None if fsdp == ("data",) else {a: mesh.shape[a] for a in fsdp}
@@ -220,6 +225,28 @@ def _bfs(mesh: Mesh, part: Partition2D, bcfg: dbfs.DistBFSConfig, src, dst, root
     lead = len(mesh.axis_names)
     fn = dbfs.build_bfs(grid, part, bcfg)
     return fn(_per_rank(grid, src, lead), _per_rank(grid, dst, lead), root)
+
+
+def _lm_prefill(mesh: Mesh, cfg, specs, params, tokens, *, grid=None, layers=None):
+    """The sharded prefill (:func:`repro_torch.models.transformer_sharded.prefill`)
+    over each rank's slices of the global arguments -> the global
+    last-position logits (B, V_pad).  ``layers``: run only the first that
+    many (the dry-run counts one layer and scales)."""
+    grid = grid or make_grid(mesh, tokens.device)
+    out = tsh.prefill(cfg, grid, tsh.shard_params(cfg, params, grid, specs),
+                      tsh.shard_rows(grid, tokens), specs, layers=layers)
+    return tsh.assemble(grid, out)
+
+
+def _lm_decode(mesh: Mesh, cfg, specs, params, cache, tokens, pos, *, grid=None, layers=None):
+    """One sharded decode step (:func:`repro_torch.models.transformer_sharded.decode_step`)
+    -> (the global logits (B, V_pad), ``cache``, its ranks' blocks written
+    in place)."""
+    grid = grid or make_grid(mesh, tokens.device)
+    logits = tsh.decode_step(cfg, grid, tsh.shard_params(cfg, params, grid, specs),
+                             tsh.shard_cache(grid, cache), tsh.shard_rows(grid, tokens),
+                             tsh.shard_rows(grid, pos), specs, layers=layers)
+    return tsh.assemble(grid, logits), cache
 
 
 # ---------------------------------------------------------------------------
@@ -272,12 +299,11 @@ def _lm_cell(spec: cfgs.ArchSpec, shape: cfgs.ShapeSpec, mesh: Mesh,
     if shape.kind in ("prefill", "decode") and not serve_fsdp:
         # serving layout: weights TP-sharded and replicated over the data
         # axes, no per-step FSDP all-gather on the latency path
-        p_specs = meshlib.map_specs(
-            lambda sp: tuple("model" if e == "model" else None for e in sp), p_specs)
+        p_specs = tsh.tp_only(p_specs)
     if shape.kind == "prefill":
         return Cell(
             spec.arch_id, shape.name, "prefill",
-            fn=functools.partial(tfm.prefill, cfg),
+            fn=functools.partial(_lm_prefill, mesh, cfg, p_specs),
             args=(params, _sds((batch, seq), torch.int32)),
             in_shardings=(p_specs, (dp, None)),
             meta=dict(
@@ -291,7 +317,7 @@ def _lm_cell(spec: cfgs.ArchSpec, shape: cfgs.ShapeSpec, mesh: Mesh,
         cache = _sds((cfg.n_layers, batch, seq, cfg.cache_width), cfg.compute_dtype)
         return Cell(
             spec.arch_id, shape.name, "decode",
-            fn=functools.partial(tfm.decode_step, cfg),
+            fn=functools.partial(_lm_decode, mesh, cfg, p_specs),
             args=(params, cache, _sds((batch,), torch.int32), _sds((batch,), torch.int32)),
             in_shardings=(p_specs, tfm.cache_spec(fsdp=fsdp, tp="model"), (dp,), (dp,)),
             meta=dict(

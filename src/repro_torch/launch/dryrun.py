@@ -48,11 +48,21 @@ spec (:func:`repro_torch.launch.mesh.shard_shape`).  ``output_bytes`` and
 (:func:`repro_torch.launch.roofline.terms_from_counts`).  ``compile_s`` is
 0 (nothing is compiled) and ``generated_code_bytes`` null.
 
-The LM, AutoInt and single-device GNN cells run one device's program: the
-port has no sharded runtime for them, so their ``collective_bytes`` is 0.
-Their ``fn`` does not depend on the mesh: under ``--both-meshes`` the
-second mesh reuses the count of a cell whose arguments have the same
-shapes.
+The LM prefill and decode cells run the sharded serving program
+(:mod:`repro_torch.models.transformer_sharded`: FSDP x TP under the cell's
+param specs, the decode cache's sequence over TP) on a ``meta``
+``SimGrid`` of every rank of the mesh, counted as one layer times the
+cell's ``loop_mult`` (its depth) plus the embedding and the head once --
+the layer scan's body times ``loop_mult``, as the reference's
+``parse_collectives`` counts it -- from two runs, with one layer and with
+none; ``memory`` is the one-layer run's.  Their ``output_bytes`` and
+``temp_bytes`` are the global program's over every rank.
+
+The LM ``train_4k``, AutoInt and single-device GNN cells still run one
+device's program: the port has no sharded runtime for them, so their
+``collective_bytes`` is 0.  Their ``fn`` does not depend on the mesh:
+under ``--both-meshes`` the second mesh reuses the count of a cell whose
+arguments have the same shapes.
 
 One divergence from the reference's record: ``output_bytes`` is the
 storage behind the outputs, not their own size.  An output that views a
@@ -206,15 +216,44 @@ def argument_bytes(args, in_shardings, mesh: meshlib.Mesh) -> int:
     return total
 
 
+def _scaled(one: ProgramCounts, none: ProgramCounts, layers: int) -> ProgramCounts:
+    """The counts of a program of ``layers`` identical layers from its run
+    with one layer (``one``) and with none (``none``): the embedding and
+    head once, the layer's difference ``layers`` times; the peak memory is
+    the one-layer run's."""
+    def mult(a, b):
+        return b + layers * (a - b)
+
+    kinds = set(one.collectives.per_op) | set(none.collectives.per_op)
+    coll = roofline.CollectiveStats(
+        per_op={k: mult(one.collectives.per_op.get(k, 0), none.collectives.per_op.get(k, 0))
+                for k in sorted(kinds)},
+        total_bytes=mult(one.collectives.total_bytes, none.collectives.total_bytes),
+        n_ops=mult(one.collectives.n_ops, none.collectives.n_ops),
+        grid_per_op={k: mult(one.collectives.grid_per_op.get(k, 0),
+                             none.collectives.grid_per_op.get(k, 0)) for k in sorted(kinds)})
+    return ProgramCounts(flops=mult(one.flops, none.flops),
+                         bytes_accessed=mult(one.bytes_accessed, none.bytes_accessed),
+                         output_bytes=one.output_bytes, temp_bytes=one.temp_bytes,
+                         peak_bytes=one.peak_bytes, seconds=one.seconds + none.seconds,
+                         collectives=coll)
+
+
 def _count(cell: cellslib.Cell, mesh: meshlib.Mesh, variant: str,
            cache: dict | None) -> ProgramCounts:
     """The cell's counts.  A 2D cell and a BFS cell run on the mesh's grid
-    and are counted each time; the others' ``fn`` does not depend on the
-    mesh, and ``cache`` keeps their counts by arch, shape, variant and
-    argument shapes."""
+    and are counted each time, an LM prefill or decode cell as one layer
+    times its depth plus the embedding and head (:func:`_scaled`); the
+    others' ``fn`` does not depend on the mesh, and ``cache`` keeps their
+    counts by arch, shape, variant and argument shapes."""
     if cell.kind in ("graph_train_2d", "bfs"):
         grid = cellslib.make_grid(mesh, cellslib.META)
         return count_program(functools.partial(cell.fn, grid=grid), cell.args, grid)
+    if cell.kind in ("prefill", "decode"):
+        grid = cellslib.make_grid(mesh, cellslib.META)
+        one, none = (count_program(functools.partial(cell.fn, grid=grid, layers=k), cell.args,
+                                   grid) for k in (1, 0))
+        return _scaled(one, none, int(cell.meta["loop_mult"]))
     cache = {} if cache is None else cache
     key = (cell.arch_id, cell.shape_name, variant,
            tuple((tuple(x.shape), x.dtype) for x in tree.leaves(list(cell.args))))

@@ -156,57 +156,64 @@ def _dense(gen, shape, dtype, scale_axis, device):
     return w.to(dtype)
 
 
+def _init_leaves(cfg: TransformerConfig, gen: torch.Generator, device):
+    """Every leaf of :func:`init_params` as ``(key path, tensor)``, drawn
+    from ``gen`` one at a time in the reference's order (the layer stack,
+    then ``embed`` and ``lm_head``): a leaf is made when the iteration
+    reaches it."""
+    d, l, dt = cfg.d_model, cfg.n_layers, cfg.param_dtype
+
+    def dense(key, shape, scale_axis):
+        return ("layers", key), _dense(gen, (l,) + shape, dt, scale_axis + 1, device)
+
+    yield ("layers", "ln1"), torch.ones((l, d), dtype=dt, device=device)
+    yield ("layers", "ln2"), torch.ones((l, d), dtype=dt, device=device)
+    if cfg.use_mla:
+        if cfg.q_lora_rank:
+            yield dense("wq_a", (d, cfg.q_lora_rank), 0)
+            yield dense("wq_b", (cfg.q_lora_rank, cfg.n_heads * cfg.qk_head_dim), 0)
+        else:
+            yield dense("wq", (d, cfg.n_heads * cfg.qk_head_dim), 0)
+        yield dense("wkv_a", (d, cfg.kv_lora_rank + cfg.qk_rope_dim), 0)
+        yield dense("wkv_b", (cfg.kv_lora_rank, cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                    0)
+        yield dense("wo", (cfg.n_heads * cfg.v_head_dim, d), 0)
+    else:
+        yield dense("wq", (d, cfg.n_heads * cfg.head_dim), 0)
+        yield dense("wk", (d, cfg.n_kv_heads * cfg.head_dim), 0)
+        yield dense("wv", (d, cfg.n_kv_heads * cfg.head_dim), 0)
+        yield dense("wo", (cfg.n_heads * cfg.head_dim, d), 0)
+    if cfg.is_moe:
+        e, fe = cfg.n_experts, cfg.d_ff_expert
+        yield dense("router", (d, e), 0)
+        yield dense("we_gate", (e, d, fe), 1)
+        yield dense("we_up", (e, d, fe), 1)
+        yield dense("we_down", (e, fe, d), 1)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * fe
+            yield dense("ws_gate", (d, fs), 0)
+            yield dense("ws_up", (d, fs), 0)
+            yield dense("ws_down", (fs, d), 0)
+    else:
+        yield dense("w_gate", (d, cfg.d_ff), 0)
+        yield dense("w_up", (d, cfg.d_ff), 0)
+        yield dense("w_down", (cfg.d_ff, d), 0)
+    yield ("embed",), _dense(gen, (cfg.padded_vocab, d), dt, 1, device)
+    yield ("final_norm",), torch.ones((d,), dtype=dt, device=device)
+    yield ("lm_head",), _dense(gen, (d, cfg.padded_vocab), dt, 0, device)
+
+
 def init_params(cfg: TransformerConfig, gen: torch.Generator, device=None) -> Params:
     """Random parameters in the reference's tree, drawn from ``gen`` (a
     generator on ``device``; ``None`` means ``cuda``) leaf after leaf in the
     reference's key order, each N(0, 1) over the square root of its fan-in."""
-    device = resolve_device(device)
-    d, l, dt = cfg.d_model, cfg.n_layers, cfg.param_dtype
-
-    def dense(shape, scale_axis):
-        return _dense(gen, (l,) + shape, dt, scale_axis + 1, device)
-
-    layer: Params = {
-        "ln1": torch.ones((l, d), dtype=dt, device=device),
-        "ln2": torch.ones((l, d), dtype=dt, device=device),
-    }
-    if cfg.use_mla:
-        if cfg.q_lora_rank:
-            layer["wq_a"] = dense((d, cfg.q_lora_rank), 0)
-            layer["wq_b"] = dense((cfg.q_lora_rank, cfg.n_heads * cfg.qk_head_dim), 0)
+    params: Params = {"embed": None, "layers": {}, "final_norm": None, "lm_head": None}
+    for path, x in _init_leaves(cfg, gen, resolve_device(device)):
+        if path[0] == "layers":
+            params["layers"][path[1]] = x
         else:
-            layer["wq"] = dense((d, cfg.n_heads * cfg.qk_head_dim), 0)
-        layer["wkv_a"] = dense((d, cfg.kv_lora_rank + cfg.qk_rope_dim), 0)
-        layer["wkv_b"] = dense(
-            (cfg.kv_lora_rank, cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)), 0)
-        layer["wo"] = dense((cfg.n_heads * cfg.v_head_dim, d), 0)
-    else:
-        layer["wq"] = dense((d, cfg.n_heads * cfg.head_dim), 0)
-        layer["wk"] = dense((d, cfg.n_kv_heads * cfg.head_dim), 0)
-        layer["wv"] = dense((d, cfg.n_kv_heads * cfg.head_dim), 0)
-        layer["wo"] = dense((cfg.n_heads * cfg.head_dim, d), 0)
-    if cfg.is_moe:
-        e, fe = cfg.n_experts, cfg.d_ff_expert
-        layer["router"] = dense((d, e), 0)
-        layer["we_gate"] = dense((e, d, fe), 1)
-        layer["we_up"] = dense((e, d, fe), 1)
-        layer["we_down"] = dense((e, fe, d), 1)
-        if cfg.n_shared_experts:
-            fs = cfg.n_shared_experts * fe
-            layer["ws_gate"] = dense((d, fs), 0)
-            layer["ws_up"] = dense((d, fs), 0)
-            layer["ws_down"] = dense((fs, d), 0)
-    else:
-        layer["w_gate"] = dense((d, cfg.d_ff), 0)
-        layer["w_up"] = dense((d, cfg.d_ff), 0)
-        layer["w_down"] = dense((cfg.d_ff, d), 0)
-
-    return {
-        "embed": _dense(gen, (cfg.padded_vocab, d), dt, 1, device),
-        "layers": layer,
-        "final_norm": torch.ones((d,), dtype=dt, device=device),
-        "lm_head": _dense(gen, (d, cfg.padded_vocab), dt, 0, device),
-    }
+            params[path[0]] = x
+    return params
 
 
 def cast_params(cfg: TransformerConfig, params: Params) -> Params:
@@ -418,10 +425,13 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_ffn(cfg: TransformerConfig, lp: Params, x):
-    """GShard capacity dispatch with fine-grained routing groups -> (y, aux)."""
+def moe_route(cfg: TransformerConfig, router, x):
+    """GShard capacity routing of ``x`` (..., d) in groups of ``moe_group``
+    tokens -> (xt (ng, gsz, d), dispatch and combine (ng, gsz, e, cap),
+    the one-hot choices (ng, gsz, k, e), the gates (ng, gsz, e), the token
+    count)."""
     cdt = cfg.compute_dtype
-    b, s, d = x.shape
+    d = x.shape[-1]
     e, k = cfg.n_experts, cfg.top_k
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
@@ -432,7 +442,7 @@ def _moe_ffn(cfg: TransformerConfig, lp: Params, x):
     cap = min(max(int(gsz * k * cfg.capacity_factor / e), 1), gsz)  # a host int
     xt = tokens.reshape(ng, gsz, d)
 
-    logits = (xt @ lp["router"].to(cdt)).float()  # (ng, gsz, e)
+    logits = (xt @ router.to(cdt)).float()  # (ng, gsz, e)
     gates = torch.softmax(logits, -1)
     top_g, top_e = top_k(gates, k)  # (ng, gsz, k)
     top_g = top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -446,13 +456,27 @@ def _moe_ffn(cfg: TransformerConfig, lp: Params, x):
     cap_oh = (pos_k[..., None] == torch.arange(cap, device=x.device)).float()  # (ng,gsz,k,cap)
     dispatch = torch.einsum("gske,gskc->gsec", keep, cap_oh)  # (ng, gsz, e, cap)
     combine = torch.einsum("gske,gskc->gsec", keep * top_g[..., None], cap_oh)
+    return xt, dispatch, combine, onehot, gates, t
 
-    xin = torch.einsum("gsec,gsd->gecd", dispatch.to(cdt), xt)  # (ng, e, cap, d)
-    hg = _act(cfg, torch.einsum("gecd,edf->gecf", xin, lp["we_gate"].to(cdt)))
-    hu = torch.einsum("gecd,edf->gecf", xin, lp["we_up"].to(cdt))
-    hout = torch.einsum("gecf,efd->gecd", hg * hu, lp["we_down"].to(cdt))
-    y = torch.einsum("gsec,gecd->gsd", combine.to(cdt), hout)
 
+def expert_ffn(cfg: TransformerConfig, we_gate, we_up, we_down, xt, dispatch, combine):
+    """The experts of ``we_*`` (e', ...) over their columns of ``dispatch``
+    and ``combine`` (ng, gsz, e', cap) -> their share of the output (ng,
+    gsz, d)."""
+    cdt = cfg.compute_dtype
+    xin = torch.einsum("gsec,gsd->gecd", dispatch.to(cdt), xt)  # (ng, e', cap, d)
+    hg = _act(cfg, torch.einsum("gecd,edf->gecf", xin, we_gate.to(cdt)))
+    hu = torch.einsum("gecd,edf->gecf", xin, we_up.to(cdt))
+    hout = torch.einsum("gecf,efd->gecd", hg * hu, we_down.to(cdt))
+    return torch.einsum("gsec,gecd->gsd", combine.to(cdt), hout)
+
+
+def _moe_ffn(cfg: TransformerConfig, lp: Params, x):
+    """GShard capacity dispatch with fine-grained routing groups -> (y, aux)."""
+    cdt = cfg.compute_dtype
+    b, s, d = x.shape
+    xt, dispatch, combine, onehot, gates, t = moe_route(cfg, lp["router"], x)
+    y = expert_ffn(cfg, lp["we_gate"], lp["we_up"], lp["we_down"], xt, dispatch, combine)
     if cfg.n_shared_experts:
         gsh = _act(cfg, xt @ lp["ws_gate"].to(cdt))
         ush = xt @ lp["ws_up"].to(cdt)
@@ -460,7 +484,7 @@ def _moe_ffn(cfg: TransformerConfig, lp: Params, x):
     # aux load-balance loss (GShard): mean fraction^2 per expert
     me = onehot.sum(2).mean(1)  # (ng, e) token fraction
     ce = gates.mean(1)
-    aux = (me * ce).sum(-1).mean() * e
+    aux = (me * ce).sum(-1).mean() * cfg.n_experts
     return y.reshape(-1, d)[:t].reshape(b, s, d), aux
 
 

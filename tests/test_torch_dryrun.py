@@ -16,8 +16,8 @@ the end-to-end dry-run case of ``tests/test_cells.py``:
 * ``count_program`` exact on a hand-written product, relu, sum and
   backward, and ``terms_from_counts``' arithmetic;
 * ``run_cell`` on the cells of the reference's end-to-end case: an LM
-  prefill cell counted (its output the last position's logits only), an
-  LM skip, a 2D cell's collectives;
+  prefill cell counted (its output the last position's logits only, its
+  sharded program's collectives), an LM skip, a 2D cell's collectives;
 * the distributed BFS on ``meta`` (one level, every rung of each adaptive
   exchange) against the reference's compiled HLO, in one JAX subprocess
   with 4 forced host devices: at n = 2**16 on 2x2 under ``raw``,
@@ -264,7 +264,11 @@ def test_run_cell_lm_prefill_and_skip(tmp_path, capsys):
     assert rec["memory"]["temp_bytes"] > 0 and rec["memory"]["generated_code_bytes"] is None
     assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes_accessed"] > 0
     roof = rec["roofline"]
-    assert roof["collective_bytes"] == 0 and roof["collective_breakdown"] == {}
+    # the sharded serving program on every rank of the mesh (FSDP x TP)
+    breakdown = roof["collective_breakdown"]
+    assert set(breakdown) == {"all-gather", "all-reduce", "all-to-all"}
+    assert all(v > 0 for v in breakdown.values())
+    assert roof["collective_bytes"] == sum(breakdown.values())
     assert roof["hlo_flops_scaled"] == rec["cost"]["flops"] / 512
     assert roof["model_flops"] == rec["meta"]["model_flops"]
     assert _stored(rec, str(tmp_path)) == json.loads(json.dumps(rec, default=str))
