@@ -455,6 +455,18 @@ SERVE_GRID_REL = 1e-4
 SERVE_GRID_CELL = {"requests": 6, "prompt_len": (8, 24), "max_new": 4, "max_seq": 64}
 
 
+#: LM training on a SimGrid 2x2 (step 18): gemma-2b's published widths at
+#: 2 layers (5.1 GB of fp32 params: the one-device state, its new state
+#: and the grid's fit on the card beside the fp32 logits), fp32 with TF32
+#: off against the one-device step (the same products split over ranks
+#: and summed in another order), over each leaf's peak; 2 steps
+TRAIN_GRID_LAYERS = 2
+TRAIN_GRID_BATCH = 4
+TRAIN_GRID_SEQ = 512
+TRAIN_GRID_REL = 1e-5
+TRAIN_GRID_STEPS = 2
+
+
 #: AutoInt (step 15): the published config's fused table, fp32 on the card
 #: against the CPU (TF32 off: the same float32 products in other orders,
 #: over the output's peak; the repo's fp32 bar), timed calls per cell after
@@ -3315,6 +3327,86 @@ def dryrun_step(card, scale: int, counted: dict) -> dict:
     return launches
 
 
+def train_grid_step(card) -> dict:
+    """Step 18: the sharded LM train step on a SimGrid 2x2 against the
+    one-device step.  Returns the grid run's launch counts."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.bench import lm_train
+    from repro_torch.bench import serve as serve_bench
+    from repro_torch.comm import SimGrid
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import transformer_sharded as tsh
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with no_tf32():
+        cfg, params = serve_bench.model("gemma-2b", TRAIN_GRID_LAYERS, dtype="fp32",
+                                        device="cuda")
+        toks = [torch.as_tensor(lm_train.token_rows(cfg, TRAIN_GRID_BATCH, TRAIN_GRID_SEQ, k),
+                                device="cuda") for k in range(TRAIN_GRID_STEPS)]
+
+        def loss_fn(p, b):
+            return tfm.loss_fn(cfg, p, b)
+
+        loss, grads = tstep.value_and_grad(loss_fn, params, {"tokens": toks[0]})
+        want = {"loss": float(loss), "grad_norm": float(adamw.global_norm(grads))}
+        one_step = tstep.make_train_step(loss_fn, adamw.AdamWConfig())
+        state, one = tstep.init_state(params), []
+        for k in range(TRAIN_GRID_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = one_step(state, {"tokens": toks[k]})
+            one.append((float(m["loss"]), float(m["grad_norm"]), time.perf_counter() - t1))
+        del state, m
+        grid = SimGrid(2, 2, "cuda")
+        specs = tsh.serving_specs(cfg, grid)
+        states = tstep.shard_state(cfg, grid, tstep.init_state(params), specs)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        got_loss, got, norm = tstep.sharded_value_and_grad(
+            cfg, grid, specs, grid.local(lambda p: states[p].params),
+            tsh.shard_rows(grid, toks[0]))
+        def gap(a, b):  # on the card, in float64: the leaves reach 524M values
+            return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+        gaps = [gap(tsh.unshard_leaf(grid, [t[k] for t in map(tree.leaves, got)], sp), g)
+                for k, (g, sp) in enumerate(zip(tree.leaves(grads),
+                                                meshlib.spec_leaves(specs)))]
+        first = (abs(float(got_loss) - want["loss"]) / abs(want["loss"]),
+                 abs(float(norm[0]) - want["grad_norm"]) / want["grad_norm"])
+        del got, grads
+        step = tstep.make_sharded_train_step(cfg, grid, specs, adamw.AdamWConfig())
+        runs = []
+        for k in range(TRAIN_GRID_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            states, m = step(states, tsh.shard_rows(grid, toks[k]))
+            runs.append((float(m["loss"]), float(m["grad_norm"]), time.perf_counter() - t1))
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.LAUNCHES)
+    step_gaps = [max(abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / b[1])
+                 for a, b in zip(runs, one)]
+    if not (max(gaps + list(first) + step_gaps) <= TRAIN_GRID_REL):
+        raise AssertionError(f"gemma-2b train step on a SimGrid 2x2: loss and norm gaps {first}, "
+                             f"gradient leaves {gaps}, steps {step_gaps} (bound "
+                             f"{TRAIN_GRID_REL})")
+    print(f"step 18, gemma-2b ({TRAIN_GRID_LAYERS} layers, fp32, TF32 off, {TRAIN_GRID_BATCH} rows "
+          f"of {TRAIN_GRID_SEQ} tokens): the sharded train step on a SimGrid 2x2 (FSDP x TP) "
+          f"against the one-device step: loss {first[0]:.3e}, norm {first[1]:.3e}, every "
+          f"gradient leaf within {max(gaps):.3e} of its peak, {TRAIN_GRID_STEPS} steps' losses "
+          f"and norms within {max(step_gaps):.3e} (bound {TRAIN_GRID_REL}); losses "
+          f"{[round(r[0], 6) for r in runs]}; s a step {[round(r[2], 4) for r in runs]} vs "
+          f"{[round(r[2], 4) for r in one]} on one device; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches or 'none'}; on {card}; {time.perf_counter() - t0:.1f}s")
+    del params, states
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--scale", type=int, default=22)
@@ -3405,6 +3497,7 @@ def main() -> int:
     launches["recsys"] = recsys_step(card)
     launches["launch"] = launch_step(card)
     launches["dryrun"] = dryrun_step(card, args.scale, dist_counted)
+    launches["lmtrain"] = train_grid_step(card)
 
     # unpack runs on the distributed path only: its row is the input that
     # moves the most bytes; every kernel lists its distributed inputs

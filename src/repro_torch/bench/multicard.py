@@ -1,13 +1,16 @@
 """The four-card check: the paper's distributed BFS, SSSP and the GNN train
 step as one process per card over NCCL, held against ``SimGrid``; and LM
-serving sharded FSDP x TP over the four cards, held against one card.
+serving and training sharded FSDP x TP over the four cards, held against
+one card.
 
     python -m repro_torch.bench.multicard                     # 4 cards, nccl, scale 22
     python -m repro_torch.bench.multicard --case lm           # the LM case instead
+    python -m repro_torch.bench.multicard --case lm-train     # the LM train case instead
     python -m repro_torch.bench.multicard --backend gloo      # 4 processes on one card
     python -m repro_torch.bench.multicard --device cpu --backend gloo --scale 12 \\
         --refine 2 --smoke                                     # 4 CPU processes
     python -m repro_torch.bench.multicard --device cpu --backend gloo --case lm --smoke
+    python -m repro_torch.bench.multicard --device cpu --backend gloo --case lm-train --smoke
 
 In order:
 
@@ -64,6 +67,24 @@ In order:
    on rank 0 (wall ms, kernels and device ms a tick in NCCL's kernels,
    matrix products and the rest).
 
+8. the LM train case (``--case lm-train``, in place of steps 2-6):
+   gemma-2b at all 18 layers and published widths, bf16 compute over fp32
+   parameters, ``remat`` on, as four processes on a 2x2 grid (FSDP x TP,
+   the ``train_4k`` placement; ``bench.lm_train.proc_train``: each process
+   draws only its slices), rows of 4,096 tokens, the cell's global batch
+   of 256 cut to :data:`LM_TRAIN`'s 8 (4 a row): :data:`LM_TRAIN` steps,
+   the first a warm-up, then one more traced on rank 0 (device ms in
+   NCCL's kernels, matrix products and the rest).  Every process's loss
+   must be finite and equal rank 0's.  Beside it, against one card
+   (``cuda:0``): the first step of gemma-2b cut to :data:`LM_TRAIN_CUT`'s
+   depth in fp32, TF32 off, as the four processes on 2x2 and on 1x4 and
+   as a ``SimGrid`` 2x2 on ``cuda:0``, held against the one-device loss,
+   gradient and norm (each within :data:`LM_TRAIN_REL`) and AdamW step
+   (:func:`repro_torch.bench.lm_train.held_against`); and at full depth
+   in bf16 on :data:`LM_TRAIN_BF16_BATCH` rows, the processes' first loss
+   and gradient norm within :data:`LM_BF16_RATIO` times one card's own
+   bf16-to-fp32 gap of one card's bf16 ones.
+
 It prints, per case, each batch's seconds (its slowest process) and the
 harmonic-mean TEPS beside ``SimGrid``'s, the ledger's bytes by phase and
 format, and the train step's seconds beside ``SimGrid``'s; under nccl the
@@ -94,10 +115,15 @@ import torch
 from repro_torch import kernels
 from repro_torch.bench import algebras, cards, distributed, gnn_train, graph500, teps
 from repro_torch.bench import gnn as gnn_bench
+from repro_torch.bench import lm_train
 from repro_torch.bench import serve as serve_bench
 from repro_torch.comm import SimGrid, procgrid
 from repro_torch.core import bfs as bfsmod
 from repro_torch.graphgen import builder
+from repro_torch.models import transformer as tfm
+from repro_torch.models import transformer_sharded as tsh
+from repro_torch.optim import adamw
+from repro_torch.train import step as tstep
 
 SCALE = 22
 BATCH = 8
@@ -137,6 +163,28 @@ LM_LOGIT_REL = 1e-5
 #: bf16's own size, a fault far more (tests/test_torch_lm_sharded.py holds
 #: the grid on the CPU to the same rule)
 LM_BF16_RATIO = 2.0
+#: the LM train case at four cards: gemma-2b's published widths and depth,
+#: bf16 compute; rows of the train_4k cells' 4,096 tokens, their global
+#: batch of 256 cut to 8, what the cards hold (fp32 params, m, v and
+#: gradient 12.1 GB a card, the new state beside the old one, each
+#: layer's recomputation and the loss's chunks); 4 steps, the first the
+#: warm-up
+LM_TRAIN = {"arch": "gemma-2b", "layers": 18, "dtype": "bf16", "batch": 8, "seq": 4096,
+            "steps": 4}
+#: the cut-depth fp32 cases against one card's step: gemma-2b's widths at
+#: 2 layers (5.1 GB of fp32 params), 4 rows of 1,024 tokens (one card
+#: holds the one-device step's state, new state and fp32 logits)
+LM_TRAIN_CUT = {"arch": "gemma-2b", "layers": 2, "dtype": "fp32", "batch": 4, "seq": 1024}
+#: loss, norm, every gradient leaf (over its peak) and the AdamW step's
+#: parameters where the reference's |g| exceeds 1e-4 of its peak, against
+#: one card in fp32 with TF32 off: float32 products split over four cards
+#: and summed in another order
+LM_TRAIN_REL = 1e-5
+#: elsewhere the first AdamW step moves by about lr * sign(g), a sign a
+#: sum in another order can flip: within this many times lr
+LM_TRAIN_LR = 2.0
+#: rows of the full-depth bf16 comparison (one card holds 2 with remat)
+LM_TRAIN_BF16_BATCH = 2
 #: ticks of a throwaway engine before the timed serving, in each process
 LM_WARMUP = 4
 #: ticks traced on rank 0 after the serving (device ms by class)
@@ -622,6 +670,120 @@ def lm_variant(key: str, name: str, runs: list, ref: dict, refs: dict, arch: str
     return rec
 
 
+def lm_train_step(args, dev, backend, tmp, checks: Checks) -> dict:
+    """Step 8: the LM train case (:data:`LM_TRAIN`), and its cut-depth and
+    bf16 cases against one card; ``--smoke`` runs every case at gemma-2b's
+    smoke widths and depth, 4 rows of 65 tokens."""
+    def sized(case):
+        if not args.smoke:
+            return dict(case)
+        return dict(case, layers=None, smoke=True, batch=4, seq=65,
+                    **({"steps": 3} if "steps" in case else {}))
+
+    main, cut = sized(LM_TRAIN), sized(LM_TRAIN_CUT)
+    report: dict = {}
+    t0 = time.perf_counter()
+    with lm_train.no_tf32():  # one card's fp32 step, its gradient saved for the processes
+        cfg = serve_bench.config(cut["arch"], cut.get("layers"), args.smoke, "fp32")
+        params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        toks = torch.as_tensor(lm_train.token_rows(cfg, cut["batch"], cut["seq"], 0), device=dev)
+        ref = lm_train.reference_grads(cfg, params, toks, os.path.join(tmp, "lm-train-ref.pt"))
+        grid = SimGrid(2, 2, dev)
+        specs = tsh.serving_specs(cfg, grid)
+        report["simgrid 2x2"] = lm_train.held_against(
+            cfg, grid, specs, tstep.shard_state(cfg, grid, tstep.init_state(params), specs),
+            toks, ref)
+    del params, grid
+    full = {}
+    for dtype in ("bf16", "fp32"):  # one card at full depth on the bf16 case's rows
+        with lm_train.no_tf32():
+            cfg = serve_bench.config(main["arch"], main.get("layers"), args.smoke, dtype)
+            params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            rows = torch.as_tensor(lm_train.token_rows(cfg, LM_TRAIN_BF16_BATCH, main["seq"], 0),
+                                   device=dev)
+            loss, grads = tstep.value_and_grad(lambda p, b: tfm.loss_fn(cfg, p, b), params,
+                                               {"tokens": rows})
+            full[dtype] = {"loss": float(loss), "grad_norm": float(adamw.global_norm(grads))}
+        del params, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    report["one_card_s"] = time.perf_counter() - t0
+    print(f"lm-train: one card's references in {report['one_card_s']:.1f} s", flush=True)
+    check = dict(cut, seed=0, reference=ref)
+    cases = [dict(check, shape=[2, 2]), dict(check, shape=[1, 4]),
+             dict(main, shape=[2, 2], batch=LM_TRAIN_BF16_BATCH, loss_only=True, seed=0),
+             dict(main, shape=[2, 2], seed=0, trace=True, log=True)]
+    t0 = time.perf_counter()
+    runs = procgrid.spawn(lm_train.proc_train, 2, 2, backend=backend, device=args.device,
+                          args=({"cases": cases},), timeout_s=SPAWN_TIMEOUT_S,
+                          env=nccl_env(tmp) if backend == "nccl" else None)
+    report["spawn_s"] = time.perf_counter() - t0
+    for name, k in (("2x2", 0), ("1x4", 1)):
+        report[name] = {key: max(r["cases"][k][key] for r in runs)
+                        for key in ("loss_rel", "norm_rel", "grad_rel", "param_rel", "param_lr")}
+    for name, rec in report.items():
+        if name in ("2x2", "1x4", "simgrid 2x2"):
+            checks.expect(max(rec["loss_rel"], rec["norm_rel"], rec["grad_rel"],
+                              rec["param_rel"]) <= LM_TRAIN_REL and rec["param_lr"] <= LM_TRAIN_LR,
+                          f"lm-train {name} fp32 against one card: {rec} (bounds {LM_TRAIN_REL}, "
+                          f"{LM_TRAIN_LR} lr)")
+    bf = [r["cases"][2] for r in runs]
+    one_gap = {k: abs(full["bf16"][k] - full["fp32"][k]) for k in ("loss", "grad_norm")}
+    report["bf16"] = {"loss": bf[0]["loss"], "grad_norm": bf[0]["grad_norm"], "one_card": full,
+                      "gap": {k: abs(bf[0][k] - full["bf16"][k]) for k in ("loss", "grad_norm")},
+                      "one_card_gap": one_gap}
+    for k in ("loss", "grad_norm"):
+        checks.expect(all(r[k] == bf[0][k] for r in bf),
+                      f"lm-train bf16: the processes' {k} differ: {[r[k] for r in bf]}")
+        checks.expect(report["bf16"]["gap"][k] <= LM_BF16_RATIO * one_gap[k],
+                      f"lm-train bf16 {k}: {bf[0][k]} vs one card's {full['bf16'][k]}, gap "
+                      f"{report['bf16']['gap'][k]} > {LM_BF16_RATIO} x one card's own bf16-to-fp32 "
+                      f"gap {one_gap[k]}")
+    timed = [r["cases"][3] for r in runs]
+    rec = timed[0]
+    for r in timed:
+        checks.expect(all(np.isfinite(r["loss"])) and r["loss"] == rec["loss"],
+                      f"lm-train: rank {r['rank']} losses {r['loss']} vs rank 0's {rec['loss']}")
+    report["timed"] = {
+        **{k: rec[k] for k in ("loss", "grad_norm", "step_s", "median_step_s",
+                               "tokens_per_step")},
+        "tokens_per_s": rec["tokens_per_step"] / rec["median_step_s"],
+        "init_s": [r["init_s"] for r in timed], "peak_bytes": [r["peak_bytes"] for r in timed],
+        "collective_bytes": [r["collective_bytes"] for r in timed], "trace": rec.get("trace"),
+        "case": {k: main.get(k) for k in ("arch", "layers", "dtype", "batch", "seq", "steps")}}
+    report["devices"] = [r["device"] for r in runs]
+    return report
+
+
+def print_lm_train(rep: dict, where: str, card_name: str) -> None:
+    for name in ("simgrid 2x2", "2x2", "1x4"):
+        r = rep[name]
+        print(f"lm-train fp32 cut depth {name} against one card (TF32 off): loss "
+              f"{r['loss_rel']:.3e}, norm {r['norm_rel']:.3e}, gradients {r['grad_rel']:.3e} of "
+              f"the peak, AdamW step {r['param_rel']:.3e} of the peak where |g| > 1e-4 of its "
+              f"peak and {r['param_lr']:.3f} lr elsewhere (bounds {LM_TRAIN_REL}, "
+              f"{LM_TRAIN_LR} lr); on {card_name}")
+    b = rep["bf16"]
+    print(f"lm-train bf16 full depth, {LM_TRAIN_BF16_BATCH} rows, 2x2: loss {b['loss']:.6f} vs "
+          f"one card {b['one_card']['bf16']['loss']:.6f} (gap {b['gap']['loss']:.3e}; one card's "
+          f"bf16-to-fp32 gap {b['one_card_gap']['loss']:.3e}), grad norm {b['grad_norm']:.6f} vs "
+          f"{b['one_card']['bf16']['grad_norm']:.6f} (gap {b['gap']['grad_norm']:.3e}; one card's "
+          f"{b['one_card_gap']['grad_norm']:.3e}); bound {LM_BF16_RATIO} x one card's gap")
+    t = rep["timed"]
+    c = t["case"]
+    tr = t["trace"]
+    traced = ("" if not tr else f"; a traced step on rank 0: wall {tr['wall_ms']:.1f} ms, device "
+              "ms " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(tr["device_ms"].items()))
+              + f", NCCL share {tr['nccl_share']:.4f}")
+    print(f"lm-train {c['arch']} {c['layers'] or 'all'} layers {c['dtype']} 2x2, {c['batch']} rows "
+          f"of {c['seq']} tokens: losses {[round(x, 6) for x in t['loss']]}, steps "
+          f"{[round(x, 4) for x in t['step_s']]} s, median {t['median_step_s']:.4f} s a step "
+          f"after the first, {t['tokens_per_s']:.1f} tokens/s ({where}); peak GiB a card "
+          f"[{_gib(t['peak_bytes'])}]{traced}; on {card_name}")
+    for k, cb in enumerate(t["collective_bytes"]):
+        print(f"lm-train collective bytes of one step, process {k}: {cb}")
+
+
 def _gib(xs) -> str:
     return ", ".join("not measured (CPU)" if x is None else f"{x / 2**30:.2f}" for x in xs)
 
@@ -685,8 +847,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--refine", type=int, default=6, help="the train step's multimesh")
     ap.add_argument("--smoke", action="store_true",
                     help="the train step and the LM case at smoke widths")
-    ap.add_argument("--case", default="graph", choices=["graph", "lm"],
-                    help="the graph cases (steps 2-6) or the LM case (step 7)")
+    ap.add_argument("--case", default="graph", choices=["graph", "lm", "lm-train"],
+                    help="the graph cases (steps 2-6), the LM case (step 7) or the LM "
+                         "train case (step 8)")
     args = ap.parse_args(argv)
 
     dev = torch.device("cuda" if args.device is None else args.device)
@@ -700,7 +863,7 @@ def main(argv=None) -> dict:
         summary.update(print_cards())
         procgrid.check_transport(args.backend, 4, torch.cuda.device_count())
     checks = Checks()
-    graph, lm = args.case == "graph", args.case == "lm"
+    graph, lm, lmt = args.case == "graph", args.case == "lm", args.case == "lm-train"
     with tempfile.TemporaryDirectory(prefix="multicard-") as tmp:
         if graph:
             t0 = time.perf_counter()
@@ -711,6 +874,8 @@ def main(argv=None) -> dict:
             summary["bfs"] = bfs
         if lm:
             summary["lm"] = lm_step(args, dev, args.backend, tmp, checks)
+        if lmt:
+            summary["lm_train"] = lm_train_step(args, dev, args.backend, tmp, checks)
         if args.backend == "nccl":
             summary["nccl"] = nccl_report(tmp)
     procs = summary["bfs"]["processes"] if graph else []
@@ -725,6 +890,10 @@ def main(argv=None) -> dict:
         for key, rec in summary.get("lm", {}).items():
             checks.expect(rec["devices"] == [f"cuda:{k}" for k in range(len(rec["devices"]))],
                           f"lm {key}: the processes ran on {rec['devices']}")
+        if lmt:
+            got = summary["lm_train"]["devices"]
+            checks.expect(got == [f"cuda:{k}" for k in range(4)],
+                          f"lm-train: the processes ran on {got}")
         if graph:
             checks.expect(len(set(devices)) == 4, f"the processes share cards: {devices}")
         summary["transport"] = transport_label(summary["nccl"]["via"], summary["topo"],
@@ -739,6 +908,9 @@ def main(argv=None) -> dict:
         print(f"NCCL {rep['version']}: transports {rep['via']}; warnings {rep['warnings']}")
     if lm:
         print_lm(summary["lm"], where, "; ".join(summary.get("cards", [])) or str(dev))
+    if lmt:
+        print_lm_train(summary["lm_train"], where,
+                       "; ".join(summary.get("cards", [])) or str(dev))
     train = None
     if graph:
         sim_where = f"SimGrid on {dev}"

@@ -16,7 +16,8 @@ implement the interface:
 The collectives follow ``jax.lax``'s semantics exactly — tiled
 ``all_gather`` and ``all_to_all`` (split and concatenate on dim 0),
 ``psum``, ``pmax``, ``pmin``, ``ppermute`` (a rank no pair sends to
-receives zeros) — over the communicator groups of an axis:
+receives zeros), and ``reduce_scatter`` (``psum_scatter`` tiled on dim 0)
+— over the communicator groups of an axis:
 
 * the row axes (``"data"``) — the R ranks that share a grid column ``j``
   (C groups);
@@ -40,10 +41,11 @@ The differentiable collectives (``ad_all_gather``, ``ad_all_to_all``,
 ``ad_ppermute``, ``ad_psum``: autodiff counterparts of the grid's own, as
 ``jax.grad`` transposes ``shard_map``'s collectives) run a grid's
 collective forward and its transpose backward, written with the grid's
-own collectives — a reduce-scatter as a ``psum`` and a slice, since gloo
-has no float reduce-scatter — so that float sums run in group order on
-both grids and ``SimGrid`` and ``ProcessGrid`` give the same gradients bit
-for bit on the CPU.  :func:`pmean_trees` means per-rank trees of tensors
+own collectives — an all-gather's transpose as a ``psum`` and a slice, or
+(``scatter=True``) the grid's ``reduce_scatter``, the same sums of the
+slice alone — so that float sums run in group order on both grids and
+``SimGrid`` and ``ProcessGrid`` give the same gradients bit for bit on the
+CPU.  :func:`pmean_trees` means per-rank trees of tensors
 (gradients) over an axis.
 """
 
@@ -214,6 +216,20 @@ class SimGrid(Grid):
     def psum(self, xs: Sequence, axis, groups=None) -> list:
         return self._reduce(xs, axis, groups, torch.add)
 
+    def reduce_scatter(self, xs: Sequence, axis, groups=None) -> list:
+        """Tiled reduce-scatter on dim 0: member ``a`` gets chunk ``a`` of
+        the group's sum, added in group order (each group summed once, the
+        bits of ``psum``'s chunk)."""
+        summed = self._reduce(xs, axis, groups, torch.add)
+        idx = self.axis_index(axis)
+        k = self.group_size(axis)
+        out = self._new()
+        for g in groups or self.groups(axis):
+            parts = split_rows(summed[g[0]], k)
+            for p in g:
+                out[p] = parts[idx[p]]
+        return out
+
     def pmax(self, xs: Sequence, axis, groups=None) -> list:
         return self._reduce(xs, axis, groups, torch.maximum)
 
@@ -232,6 +248,13 @@ class SimGrid(Grid):
                 if a not in receivers:
                     out[p] = torch.zeros_like(xs[p])
         return out
+
+
+def split_rows(x: torch.Tensor, k: int) -> tuple:
+    """``x`` in ``k`` equal chunks of dim 0 (a reduce-scatter's tiles)."""
+    if x.shape[0] % k:
+        raise ValueError(f"reduce_scatter: dim 0 ({x.shape[0]}) does not split over {k} ranks")
+    return torch.chunk(x, k, dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +309,14 @@ def _differentiable(grid: Grid, xs: Sequence, fwd, transpose) -> list:
     return _spread(grid, _Collective.apply(grid, fwd, transpose, *(xs[p] for p in ranks)))
 
 
-def ad_all_gather(grid: Grid, xs: Sequence, axis) -> list:
+def ad_all_gather(grid: Grid, xs: Sequence, axis, scatter: bool = False) -> list:
     """``grid.all_gather`` whose backward is a reduce-scatter: the group's
-    cotangents summed (``grid.psum``, group order), then this rank's slice."""
+    cotangents summed (``grid.psum``, group order), then this rank's slice;
+    with ``scatter``, ``grid.reduce_scatter`` (the same bits, only the
+    slice summed and moved)."""
     def transpose(cts):
+        if scatter:
+            return grid.reduce_scatter(cts, axis)
         summed = grid.psum(cts, axis)
         idx, k = grid.axis_index(axis), grid.group_size(axis)
         return grid.local(lambda p: torch.chunk(summed[p], k, dim=0)[idx[p]])

@@ -5,17 +5,18 @@ The counterpart of JAX's ``shard_map`` over real devices.  Each process
 holds one rank (``local_ranks == [dist.get_rank()]``) and runs the same
 per-rank body as :class:`repro_torch.comm.grid.SimGrid`, on per-rank lists
 whose only entry is its own; the collectives have ``SimGrid``'s semantics
-(tiled ``all_gather`` / ``all_to_all`` on dim 0, ``psum`` / ``pmax`` /
-``pmin``, ``ppermute`` with zeros for a rank no pair sends to), so the two
-grids give the same trees bit for bit and, merged, the same ledger
-(:meth:`repro_torch.comm.stats.CommStats.gather`).
+(tiled ``all_gather`` / ``all_to_all`` / ``reduce_scatter`` on dim 0,
+``psum`` / ``pmax`` / ``pmin``, ``ppermute`` with zeros for a rank no pair
+sends to), so the two grids give the same trees bit for bit and, merged,
+the same ledger (:meth:`repro_torch.comm.stats.CommStats.gather`).
 
 The grid sits over an initialized default process group of world size
 R*C, rank ``p = i*C + j``.  It creates the row, column and whole-grid
 subgroups with ``dist.new_group``, in one order in every process.  Float
-sums are gathered and added in group order, as ``SimGrid`` adds them, so
-that they do not depend on the backend's reduction order; integer and
-boolean reductions are all-reduces.  Bool tensors travel as ``uint8``.
+sums are gathered (a reduce-scatter's slices by an all-to-all) and added
+in group order, as ``SimGrid`` adds them, so that they do not depend on
+the backend's reduction order; integer and boolean reductions are
+all-reduces.  Bool tensors travel as ``uint8``.
 
 The transport is the default group's backend, and nothing swaps it:
 
@@ -52,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.comm.grid import Grid
+from repro_torch.comm.grid import Grid, split_rows
 
 
 def check_transport(backend: str, world: int, cards: int) -> None:
@@ -235,6 +236,29 @@ class ProcessGrid(Grid):
 
     def psum(self, xs: Sequence, axis, groups=None) -> list:
         return self._reduce(xs, axis, groups, torch.add, dist.ReduceOp.SUM)
+
+    def reduce_scatter(self, xs: Sequence, axis, groups=None) -> list:
+        """Tiled reduce-scatter on dim 0: an all-to-all hands this rank
+        every member's chunk of its slice, added in group order (the bits
+        of ``SimGrid``'s; a float reduce-scatter of the backend would add
+        in its own order)."""
+        out = self._new()
+        mine = self._mine(axis, groups)
+        if mine is None:
+            return out
+        (g, pg), x = mine, xs[self.rank]
+        parts = split_rows(x, len(g))
+        if len(g) > 1:
+            t = self._down(x)
+            got = torch.empty_like(t)
+            if t.numel():
+                dist.all_to_all_single(got, t, group=pg)
+            parts = split_rows(self._up(got, x.dtype), len(g))
+        acc = parts[0]
+        for y in parts[1:]:
+            acc = torch.add(acc, y)
+        out[self.rank] = acc
+        return out
 
     def pmax(self, xs: Sequence, axis, groups=None) -> list:
         return self._reduce(xs, axis, groups, torch.maximum, dist.ReduceOp.MAX)

@@ -6,12 +6,15 @@ The port's counterpart of ``repro/launch/cells.py``: the same 43
 skip for each of the 5 LM archs), the same FLOP models and ``meta``.
 :func:`build_cell` returns
 
-* ``fn``           -- the port's step for the cell's kind: for the LM
-                      train, AutoInt and the single-device GNN cells the
+* ``fn``           -- the port's step for the cell's kind: for the
+                      AutoInt and the single-device GNN cells the
                       single-device step at the global shapes; for the LM
-                      prefill and decode cells the sharded serving program
-                      (:mod:`repro_torch.models.transformer_sharded`) under
-                      the cell's param specs; for
+                      train cells the sharded train step
+                      (:func:`repro_torch.train.step.make_sharded_train_step`)
+                      and for the LM prefill and decode cells the sharded
+                      serving program
+                      (:mod:`repro_torch.models.transformer_sharded`), each
+                      under the cell's param specs; for
                       ``ogb_products`` (``dist="2d"``) the 2D train step
                       (:func:`repro_torch.models.gnn_dist.build_2d_train_step`)
                       and for graph500 the distributed BFS
@@ -227,6 +230,18 @@ def _bfs(mesh: Mesh, part: Partition2D, bcfg: dbfs.DistBFSConfig, src, dst, root
     return fn(_per_rank(grid, src, lead), _per_rank(grid, dst, lead), root)
 
 
+def _lm_train(mesh: Mesh, cfg, specs, opt_cfg, state, batch, *, grid=None, layers=None):
+    """The sharded train step (:func:`repro_torch.train.step.make_sharded_train_step`)
+    on each rank's slices of the global state (params, ``m`` and ``v``
+    placed alike) and its rows of the batch -> (the global new state, the
+    metrics).  ``layers``: run only the first that many (the dry-run)."""
+    grid = grid or make_grid(mesh, batch["tokens"].device)
+    step = tstep.make_sharded_train_step(cfg, grid, specs, opt_cfg, layers=layers)
+    states, metrics = step(tstep.shard_state(cfg, grid, state, specs),
+                           tsh.shard_rows(grid, batch["tokens"]))
+    return tstep.gather_state(grid, states, specs), metrics
+
+
 def _lm_prefill(mesh: Mesh, cfg, specs, params, tokens, *, grid=None, layers=None):
     """The sharded prefill (:func:`repro_torch.models.transformer_sharded.prefill`)
     over each rank's slices of the global arguments -> the global
@@ -280,12 +295,11 @@ def _lm_cell(spec: cfgs.ArchSpec, shape: cfgs.ShapeSpec, mesh: Mesh,
     params = tfm.init_params(cfg, _gen(), META)
 
     if shape.kind == "train":
-        step_fn = tstep.make_train_step(functools.partial(tfm.loss_fn, cfg), adamw.AdamWConfig())
         state_specs = tstep.TrainState(
             params=p_specs, opt=adamw.OptState(step=(), m=p_specs, v=p_specs), ef=None)
         return Cell(
             spec.arch_id, shape.name, "train",
-            fn=step_fn,
+            fn=functools.partial(_lm_train, mesh, cfg, p_specs, adamw.AdamWConfig()),
             args=(tstep.init_state(params), {"tokens": _sds((batch, seq), torch.int32)}),
             in_shardings=(state_specs, {"tokens": (dp, None)}),
             meta=dict(

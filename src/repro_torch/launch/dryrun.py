@@ -58,11 +58,23 @@ the layer scan's body times ``loop_mult``, as the reference's
 none; ``memory`` is the one-layer run's.  Their ``output_bytes`` and
 ``temp_bytes`` are the global program's over every rank.
 
-The LM ``train_4k``, AutoInt and single-device GNN cells still run one
-device's program: the port has no sharded runtime for them, so their
-``collective_bytes`` is 0.  Their ``fn`` does not depend on the mesh:
-under ``--both-meshes`` the second mesh reuses the count of a cell whose
-arguments have the same shapes.
+The LM ``train_4k`` cells run the sharded train step
+(:func:`repro_torch.train.step.make_sharded_train_step`: FSDP x TP under
+the cell's param specs, the batch over the grid rows) on a ``meta``
+``SimGrid`` of every rank, counted as the serving cells are: one layer's
+forward, its recomputation in the backward (``remat``: the layer's FSDP
+gathers and TP sums again, up to its last saved tensor) and its backward
+(the gathers' reduce-scatters, the sums' transposes) times ``loop_mult``,
+plus once a step the embedding, the vocabulary-parallel loss and head,
+the gradient sums over the replicated leaves (three ``psum``s at most, an
+axis each), the norm's ``psum`` and AdamW over every layer's slices.  The
+loss's chunks are not recomputed on ``meta``.
+
+The AutoInt and single-device GNN cells still run one device's program:
+the port has no sharded runtime for them, so their ``collective_bytes`` is
+0.  Their ``fn`` does not depend on the mesh: under ``--both-meshes`` the
+second mesh reuses the count of a cell whose arguments have the same
+shapes.
 
 One divergence from the reference's record: ``output_bytes`` is the
 storage behind the outputs, not their own size.  An output that views a
@@ -98,6 +110,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import tree
 from repro_torch.comm.engine import nbytes_of
+from repro_torch.configs import common as cfgs
 from repro_torch.launch import cells as cellslib
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import roofline
@@ -242,14 +255,15 @@ def _scaled(one: ProgramCounts, none: ProgramCounts, layers: int) -> ProgramCoun
 def _count(cell: cellslib.Cell, mesh: meshlib.Mesh, variant: str,
            cache: dict | None) -> ProgramCounts:
     """The cell's counts.  A 2D cell and a BFS cell run on the mesh's grid
-    and are counted each time, an LM prefill or decode cell as one layer
-    times its depth plus the embedding and head (:func:`_scaled`); the
+    and are counted each time, an LM train, prefill or decode cell as one
+    layer times its depth plus the rest once (:func:`_scaled`); the
     others' ``fn`` does not depend on the mesh, and ``cache`` keeps their
     counts by arch, shape, variant and argument shapes."""
     if cell.kind in ("graph_train_2d", "bfs"):
         grid = cellslib.make_grid(mesh, cellslib.META)
         return count_program(functools.partial(cell.fn, grid=grid), cell.args, grid)
-    if cell.kind in ("prefill", "decode"):
+    if cell.kind in ("prefill", "decode") or (cell.kind == "train" and
+                                              cfgs.get(cell.arch_id).family == "lm"):
         grid = cellslib.make_grid(mesh, cellslib.META)
         one, none = (count_program(functools.partial(cell.fn, grid=grid, layers=k), cell.args,
                                    grid) for k in (1, 0))

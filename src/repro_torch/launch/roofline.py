@@ -19,12 +19,13 @@ from ``cost_analysis``, and ``compare_comm_stats`` holds the ``CommStats``
 ledger against the parsed collectives.  An eager PyTorch program has no
 HLO; what it runs is what the grid executes.  So here
 
-* :func:`count_collectives` wraps the six collectives of one grid instance
-  (``all_gather``, ``all_to_all``, ``psum``, ``pmax``, ``pmin``,
-  ``ppermute``) and counts every call into a :class:`CollectiveStats`, in
-  the reference's conventions: one rank's result-shape bytes per call, the
-  all-reduces doubled (the ring convention of ``comm.stats.HLO_FACTOR``),
-  and beside them the same bytes summed over every rank that ran the call;
+* :func:`count_collectives` wraps the seven collectives of one grid
+  instance (``all_gather``, ``all_to_all``, ``psum``, ``pmax``, ``pmin``,
+  ``ppermute``, ``reduce_scatter``) and counts every call into a
+  :class:`CollectiveStats`, in the reference's conventions: one rank's
+  result-shape bytes per call, the all-reduces doubled (the ring
+  convention of ``comm.stats.HLO_FACTOR``), and beside them the same bytes
+  summed over every rank that ran the call;
 * :func:`compare_comm_stats` holds a ledger against such a count, per op
   kind, per rank and summed over the grid;
 * :func:`terms_from_counts` makes the terms from the counts of a program
@@ -55,6 +56,7 @@ GRID_COLLECTIVES = {
     "pmax": "all-reduce",
     "pmin": "all-reduce",
     "ppermute": "collective-permute",
+    "reduce_scatter": "reduce-scatter",
 }
 
 
@@ -83,7 +85,7 @@ class CollectiveStats:
 def count_collectives(grid):
     """Count every collective ``grid`` runs inside the block.
 
-    Wraps the six collectives of this grid instance (not its class) and
+    Wraps the seven collectives of this grid instance (not its class) and
     restores them on exit; yields the :class:`CollectiveStats` the calls
     fill.  A call's one rank is the first local rank of the first group it
     ran over, as ``AdaptiveExchange`` records it; its grid bytes add the

@@ -6,9 +6,12 @@ Port of :mod:`repro.models.transformer`, function for function:
   reference's keys (:func:`init_params`), so the reference's
   ``jax.tree.map(np.asarray, params)`` carries across unchanged
   (``models.gnn.params_from_numpy``); the layer stack is a Python loop over
-  ``L`` views.  ``scan_layers``, ``remat``, ``remat_policy`` and
-  ``attn_remat`` are kept and change no value: under autograd the port
-  computes without recomputation.
+  ``L`` views.  ``remat`` is honoured: under autograd each layer runs in
+  ``torch.utils.checkpoint`` (non-reentrant), keeps only its input and is
+  recomputed in the backward, the reference's ``nothing_saveable``
+  checkpoint; values do not change.  ``remat_policy="dots"`` recomputes
+  the same way (nothing saved), and ``scan_layers`` and ``attn_remat``
+  are kept and change nothing.
 * **blockwise attention**: online softmax over KV chunks; a group of q
   chunks runs at once, bounded by the logits it holds, and a KV chunk that
   lies wholly after the group's last query is skipped (it would add nothing).
@@ -35,6 +38,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
@@ -76,7 +80,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     q_chunk: int = 512
     kv_chunk: int = 1024
-    # the reference's layer scan and recomputation switches (no value change)
+    # the reference's layer scan and recomputation switches (no value
+    # change; ``remat`` recomputes each layer in the backward)
     scan_layers: bool = True
     remat: bool = True
     remat_policy: str = "nothing"
@@ -520,13 +525,17 @@ def _mask_pad(cfg, logits):
 
 
 def _hidden(cfg: TransformerConfig, params: Params, tokens):
-    """tokens (B, S) -> (the last layer's output (B, S, d), aux_loss)."""
+    """tokens (B, S) -> (the last layer's output (B, S, d), aux_loss); under
+    ``cfg.remat`` and autograd each layer is recomputed in the backward."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     pos = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, a = _layer(cfg, _layer_params(params, i), x, pos)
+        args = (cfg, _layer_params(params, i), x, pos)
+        x, a = (checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False)
+                if remat else _layer(*args))
         aux = aux + a
     return x, aux
 

@@ -1,6 +1,6 @@
-"""The transformer's prefill and decode over an R x C grid, placed as the
-cell catalogue places them: FSDP over the grid rows, tensor parallelism
-over the columns.
+"""The transformer's prefill, decode and training loss over an R x C grid,
+placed as the cell catalogue places them: FSDP over the grid rows, tensor
+parallelism over the columns.
 
 The program is written once, as a per-rank body against a
 :class:`repro_torch.comm.grid.Grid` (per-rank lists of tensors), and runs
@@ -54,14 +54,30 @@ The arithmetic is the single-device program's: the fp32 upcasts, the
 ``live`` mask, the router and the capacity drops.  Only the order of some
 float sums changes (the ``psum`` of partial products, the softmax combined
 over ranks).
+
+**Training** (:func:`loss_fn`; the step is
+:func:`repro_torch.train.step.make_sharded_train_step`): the forward over
+every position (:func:`hidden`, each layer recomputed in the backward
+under ``cfg.remat``), each rank's MoE aux loss over the routing groups it
+routed, and a vocabulary-parallel cross entropy (:func:`token_losses`: no
+rank holds more than its block of the logits, a chunk of the sequence at
+a time).  Every collective of the program is differentiable: a gather's
+transpose is the reduce-scatter of the same dimension, a ``psum``'s a
+``psum``, the all-to-all its own inverse (``comm.grid.ad_*``); with no
+input requiring a gradient each runs the grid's own collective, so serving
+is unchanged.  A leaf replicated over an axis has its gradient summed over
+it afterwards (:func:`sum_replicas`), and :func:`grad_norm` counts it
+once.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.comm.grid import COL_AXIS, Grid
+from repro_torch import tree
+from repro_torch.comm.grid import COL_AXIS, Grid, ad_all_gather, ad_all_to_all, ad_psum
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import transformer as tfm
 
@@ -202,23 +218,57 @@ def assemble(grid: Grid, xs: list, row_dim: int = 0, col_dim: int | None = -1) -
     return torch.cat(rows, row_dim)
 
 
+def unshard_leaf(grid: Grid, xs: list, spec: tuple) -> torch.Tensor:
+    """The global tensor of every rank's slice of a leaf placed by ``spec``
+    (the inverse of :func:`shard_leaf`), on a grid that holds every rank."""
+    if set(grid.local_ranks) != set(range(grid.size)):
+        raise ValueError("unshard_leaf needs every rank's slice (a SimGrid)")
+    dims = {_kind(e, grid): dim for dim, e in enumerate(spec)}
+    c = grid.cols
+
+    def row(i):
+        if "col" not in dims:
+            return xs[i * c]
+        return torch.cat([xs[i * c + j] for j in range(c)], dims["col"])
+
+    if "row" not in dims:
+        return row(0)
+    return torch.cat([row(i) for i in range(grid.rows)], dims["row"])
+
+
+def replicated_over(grid: Grid, spec: tuple):
+    """The grid axes over which a leaf placed by ``spec`` is replicated
+    (the row axes, ``"model"``, or both), or ``None``."""
+    kinds = {_kind(e, grid) for e in spec}
+    rows = "row" not in kinds and grid.rows > 1
+    cols = "col" not in kinds and grid.cols > 1
+    if rows and cols:
+        return grid.all_axes
+    if rows:
+        return grid.row_axes
+    return (TP,) if cols else None
+
+
 # ---------------------------------------------------------------------------
-# collectives (none over a group of one)
+# collectives (none over a group of one), differentiable: each runs the
+# grid's own collective when no input requires a gradient
 # ---------------------------------------------------------------------------
 
 
 def _gather(grid: Grid, xs: list, axis, dim: int) -> list:
-    """Tiled all-gather along ``dim``."""
+    """Tiled all-gather along ``dim``; its transpose is the reduce-scatter
+    of the same ``dim``."""
     if grid.group_size(axis) == 1:
         return xs
     if dim == 0:
-        return grid.all_gather(xs, axis)
-    moved = grid.all_gather(grid.local(lambda p: xs[p].movedim(dim, 0).contiguous()), axis)
+        return ad_all_gather(grid, xs, axis, scatter=True)
+    moved = ad_all_gather(grid, grid.local(lambda p: xs[p].movedim(dim, 0).contiguous()), axis,
+                          scatter=True)
     return grid.local(lambda p: moved[p].movedim(0, dim))
 
 
 def _psum(grid: Grid, xs: list, axis) -> list:
-    return xs if grid.group_size(axis) == 1 else grid.psum(xs, axis)
+    return xs if grid.group_size(axis) == 1 else ad_psum(grid, xs, axis)
 
 
 def _use(grid: Grid, xs: list, spec: tuple, keep=()) -> list:
@@ -316,29 +366,40 @@ def _embed(cfg: tfm.TransformerConfig, grid: Grid, table: list, spec: tuple, tok
         # rank (i', j) holds d-slice i' of every token of the column: the
         # all-to-all hands rank (i, j) every d-slice of its own tokens
         r = grid.rows
-        xs = grid.all_to_all(xs, grid.row_axes)
+        xs = ad_all_to_all(grid, xs, grid.row_axes)
         xs = grid.local(lambda p: xs[p].reshape(r, -1, *xs[p].shape[1:]).movedim(0, -2)
                         .flatten(-2))
     return xs
 
 
+def _head_weight(cfg: tfm.TransformerConfig, grid: Grid, prm: RankParams, specs) -> list:
+    """``lm_head`` as each rank uses it: its vocabulary columns (d,
+    V_pad/C), the FSDP split gathered, in the compute dtype."""
+    return _use(grid, grid.local(lambda p: prm[p]["lm_head"].to(cfg.compute_dtype)),
+                specs["lm_head"])
+
+
+def _vocab_lo(grid: Grid, specs, p: int, vc: int) -> int:
+    """The first vocabulary id of rank ``p``'s ``vc`` logit columns."""
+    return (p % grid.cols) * vc if _kind(specs["lm_head"][1], grid) == "col" else 0
+
+
+def _logits(cfg: tfm.TransformerConfig, x, norm, head, lo: int):
+    """The final norm of ``x`` (..., d) times a block of ``lm_head``'s
+    columns from id ``lo`` on, the padded ids masked."""
+    y = tfm.rmsnorm(x, norm) @ head
+    if cfg.padded_vocab == cfg.vocab:
+        return y
+    pad = torch.arange(lo, lo + y.shape[-1], device=y.device) >= cfg.vocab
+    return y + pad.to(y.dtype) * -1e9
+
+
 def _head(cfg: tfm.TransformerConfig, grid: Grid, prm: RankParams, specs, xs: list) -> list:
     """(b, d) per rank -> its vocabulary columns of the logits (b, V_pad/C),
     the padded ids masked."""
-    head = _use(grid, grid.local(lambda p: prm[p]["lm_head"].to(cfg.compute_dtype)),
-                specs["lm_head"])
-
-    def logits(p):
-        x = tfm.rmsnorm(xs[p], prm[p]["final_norm"])
-        y = x @ head[p]
-        if cfg.padded_vocab == cfg.vocab:
-            return y
-        vc = y.shape[-1]
-        lo = (p % grid.cols) * vc if _kind(specs["lm_head"][1], grid) == "col" else 0
-        pad = torch.arange(lo, lo + vc, device=y.device) >= cfg.vocab
-        return y + pad.to(y.dtype) * -1e9
-
-    return grid.local(logits)
+    head = _head_weight(cfg, grid, prm, specs)
+    return grid.local(lambda p: _logits(cfg, xs[p], prm[p]["final_norm"], head[p],
+                                        _vocab_lo(grid, specs, p, head[p].shape[-1])))
 
 
 # ---------------------------------------------------------------------------
@@ -402,15 +463,19 @@ def _attention(cfg: tfm.TransformerConfig, grid: Grid, w: list, xs: list, pos) -
         def qkv(p):
             b, s = xs[p].shape[:2]
             nh = ranges[p][3] - ranges[p][2]
-            q = qh[p].reshape(b, s, nh, qk)
-            q = torch.cat([q[..., :nope], tfm.rope(q[..., nope:], pos, cfg.rope_theta)], -1)
-            k_rope = tfm.rope(kv[p][..., r:][:, :, None, :], pos, cfg.rope_theta)
             u = kvh[p].reshape(b, s, nh, nope + hd_v)
-            k = torch.cat([u[..., :nope], k_rope.expand(b, s, nh, cfg.qk_rope_dim)], -1)
-            return q, k, u[..., nope:]
+            return (qh[p].reshape(b, s, nh, qk), kv[p][..., r:][:, :, None, :], u[..., :nope],
+                    u[..., nope:])
+
+        def roped(q, k_rope, k_nope, v):  # rope per element: the same values batched
+            at = pos[0]
+            q = torch.cat([q[..., :nope], tfm.rope(q[..., nope:], at, cfg.rope_theta)], -1)
+            k_rope = tfm.rope(k_rope, at, cfg.rope_theta)
+            k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], cfg.qk_rope_dim)], -1)
+            return attention(q, k, v)
 
         parts = grid.local(qkv)
-        o = _batched(grid, attention, *(grid.local(lambda p, a=a: parts[p][a]) for a in range(3)))
+        o = _batched(grid, roped, *(grid.local(lambda p, a=a: parts[p][a]) for a in range(4)))
 
         def attend(p):
             b, s = xs[p].shape[:2]
@@ -435,15 +500,19 @@ def _attention(cfg: tfm.TransformerConfig, grid: Grid, w: list, xs: list, pos) -
         b, s = xs[p].shape[:2]
         _, _, h0, h1 = ranges[p]
         k0, k1, idx = kvr[p]
-        q = tfm.rope(qh[p].reshape(b, s, h1 - h0, hd), pos, cfg.rope_theta)
-        k = tfm.rope(kh[p].reshape(b, s, k1 - k0, hd), pos, cfg.rope_theta)
+        q = qh[p].reshape(b, s, h1 - h0, hd)
+        k = kh[p].reshape(b, s, k1 - k0, hd)
         v = vh[p].reshape(b, s, k1 - k0, hd)
         if idx is not None:  # the rank's q heads straddle kv groups: one kv head each
             k, v = k[:, :, idx], v[:, :, idx]
         return q, k, v
 
+    def roped(q, k, v):  # rope per element: the same values batched over ranks
+        at = pos[0]
+        return attention(tfm.rope(q, at, cfg.rope_theta), tfm.rope(k, at, cfg.rope_theta), v)
+
     parts = grid.local(qkv)
-    o = _batched(grid, attention, *(grid.local(lambda p, a=a: parts[p][a]) for a in range(3)))
+    o = _batched(grid, roped, *(grid.local(lambda p, a=a: parts[p][a]) for a in range(3)))
 
     def attend(p):
         b, s = xs[p].shape[:2]
@@ -489,6 +558,8 @@ def _combine(grid: Grid, scores: list, values, einsum: str) -> list:
 
 
 def _reduce_max(grid: Grid, xs: list) -> list:
+    """The ``pmax`` over TP of a softmax's shift, which takes no gradient."""
+    xs = grid.local(lambda p: xs[p].detach())
     return xs if grid.group_size(TP) == 1 else grid.pmax(xs, TP)
 
 
@@ -603,10 +674,21 @@ def _unique_heads(grid: Grid, ranges: dict, widest: int) -> list[int] | None:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg: tfm.TransformerConfig, grid: Grid, specs, w: list, xs: list) -> list:
-    """The normed (b, s, d) per rank -> the FFN output, replicated over TP."""
+def _ffn(cfg: tfm.TransformerConfig, grid: Grid, specs, w: list, xs: list,
+         aux: bool = False) -> tuple[list, list | None]:
+    """The normed (b, s, d) per rank -> (the FFN output, replicated over TP;
+    with ``aux``, each rank's MoE load-balance loss, else ``None``).
+
+    The aux is the reference's mean over the routing groups the rank
+    routed: its own rows' groups, or where they are routed gathered (a
+    group spanning rows, or the experts' ``d_ff`` over the rows) every
+    group of the column, each once -- the whole batch's.  Either way the
+    mean of the ranks' aux over the grid is the reference's over the
+    global batch (every row routes as many groups).  The experts' row
+    ``psum`` under ``expert_shard="ff"`` sums outputs only."""
     if not cfg.is_moe:
-        return _psum(grid, grid.local(lambda p: tfm._dense_ffn(cfg, w[p], xs[p])), TP)
+        y = _psum(grid, grid.local(lambda p: tfm._dense_ffn(cfg, w[p], xs[p])), TP)
+        return y, (grid.local(lambda p: torch.zeros((), device=xs[p].device)) if aux else None)
     r0 = grid.local_ranks[0]
     b, s, d = xs[r0].shape
     e_loc = w[r0]["we_gate"].shape[0]
@@ -620,17 +702,17 @@ def _ffn(cfg: tfm.TransformerConfig, grid: Grid, specs, w: list, xs: list) -> li
     spans = (b * s) % min(cfg.moe_group, b * s * grid.rows) != 0
     gathered = rows > 1 and (ff_rows or spans)
     xa = _gather(grid, xs, grid.row_axes, 0) if gathered else xs
-    routed = grid.local(lambda p: tfm.moe_route(cfg, w[p]["router"], xa[p])[:3])
+    routed = grid.local(lambda p: tfm.moe_route(cfg, w[p]["router"], xa[p])[:5])
 
     def experts(p):
-        xt, dispatch, combine = routed[p]
+        xt, dispatch, combine = routed[p][:3]
         e0 = (p % grid.cols) * e_loc
         return tfm.expert_ffn(cfg, w[p]["we_gate"], w[p]["we_up"], w[p]["we_down"], xt,
                               dispatch[:, :, e0:e0 + e_loc], combine[:, :, e0:e0 + e_loc])
 
     ys = grid.local(experts)
     if ff_rows:
-        ys = grid.psum(ys, grid.row_axes)
+        ys = _psum(grid, ys, grid.row_axes)
 
     def with_shared(p):
         if not cfg.n_shared_experts:
@@ -646,7 +728,11 @@ def _ffn(cfg: tfm.TransformerConfig, grid: Grid, specs, w: list, xs: list) -> li
         y = ys[p].reshape(-1, d)[:n * s].reshape(n, s, d)
         return y.narrow(0, (p // grid.cols) * b, b) if gathered else y
 
-    return grid.local(own)
+    def balance(p):
+        onehot, gates = routed[p][3:5]
+        return (onehot.sum(2).mean(1) * gates.mean(1)).sum(-1).mean() * cfg.n_experts
+
+    return grid.local(own), (grid.local(balance) if aux else None)
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +742,17 @@ def _ffn(cfg: tfm.TransformerConfig, grid: Grid, specs, w: list, xs: list) -> li
 
 def _n_layers(cfg, layers) -> int:
     return cfg.n_layers if layers is None else layers
+
+
+def _block(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, specs, l: int, xs: list,
+           pos, aux: bool = False) -> tuple[list, list | None]:
+    """Layer ``l`` over each rank's (b, s, d) -> (its output, each rank's
+    MoE aux with ``aux``)."""
+    w = _layer(cfg, grid, params, specs, l)
+    a = _attention(cfg, grid, w, grid.local(lambda p: tfm.rmsnorm(xs[p], w[p]["ln1"])), pos)
+    hs = grid.local(lambda p: xs[p] + a[p])
+    f, ax = _ffn(cfg, grid, specs, w, grid.local(lambda p: tfm.rmsnorm(hs[p], w[p]["ln2"])), aux)
+    return grid.local(lambda p: hs[p] + f[p]), ax
 
 
 def prefill(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, tokens: list,
@@ -672,12 +769,7 @@ def prefill(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, tokens: 
     b, s = tokens[r0].shape
     pos = torch.arange(s, device=xs[r0].device).expand(b, s)
     for l in range(_n_layers(cfg, layers)):
-        w = _layer(cfg, grid, params, specs, l)
-        a = _attention(cfg, grid, w, grid.local(lambda p: tfm.rmsnorm(xs[p], w[p]["ln1"])), pos)
-        hs = grid.local(lambda p: xs[p] + a[p])
-        f = _ffn(cfg, grid, specs, w, grid.local(lambda p: tfm.rmsnorm(hs[p], w[p]["ln2"])))
-        xs = grid.local(lambda p: hs[p] + f[p])
-        del w, a, hs, f
+        xs, _ = _block(cfg, grid, params, specs, l, xs, pos)
     return _head(cfg, grid, params, specs, grid.local(lambda p: xs[p][:, -1]))
 
 
@@ -696,7 +788,7 @@ def decode_step(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, cach
                               grid.local(lambda p: tfm.rmsnorm(xs[p], w[p]["ln1"])[:, 0]),
                               grid.local(lambda p: caches[p][l]), pos)
         hs = grid.local(lambda p: xs[p] + a[p])
-        f = _ffn(cfg, grid, specs, w, grid.local(lambda p: tfm.rmsnorm(hs[p], w[p]["ln2"])))
+        f, _ = _ffn(cfg, grid, specs, w, grid.local(lambda p: tfm.rmsnorm(hs[p], w[p]["ln2"])))
         xs = grid.local(lambda p: hs[p] + f[p])
         del w, a, hs, f
     return _head(cfg, grid, params, specs, grid.local(lambda p: xs[p][:, 0]))
@@ -707,3 +799,151 @@ def gather_logits(grid: Grid, logits: list) -> list:
     (b, V_pad), all-gathered over TP."""
     return _gather(grid, logits, TP, 1)
 
+
+
+# ---------------------------------------------------------------------------
+# training: the forward over every position, the vocabulary-parallel loss
+# ---------------------------------------------------------------------------
+
+#: the fp32 logits (b, c, V_pad/C) one chunk of the loss holds at once
+LOSS_BYTES = 1 << 30
+
+
+def _unstacked(prm: dict, n: int) -> dict:
+    """A rank's tree with each layer leaf split into its first ``n`` layers
+    (one autograd node whose backward stacks their gradients once)."""
+    def split(v):
+        return (v if n == v.shape[0] else v[:n]).unbind(0)
+
+    return dict(prm, layers={k: split(v) for k, v in prm["layers"].items()})
+
+
+def hidden(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, tokens: list, specs=None,
+           *, layers: int | None = None) -> tuple[list, list]:
+    """The forward over every position: each rank's tokens (b, S) -> (the
+    last layer's output (b, S, d), replicated over TP; each rank's MoE aux
+    summed over the layers, 0-d fp32).  Under ``cfg.remat`` and autograd
+    each layer is recomputed in the backward (its FSDP gathers and TP sums
+    with it) and keeps only its input, as the reference's
+    ``nothing_saveable`` checkpoint does."""
+    specs = serving_specs(cfg, grid) if specs is None else specs
+    n = _n_layers(cfg, layers)
+    params = grid.local(lambda p: _unstacked(params[p], n))
+    xs = _embed(cfg, grid, grid.local(lambda p: params[p]["embed"]), specs["embed"], tokens)
+    r0 = grid.local_ranks[0]
+    b, s = tokens[r0].shape
+    pos = torch.arange(s, device=xs[r0].device).expand(b, s)
+    aux = grid.local(lambda p: torch.zeros((), device=xs[p].device))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for l in range(n):
+        args = (cfg, grid, params, specs, l, xs, pos, True)
+        xs, a = (checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
+                 if remat else _block(*args))
+        aux = grid.local(lambda p: aux[p] + a[p])
+    return xs, aux
+
+
+def _ce_parts(cfg: tfm.TransformerConfig, x, norm, head, lo: int, targets):
+    """One rank's (b, c, d) rows and targets (b, c) against its logit block
+    -> the block's row max (no gradient), the sum of ``exp(logit - max)``
+    over the block, and the target's logit where the block holds it (else
+    0), each (b, c) fp32."""
+    y = _logits(cfg, x, norm, head, lo).float()
+    m = y.amax(-1).detach()
+    se = torch.exp(y - m[..., None]).sum(-1)
+    rel = targets.long() - lo
+    hit = (rel >= 0) & (rel < y.shape[-1])
+    gold = torch.gather(y, -1, rel.clamp(0, y.shape[-1] - 1)[..., None])[..., 0]
+    return m, se, torch.where(hit, gold, 0.0)
+
+
+def token_losses(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, specs, xs: list,
+                 targets: list) -> list:
+    """The next-token cross entropy of each rank's rows (b, S) in fp32,
+    replicated over TP, from the vocabulary-sharded logits: each rank's
+    block max, sum of exponentials and target logit, then one ``pmax`` over
+    TP of the maxima (no gradient) and one ``psum`` of the rescaled sums
+    and the target logits.  No rank holds the (b, S, V_pad) logits: its
+    block is computed in chunks of the sequence (:data:`LOSS_BYTES`), each
+    recomputed in the backward and holding no logits in between (on
+    ``meta``, one chunk and no recomputation)."""
+    head = _head_weight(cfg, grid, params, specs)
+    r0 = grid.local_ranks[0]
+    b, s, _ = xs[r0].shape
+    vc = head[r0].shape[-1]
+    meta = xs[r0].device.type == "meta"
+    chunk = s if meta else max(1, min(s, LOSS_BYTES // (b * vc * 4)))
+    fit = not meta and torch.is_grad_enabled()
+
+    def parts(p):
+        lo, pieces = _vocab_lo(grid, specs, p, vc), []
+        for c0 in range(0, s, chunk):
+            a = (cfg, xs[p][:, c0:c0 + chunk], params[p]["final_norm"], head[p], lo,
+                 targets[p][:, c0:c0 + chunk])
+            pieces.append(checkpoint(_ce_parts, *a, use_reentrant=False, preserve_rng_state=False)
+                          if fit else _ce_parts(*a))
+        return [torch.cat(z, 1) for z in zip(*pieces)]
+
+    loc = grid.local(parts)
+    big = _reduce_max(grid, grid.local(lambda p: loc[p][0]))
+    tot = _psum(grid, grid.local(lambda p: torch.stack(
+        [loc[p][1] * torch.exp(loc[p][0] - big[p]), loc[p][2]])), TP)
+    return grid.local(lambda p: big[p] + torch.log(tot[p][0]) - tot[p][1])
+
+
+def loss_fn(cfg: tfm.TransformerConfig, grid: Grid, params: RankParams, tokens: list, specs=None,
+            *, layers: int | None = None) -> list:
+    """Each rank's token rows (b, S+1) -> its share of the loss (0-d fp32):
+    its rows' mean next-token cross entropy (the same on the ranks of a
+    grid row) plus 0.01 x its MoE aux.  Their mean over the grid is the
+    reference's ``loss_fn`` on the whole batch (every row holds as many
+    tokens); :func:`repro_torch.train.step.make_sharded_train_step`
+    differentiates that mean."""
+    specs = serving_specs(cfg, grid) if specs is None else specs
+    xs, aux = hidden(cfg, grid, params, grid.local(lambda p: tokens[p][:, :-1]), specs,
+                     layers=layers)
+    ce = token_losses(cfg, grid, params, specs, xs, grid.local(lambda p: tokens[p][:, 1:]))
+    return grid.local(lambda p: ce[p].mean() + 0.01 * aux[p])
+
+
+def sum_replicas(grid: Grid, grads: list, specs) -> list:
+    """Each rank's gradient tree with every leaf that is replicated over an
+    axis summed over it (``grid.psum``: one call an axis and dtype, the
+    leaves flattened into one vector): a replica's gradient holds only its
+    own uses of the leaf, the leaf's is their sum.  Leaves split over every
+    axis are returned as they are."""
+    ranks = grid.local_ranks
+    flat = {p: tree.flatten(grads[p]) for p in ranks}
+    out = {p: list(flat[p][0]) for p in ranks}
+    first = flat[ranks[0]][0]
+    axes = [replicated_over(grid, sp) for sp in meshlib.spec_leaves(specs)]
+    keys = sorted({(a, str(g.dtype)) for a, g in zip(axes, first) if a is not None})
+    for axis, dtype in keys:
+        idx = [k for k, (a, g) in enumerate(zip(axes, first))
+               if a == axis and str(g.dtype) == dtype]
+        total = grid.psum(grid.local(lambda p: torch.cat([out[p][k].reshape(-1) for k in idx])),
+                          axis)
+        for p in ranks:
+            for k, part in zip(idx, torch.split(total[p], [out[p][k].numel() for k in idx])):
+                out[p][k] = part.view(out[p][k].shape)
+    return grid.local(lambda p: flat[p][1](out[p]))
+
+
+def grad_norm(grid: Grid, grads: list, specs) -> list:
+    """The global norm of the gradient (after :func:`sum_replicas`), on
+    every rank: each rank's sum of squares over its slices, a replicated
+    leaf counted on its first replica only, ``psum``ed over the grid."""
+    spec_list = meshlib.spec_leaves(specs)
+    ri, ci = grid.axis_index(grid.row_axes), grid.axis_index(TP)
+
+    def partial(p):
+        leaves = tree.leaves(grads[p])
+        acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for g, sp in zip(leaves, spec_list):
+            kinds = {_kind(e, grid) for e in sp}
+            if ("row" in kinds or not ri[p]) and ("col" in kinds or not ci[p]):
+                acc = acc + torch.sum(g.to(torch.float32) ** 2)
+        return acc
+
+    total = grid.psum(grid.local(partial), grid.all_axes)
+    return grid.local(lambda p: torch.sqrt(total[p]))

@@ -65,30 +65,59 @@ def global_norm(grads: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree.leaves(grads)))
 
 
-def apply(cfg: AdamWConfig, params: Any, grads: Any,
-          state: OptState) -> tuple[Any, OptState]:
-    """One AdamW step with global-norm clipping and the WSD schedule."""
-    step = state.step + 1
-    gn = global_norm(grads)
+def _coefficients(cfg: AdamWConfig, step: torch.Tensor, gn: torch.Tensor) -> tuple:
+    """The clip scale, learning rate and bias corrections of step ``step``
+    for a gradient of global norm ``gn``."""
     # a tensor numerator: ``scalar / tensor`` multiplies by the reciprocal
     clip = torch.full_like(gn, cfg.grad_clip)
     scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
-    lr = wsd_schedule(cfg, step)
     bc1 = 1.0 - cfg.b1 ** step.to(torch.float32)
     bc2 = 1.0 - cfg.b2 ** step.to(torch.float32)
+    return scale, wsd_schedule(cfg, step), bc1, bc2
 
-    def upd(p, g, m, v):
-        g = g.to(torch.float32) * scale
-        m_new = cfg.b1 * m + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
-        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-        p32 = p.to(torch.float32)
-        p_new = p32 - lr * (update + cfg.weight_decay * p32)
-        return p_new.to(p.dtype), m_new, v_new
 
-    flat_p, unflatten = tree.flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, tree.leaves(grads),
-                                                  tree.leaves(state.m), tree.leaves(state.v))]
-    return (unflatten([o[0] for o in out]),
-            OptState(step=step, m=unflatten([o[1] for o in out]),
-                     v=unflatten([o[2] for o in out])))
+def _update(cfg: AdamWConfig, coef: tuple, p, g, m, v):
+    """One leaf's AdamW step -> (param, m, v)."""
+    scale, lr, bc1, bc2 = coef
+    g = g.to(torch.float32) * scale
+    m_new = cfg.b1 * m + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
+    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+    p32 = p.to(torch.float32)
+    p_new = p32 - lr * (update + cfg.weight_decay * p32)
+    return p_new.to(p.dtype), m_new, v_new
+
+
+def apply(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+          norm: torch.Tensor | None = None) -> tuple[Any, OptState]:
+    """One AdamW step with global-norm clipping and the WSD schedule.
+    ``norm``: the gradient's global norm where ``grads`` hold only part of
+    it, else :func:`global_norm` of ``grads``."""
+    return apply_many(cfg, [params], [grads], [state],
+                      global_norm(grads) if norm is None else norm)[0]
+
+
+def apply_many(cfg: AdamWConfig, params: list, grads: list, states: list,
+               norm: torch.Tensor) -> list[tuple[Any, OptState]]:
+    """:func:`apply` on several trees of one structure and shapes at once
+    (a grid's ranks' slices, one step count), every tree clipped by the one
+    global ``norm``: the same arithmetic element for element, a leaf's
+    trees stacked into one tensor (one op for them all).  Returns each
+    tree's (params, state)."""
+    step = states[0].step + 1
+    coef = _coefficients(cfg, step, norm)
+    n = len(params)
+
+    def stacked(trees):
+        return [xs[0] if n == 1 else torch.stack(xs)
+                for xs in zip(*(tree.leaves(t) for t in trees))]
+
+    done = [_update(cfg, coef, *leaf)
+            for leaf in zip(stacked(params), stacked(grads), stacked([st.m for st in states]),
+                            stacked([st.v for st in states]))]
+    out = []
+    for i, t in enumerate(params):
+        unflatten = tree.flatten(t)[1]
+        p, m, v = ([x if n == 1 else x[i] for x in part] for part in zip(*done))
+        out.append((unflatten(p), OptState(step=step, m=unflatten(m), v=unflatten(v))))
+    return out
